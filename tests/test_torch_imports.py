@@ -1,0 +1,77 @@
+"""Package rules of the PyTorch port (textgcn_tpu_torch), checked on the CPU:
+its modules import neither JAX, the JAX package nor triton, it imports on a
+machine without a GPU, and its kernel wrappers never carry a non-CPU tensor
+on silently through a plain version."""
+import ast
+import importlib
+import pathlib
+
+import pytest
+import torch
+
+PKG = pathlib.Path(__file__).resolve().parent.parent / "textgcn_tpu_torch"
+FORBIDDEN = {"jax", "jaxlib", "textgcn_tpu", "triton"}
+
+
+def _modules():
+    # _build/ holds build outputs, not package modules
+    return sorted(p for p in PKG.rglob("*.py") if "_build" not in p.relative_to(PKG).parts)
+
+
+def _imported_roots(path):
+    tree = ast.parse(path.read_text(encoding="utf-8"))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+def test_no_module_imports_jax_or_the_jax_package():
+    mods = _modules()
+    assert len(mods) > 15
+    bad = {
+        str(p.relative_to(PKG)): sorted(set(_imported_roots(p)) & FORBIDDEN)
+        for p in mods
+    }
+    assert not {k: v for k, v in bad.items() if v}
+
+
+@pytest.mark.parametrize(
+    "path", [p for p in _modules()], ids=lambda p: str(p.relative_to(PKG))
+)
+def test_every_module_imports_without_a_gpu(path):
+    rel = path.relative_to(PKG.parent).with_suffix("")
+    name = ".".join(rel.parts).removesuffix(".__init__")
+    importlib.import_module(name)
+
+
+def test_wrappers_raise_off_cpu_and_cuda():
+    """A tensor on neither the CPU nor a CUDA device reaches no plain path."""
+    from textgcn_tpu_torch.ops.bsr_spmm import bsr_spmm
+    from textgcn_tpu_torch.ops.row_reduce import row_reduce
+
+    m = torch.device("meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        bsr_spmm(
+            torch.empty((1, 128, 128), device=m),
+            torch.zeros(2, dtype=torch.int32, device=m),
+            torch.zeros(1, dtype=torch.int32, device=m),
+            torch.empty((128, 16), device=m),
+        )
+    with pytest.raises(ValueError, match="no kernel"):
+        row_reduce(
+            torch.zeros(2, dtype=torch.int32, device=m),
+            torch.zeros(1, dtype=torch.int32, device=m),
+            torch.zeros(1, device=m),
+            torch.empty((4, 16), device=m),
+        )
+
+
+def test_cli_train_refuses_to_run_without_a_gpu(monkeypatch):
+    from textgcn_tpu_torch import cli
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(["train", "--dataset", "R8", "--spmm", "hybrid"])

@@ -1,0 +1,94 @@
+"""Command-line entry point: ``python -m textgcn_tpu_torch.cli train ...``.
+
+Port of the ``train`` subcommand of ``textgcn_tpu/cli.py``. It trains on the
+CUDA device and raises when there is none: the port never falls back to the
+CPU.
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+
+import torch
+
+from textgcn_tpu_torch.graph.format import DENSE_MAX_NODES, SPMM_FORMATS
+from textgcn_tpu_torch.train.run import generate_seeds, run_experiment
+from textgcn_tpu_torch.train.trainer import TrainConfig
+
+
+def cmd_train(args) -> int:
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "textgcn_tpu_torch trains on a CUDA device and none is available"
+        )
+    cfg = TrainConfig(
+        n_hidden=args.nhid,
+        lr=args.lr,
+        dropout=args.dropout,
+        max_epoch=args.max_epoch,
+        early_stopping=args.early_stopping,
+        val_ratio=args.val_ratio,
+        spmm=args.spmm,
+    )
+    summary = run_experiment(
+        args.dataset,
+        times=args.times,
+        graph_family=args.graph,
+        data_root=args.data_root,
+        output_dir=args.output_dir,
+        config=cfg,
+        seeds=generate_seeds(args.times, args.seed),
+        verbose=not args.quiet,
+        device="cuda",
+    )
+    acc = summary["test_accuracy"]
+    print(
+        f"{args.dataset}: acc mean={acc['mean']:.4f} "
+        f"max={acc['max']:.4f} min={acc['min']:.4f}"
+    )
+    return 0
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(prog="textgcn_tpu_torch")
+    sub = parser.add_subparsers(dest="command", required=True)
+
+    p = sub.add_parser("train", help="train the GCN on a built graph (CUDA)")
+    p.add_argument("--dataset", required=True)
+    p.add_argument(
+        "--graph", default="docword", choices=["docword"],
+        help="graph family: docword (classic TextGCN doc-word graph)",
+    )
+    p.add_argument("--times", type=int, default=1)
+    p.add_argument("--data_root", default="data")
+    p.add_argument("--output_dir", default="results")
+    p.add_argument("--nhid", type=int, default=200)
+    p.add_argument("--lr", type=float, default=0.02)
+    p.add_argument("--dropout", type=float, default=0.5)
+    p.add_argument("--max_epoch", type=int, default=200)
+    p.add_argument("--early_stopping", type=int, default=10)
+    p.add_argument("--val_ratio", type=float, default=0.1)
+    p.add_argument(
+        "--seed", type=int, default=None,
+        help="master seed for the runs' seeds (default: fresh random seeds)",
+    )
+    p.add_argument(
+        "--spmm",
+        default="auto",
+        choices=list(SPMM_FORMATS),
+        help="graph format for the Â@X passes: segment = gather + index_add_ "
+        "(plain PyTorch, the oracle); dense = one [N, N] matmul; hybrid = "
+        "degree sort, then 128x128 tiles holding >= 24 edges run on the "
+        "tile kernel and the other edges on the residual kernel (relabels "
+        f"nodes); auto = dense up to {DENSE_MAX_NODES} nodes, and above "
+        "that an error until the port has GPU cost constants",
+    )
+    p.add_argument("--quiet", action="store_true")
+    p.set_defaults(fn=cmd_train)
+
+    args = parser.parse_args(argv)
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

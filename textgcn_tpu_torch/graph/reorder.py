@@ -1,0 +1,229 @@
+"""Degree-sort reordering and the hybrid tile + residual SpMM layout.
+
+Port of ``textgcn_tpu/graph/reorder.py``. A degree sort relabels nodes so
+that the edges of a power-law graph concentrate into dense 128x128 tiles.
+:class:`HybridGraph` sends tiles holding at least ``min_nnz`` edges to the
+tile kernel K1 (:mod:`textgcn_tpu_torch.ops.bsr_spmm`) and keeps the other
+edges as a row-sorted CSR for the residual kernel K2
+(:mod:`textgcn_tpu_torch.ops.row_reduce`), which adds them onto K1's output.
+Occupancy thresholding keeps the split symmetric for a symmetric pattern, so
+for a sym-normalized Â the backward of :func:`spmm_hybrid` is the same pass.
+
+The TPU layouts of the JAX module are not carried over: the grouped
+(K-packed) tile stack, the residual's ``OneHotPlan`` windows and superchunks,
+and the alignment of the padded rows to the plan's window grid.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from textgcn_tpu_torch.graph.structs import BlockSparseGraph
+from textgcn_tpu_torch.ops.bsr_spmm import F_ALIGN, TILE, bsr_spmm
+from textgcn_tpu_torch.ops.row_reduce import row_reduce
+
+
+def degree_sort_permutation(
+    row: np.ndarray, col: np.ndarray, n_nodes: int
+) -> np.ndarray:
+    """``perm[old_id] = new_id`` with highest-degree nodes first.
+
+    Degree counts both endpoints; ties break by old id.
+    """
+    deg = np.bincount(np.asarray(row), minlength=n_nodes) + np.bincount(
+        np.asarray(col), minlength=n_nodes
+    )
+    order = np.argsort(-deg, kind="stable")  # old ids, hubs first
+    perm = np.empty(n_nodes, dtype=np.int64)
+    perm[order] = np.arange(n_nodes, dtype=np.int64)
+    return perm
+
+
+def permute_coo(row, col, val, perm):
+    """Relabel a COO pattern: returns (perm[row], perm[col], val)."""
+    perm = np.asarray(perm)
+    return perm[np.asarray(row)], perm[np.asarray(col)], np.asarray(val)
+
+
+def tile_fill_threshold_split(
+    row: np.ndarray,
+    col: np.ndarray,
+    n_nodes: int,
+    bm: int = 128,
+    bn: int = 128,
+    min_nnz: int = 24,
+    max_block_bytes: int = 2 << 30,
+):
+    """Boolean edge mask selecting the tile (BSR) part.
+
+    A tile goes to the BSR part when it holds >= tau nonzeros, where
+    tau >= ``min_nnz`` is raised, if needed, until the selected tiles' dense
+    storage, priced at f32, fits ``max_block_bytes``. ``min_nnz=24`` is the JAX package's
+    value, tuned on a TPU; it has not been re-swept on the GPU.
+    """
+    row = np.asarray(row, dtype=np.int64)
+    col = np.asarray(col, dtype=np.int64)
+    n_bcols = -(-max(n_nodes, 1) // bn)
+    key = (row // bm) * n_bcols + (col // bn)
+    _, inv, counts = np.unique(key, return_inverse=True, return_counts=True)
+
+    budget_tiles = max(1, max_block_bytes // (bm * bn * 4))
+    tau = min_nnz
+    if int((counts >= tau).sum()) > budget_tiles:
+        # raise tau to the budget_tiles-th largest occupancy
+        tau = int(np.sort(counts)[::-1][budget_tiles - 1]) + 1
+    return (counts >= tau)[inv]
+
+
+@dataclasses.dataclass(frozen=True)
+class ResidualCSR:
+    """The residual edges as a row-sorted CSR for the K2 kernel.
+
+    ``row_ptr`` [n_nodes + 1] int32, ``col`` [E] int32, ``val`` [E] f32.
+    """
+
+    row_ptr: torch.Tensor
+    col: torch.Tensor
+    val: torch.Tensor
+    n_edges: int
+
+    @staticmethod
+    def from_coo(row, col, val, n_nodes: int, *, device) -> "ResidualCSR":
+        row = np.asarray(row, dtype=np.int64)
+        order = np.lexsort((np.asarray(col), row))
+        row_ptr = np.searchsorted(row[order], np.arange(n_nodes + 1)).astype(np.int32)
+        return ResidualCSR(
+            row_ptr=torch.from_numpy(row_ptr).to(device),
+            col=torch.from_numpy(np.asarray(col)[order].astype(np.int32)).to(device),
+            val=torch.from_numpy(np.asarray(val)[order].astype(np.float32)).to(device),
+            n_edges=int(len(row)),
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class HybridGraph:
+    """Dense-tile BSR part (flat 128x128 tiles) + residual CSR.
+
+    ``rest`` is None when every edge landed in a dense tile.
+    """
+
+    bsr: BlockSparseGraph
+    rest: Optional[ResidualCSR]
+    n_nodes: int
+    n_edges: int
+    symmetric: bool
+
+    @staticmethod
+    def from_coo(
+        row: np.ndarray,
+        col: np.ndarray,
+        val: np.ndarray,
+        n_nodes: int,
+        symmetric: bool = False,
+        min_nnz: int = 24,
+        store_bf16: bool = True,
+        *,
+        device,
+    ) -> "HybridGraph":
+        """Build the hybrid layout on ``device``.
+
+        ``store_bf16`` stores the tile stack in bf16 (the kernel's input
+        type; the pass then also reads features in bf16). ``False`` keeps
+        f32 tiles for the plain path's f32-exact tile leg; the CUDA tile
+        kernel refuses them.
+        """
+        row = np.asarray(row, dtype=np.int64)
+        col = np.asarray(col, dtype=np.int64)
+        val = np.asarray(val, dtype=np.float64)
+        dense = tile_fill_threshold_split(
+            row, col, n_nodes, bm=TILE, bn=TILE, min_nnz=min_nnz
+        )
+        bsr = BlockSparseGraph.from_coo(
+            row[dense], col[dense], val[dense], n_nodes, bm=TILE, bn=TILE,
+            dtype=torch.bfloat16 if store_bf16 else torch.float32,
+            # the split's budget plus the coverage tiles of empty block-rows
+            max_block_bytes=(2 << 30) + (64 << 20),
+            symmetric=symmetric, device=device,
+        )
+        rest = None
+        if not dense.all():
+            rest = ResidualCSR.from_coo(
+                row[~dense], col[~dense], val[~dense], n_nodes, device=device
+            )
+        return HybridGraph(
+            bsr=bsr,
+            rest=rest,
+            n_nodes=int(n_nodes),
+            n_edges=int(len(row)),
+            symmetric=bool(symmetric),
+        )
+
+    @property
+    def dense_fraction(self) -> float:
+        return self.bsr.n_edges / max(self.n_edges, 1)
+
+
+def reorder_and_build(
+    row, col, val, n_nodes, symmetric: bool = False, perm=None, *, device, **kwargs
+):
+    """Degree-sort, then build the hybrid layout on the permuted pattern.
+
+    Returns ``(perm, hybrid)`` with ``perm[old] = new``. The caller applies
+    the same permutation to features, labels and splits:
+    ``P Â Pᵀ (P x) = P (Â x)``.
+    """
+    if perm is None:
+        perm = degree_sort_permutation(row, col, n_nodes)
+    r2, c2, v2 = permute_coo(row, col, val, perm)
+    return perm, HybridGraph.from_coo(
+        r2, c2, v2, n_nodes, symmetric=symmetric, device=device, **kwargs
+    )
+
+
+def hybrid_pass(h: HybridGraph, x: torch.Tensor) -> torch.Tensor:
+    """One hybrid pass ``Â @ x`` (no autograd).
+
+    Builds one padded feature table [n_pad, F'] in the tile stack's type
+    (F' = F rounded up to the kernels' 16-column step), runs the tile kernel
+    into a fresh f32 output, lets the residual kernel add onto that output in
+    place, and slices once. The residual leg always reads bf16 features.
+    """
+    n, f = h.n_nodes, x.shape[1]
+    bsr = h.bsr
+    xp = x.new_zeros(
+        (bsr.n_block_rows * bsr.bm, -(-f // F_ALIGN) * F_ALIGN),
+        dtype=bsr.blocks.dtype,
+    )
+    xp[:n, :f] = x
+    out = bsr_spmm(bsr.blocks, bsr.tile_ptr, bsr.block_cols, xp)
+    if h.rest is not None:
+        xq = xp if xp.dtype == torch.bfloat16 else xp.to(torch.bfloat16)
+        row_reduce(h.rest.row_ptr, h.rest.col, h.rest.val, xq, base=out)
+    return out[:n, :f]
+
+
+class _SpmmHybrid(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, h, x):
+        ctx.h = h
+        return hybrid_pass(h, x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if not ctx.h.symmetric:
+            raise NotImplementedError(
+                "spmm_hybrid backward needs a symmetric adjacency"
+            )
+        return None, hybrid_pass(ctx.h, g)
+
+
+def spmm_hybrid(h: HybridGraph, x: torch.Tensor) -> torch.Tensor:
+    """``Â @ x`` over the hybrid layout, differentiable in ``x``.
+
+    The backward needs ``h.symmetric`` (Âᵀ = Â), which holds for the
+    sym-normalized adjacencies this package trains on.
+    """
+    return _SpmmHybrid.apply(h, x)

@@ -1,0 +1,121 @@
+"""Build and load the port's CUDA kernels (``textgcn_tpu_torch/csrc/*.cu``).
+
+No JAX counterpart: the JAX package's Pallas kernels are compiled by XLA.
+
+``nvcc`` compiles every source in ``csrc/`` into one shared library with a
+plain C interface (no PyTorch headers, so the build takes seconds), which
+``ctypes`` loads. Tensors cross as raw device pointers and the launch goes on
+PyTorch's current stream. The build runs at the first CUDA launch, into
+``textgcn_tpu_torch/_build/`` (listed in ``.gitignore``). The library's file
+name carries a hash of the sources and flags, so an edited kernel is rebuilt
+and a stale library is never loaded.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = CSRC.parent / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# C entry points: (pointers..., ints..., stream) -> cudaError_t as int
+_SIGNATURES = {
+    "textgcn_bsr_spmm": [_P, _P, _P, _P, _P, _I, _I, _P],
+    "textgcn_row_reduce": [_P, _P, _P, _P, _P, _I, _I, _P],
+}
+
+
+class _Loaded:
+    """The process's one loaded library, with how it was obtained."""
+
+    lib = None
+    build_seconds = None  # None when an existing library was reused
+    log = ""  # nvcc's output (ptxas register and shared-memory report)
+
+
+def _nvcc() -> str:
+    for cand in (
+        shutil.which("nvcc"),
+        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError(
+        "nvcc not found (PATH or $CUDA_HOME/bin): the CUDA kernels of "
+        "textgcn_tpu_torch are built from csrc/ at first use"
+    )
+
+
+def sources() -> list:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libtextgcn_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile ``csrc/*.cu`` unless the library for these sources exists.
+
+    Writes to a temporary name and renames, so a concurrent or interrupted
+    build never leaves a half-written library under the final name.
+    """
+    path = library_path()
+    if path.exists():
+        return path
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+            f"{proc.stdout}{proc.stderr}"
+        )
+    os.replace(tmp, path)
+    _Loaded.build_seconds = time.perf_counter() - t0
+    _Loaded.log = proc.stdout + proc.stderr
+    return path
+
+
+def load() -> ctypes.CDLL:
+    """The kernels' library, built on first use and loaded once per process."""
+    if _Loaded.lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _Loaded.lib = lib
+    return _Loaded.lib
+
+
+def build_info() -> dict:
+    """Seconds the build took in this process (None if it reused a library)
+    and nvcc's output."""
+    return {"seconds": _Loaded.build_seconds, "log": _Loaded.log}
+
+
+def check_launch(name: str, err: int) -> None:
+    """Raise if a C entry point reported a CUDA error for its launch."""
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")

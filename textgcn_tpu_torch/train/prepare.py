@@ -1,0 +1,119 @@
+"""Prepared training data: graph artifact → tensors on a device.
+
+Port of the doc-word path of ``textgcn_tpu/train/prepare.py``
+(``PreparedData``, ``load_graph_edges``, ``prepare_docword_data``,
+``apply_spmm_format``, ``permute_rows_1d_docs``): read the weighted
+edgelist, max-symmetrize (A := max(A, Aᵀ)), sym-normalize with self-loops,
+pack into a :class:`SparseGraph`, and read labels and splits. The topic-graph
+path (``prepare_topic_data``) comes with the topic pipeline.
+"""
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import Optional
+
+import numpy as np
+
+from textgcn_tpu_torch.graph.build_topic import read_weighted_edgelist
+from textgcn_tpu_torch.graph.format import convert_graph, permute_rows
+from textgcn_tpu_torch.graph.normalize import max_symmetrize_coo, sym_normalize_coo
+from textgcn_tpu_torch.graph.structs import SparseGraph
+from textgcn_tpu_torch.text.datasets import DatasetLabels, load_labels
+
+
+@dataclasses.dataclass
+class PreparedData:
+    graph: object  # SparseGraph or any spmm-dispatchable container
+    features: Optional[np.ndarray]  # [N, F] float32 dense; None = identity
+    labels: DatasetLabels
+    n_feat: int
+    num_docs: int
+    num_topics: int
+    # node relabeling applied by apply_spmm_format (perm[old] = new); None
+    # while node ids are the artifact's own
+    perm: Optional[np.ndarray] = None
+
+    @property
+    def n_nodes(self) -> int:
+        return self.graph.n_nodes
+
+
+def apply_spmm_format(pre: PreparedData, fmt: str = "auto") -> PreparedData:
+    """Convert ``pre.graph`` to the requested SpMM format
+    (:func:`textgcn_tpu_torch.graph.format.convert_graph`).
+
+    ``hybrid`` relabels nodes (degree sort); features, labels and split
+    indices are permuted with it, so training is unchanged:
+    ``P Â Pᵀ (P x) = P (Â x)``. No-op when the graph is already converted.
+    """
+    if not isinstance(pre.graph, SparseGraph) or fmt == "segment":
+        return pre
+    graph, perm = convert_graph(pre.graph, fmt, symmetric=True)
+    if perm is None:
+        return dataclasses.replace(pre, graph=graph)
+    labels = pre.labels
+    new_labels = dataclasses.replace(
+        labels,
+        target=permute_rows_1d_docs(labels.target, perm),
+        train_idx=perm[labels.train_idx],
+        test_idx=perm[labels.test_idx],
+    )
+    features = None if pre.features is None else permute_rows(pre.features, perm)
+    return dataclasses.replace(
+        pre, graph=graph, features=features, labels=new_labels, perm=perm
+    )
+
+
+def permute_rows_1d_docs(target: np.ndarray, perm: np.ndarray) -> np.ndarray:
+    """Relabel per-doc labels to permuted node ids.
+
+    Doc ``d`` sits at node ``perm[d]`` after the permutation, anywhere in
+    [0, N), so the target vector grows to N entries; non-doc nodes get label
+    0 (the train and test indices only point at doc nodes).
+    """
+    n = len(perm)
+    out = np.zeros((n,), dtype=np.asarray(target).dtype)
+    out[perm[: len(target)]] = target
+    return out
+
+
+def load_graph_edges(
+    edgelist_path: str, n_nodes: int, pad_to_multiple: int = 4096, *, device
+) -> SparseGraph:
+    """Edgelist → max-symmetrized, normalized SparseGraph on ``device``."""
+    src, dst, w = read_weighted_edgelist(edgelist_path)
+    r, c, v = max_symmetrize_coo(src, dst, w, n_nodes)
+    r, c, v = sym_normalize_coo(r, c, v, n_nodes)
+    return SparseGraph.from_coo(
+        r, c, v, n_nodes, pad_to_multiple=pad_to_multiple, device=device
+    )
+
+
+def prepare_docword_data(
+    dataset: str,
+    data_root: str = "data",
+    graph_dir: Optional[str] = None,
+    *,
+    device,
+) -> PreparedData:
+    """Classic TextGCN doc-word graph → identity-feature training inputs.
+
+    Features are the identity (X = I_N, never built: ``gcn_forward(x=None)``);
+    nodes are docs [0, D) then words [D, D+W).
+    """
+    graph_dir = graph_dir or os.path.join(data_root, "graph")
+    base = os.path.join(graph_dir, f"{dataset}_docword")
+    labels = load_labels(os.path.join(data_root, "text_dataset", f"{dataset}.txt"))
+    with open(base + "_vocab.txt", encoding="utf-8") as f:
+        n_words = sum(1 for line in f if line.strip())
+    n_nodes = labels.n_docs + n_words
+    graph = load_graph_edges(base + ".txt", n_nodes, device=device)
+    return PreparedData(
+        graph=graph,
+        features=None,
+        labels=labels,
+        n_feat=n_nodes,
+        num_docs=labels.n_docs,
+        num_topics=0,
+    )

@@ -1,0 +1,166 @@
+"""Multi-seed training runner and its human/machine reports.
+
+Port of ``textgcn_tpu/train/run.py`` (``run_experiment`` on one device,
+``generate_seeds``, ``aggregate``, ``write_reports``). The reports keep the
+JAX package's schema: ``{ds}_{family}_training_results.json`` (with full
+per-epoch histories and hyperparameters) and ``.txt``. The summary also
+names the device it ran on.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import random
+import time
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from textgcn_tpu_torch.train.prepare import (
+    PreparedData,
+    apply_spmm_format,
+    prepare_docword_data,
+)
+from textgcn_tpu_torch.train.trainer import TrainConfig, Trainer
+
+
+def generate_seeds(nums: int, master_seed: Optional[int] = None) -> List[int]:
+    rng = random.Random(master_seed)
+    return rng.sample(range(0, 100000), nums)
+
+
+def aggregate(values: List[float]) -> Dict[str, float]:
+    return {
+        "mean": float(np.mean(values)),
+        "max": float(np.max(values)),
+        "min": float(np.min(values)),
+    }
+
+
+def device_memory(device: torch.device) -> Dict[str, Dict[str, float]]:
+    """Memory of a CUDA device in MB, from ``torch.cuda.memory_stats``
+    (empty for the CPU)."""
+    if device.type != "cuda":
+        return {}
+    stats = torch.cuda.memory_stats(device)
+    _, total = torch.cuda.mem_get_info(device)
+    return {
+        str(device): {
+            "bytes_in_use_mb": stats.get("allocated_bytes.all.current", 0) / 1e6,
+            "peak_bytes_in_use_mb": stats.get("allocated_bytes.all.peak", 0) / 1e6,
+            "bytes_limit_mb": total / 1e6,
+        }
+    }
+
+
+def device_name(device: torch.device) -> str:
+    return torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+
+
+def run_experiment(
+    dataset: str,
+    times: int = 1,
+    graph_family: str = "docword",
+    data_root: str = "data",
+    output_dir: str = "results",
+    config: TrainConfig = TrainConfig(),
+    seeds: Optional[List[int]] = None,
+    pre_data: Optional[PreparedData] = None,
+    verbose: bool = True,
+    *,
+    device,
+) -> Dict[str, Any]:
+    """Train ``times`` seeds on ``dataset`` on ``device``; write reports;
+    return the summary."""
+    device = torch.device(device)
+    if graph_family != "docword":
+        raise NotImplementedError(
+            f"graph family {graph_family!r}: the port has the doc-word graph "
+            "so far (ROADMAP A: the R8 topic graph comes next)"
+        )
+    if pre_data is None:
+        pre_data = prepare_docword_data(dataset, data_root=data_root, device=device)
+    pre_data = apply_spmm_format(pre_data, config.spmm)
+    seeds = seeds or generate_seeds(times)
+
+    runs: List[Dict[str, Any]] = []
+    for i, seed in enumerate(seeds):
+        cfg = dataclasses.replace(config, seed=seed)
+        trainer = Trainer(
+            pre_data.graph,
+            pre_data.features,
+            pre_data.labels.target,
+            pre_data.labels.train_idx,
+            pre_data.labels.test_idx,
+            pre_data.labels.n_classes,
+            config=cfg,
+            device=device,
+        )
+        trainer.fit(verbose=verbose)
+        test_desc = trainer.test()
+        if verbose:
+            print(f"[run {i + 1}/{len(seeds)} seed={seed}] {test_desc}")
+        runs.append(
+            {
+                "seed": seed,
+                "test": test_desc,
+                "epochs_run": len(trainer.history),
+                "history": trainer.history,
+            }
+        )
+
+    accs = [r["test"]["acc"] for r in runs]
+    f1s = [r["test"]["macro_f1"] for r in runs]
+    summary = {
+        "device_memory": device_memory(device),
+        "device": {"type": device.type, "name": device_name(device)},
+        "dataset": dataset,
+        "graph_family": graph_family,
+        "times": len(seeds),
+        "hyperparameters": dataclasses.asdict(config),
+        "test_accuracy": aggregate(accs),
+        "test_macro_f1": aggregate(f1s),
+        "model_param": runs[0]["test"]["model_param"],
+        "train_time": aggregate([r["test"]["train_time"] for r in runs]),
+        "runs": runs,
+        "timestamp": time.strftime("%Y-%m-%d %H:%M:%S"),
+    }
+    write_reports(summary, output_dir)
+    return summary
+
+
+def write_reports(summary: Dict[str, Any], output_dir: str) -> None:
+    os.makedirs(output_dir, exist_ok=True)
+    ds = summary["dataset"]
+    fam = summary["graph_family"]
+    json_path = os.path.join(output_dir, f"{ds}_{fam}_training_results.json")
+    with open(json_path, "w", encoding="utf-8") as f:
+        json.dump(summary, f, indent=2)
+
+    txt_path = os.path.join(output_dir, f"{ds}_{fam}_training_results.txt")
+    with open(txt_path, "w", encoding="utf-8") as f:
+        f.write(f"{fam} GCN training results — {ds}\n")
+        f.write("=" * 60 + "\n")
+        f.write(f"generated: {summary['timestamp']}\n")
+        f.write(f"device: {summary['device']['name']}\n")
+        f.write(f"runs: {summary['times']}\n\n")
+        f.write("Hyperparameters:\n")
+        for k, v in summary["hyperparameters"].items():
+            f.write(f"  {k}: {v}\n")
+        f.write(f"\nModel parameters: {summary['model_param']}\n\n")
+        for metric in ("test_accuracy", "test_macro_f1"):
+            agg = summary[metric]
+            f.write(
+                f"{metric}: mean={agg['mean']:.4f} "
+                f"max={agg['max']:.4f} min={agg['min']:.4f}\n"
+            )
+        f.write("\nPer-run results:\n")
+        for r in summary["runs"]:
+            t = r["test"]
+            f.write(
+                f"  seed={r['seed']} acc={t['acc']:.4f} "
+                f"macro_f1={t['macro_f1']:.4f} epochs={r['epochs_run']} "
+                f"train_time={t['train_time']:.1f}s\n"
+            )
