@@ -1,0 +1,304 @@
+"""The port's attention ops (textgcn_tpu_torch/ops/attention.py) against the
+JAX package's (textgcn_tpu/ops/pallas_attention.py), on the CPU.
+
+The JAX Pallas kernels run in interpret mode, as tests/test_attention.py runs
+them; the port's wrappers run their plain PyTorch versions on CPU tensors
+(the CUDA kernels are held against those in tests/test_torch_kernels.py).
+JAX keeps per-edge values in plan slots and the port in forward-CSR order:
+``fwd_dst`` and ``edge_pos`` map both to the input edge order.
+
+Tolerances: where both sides compute in f32 from the same (bf16-rounded)
+inputs, only the order of f32 sums differs (rtol 1e-5 .. 1e-4); where JAX
+rounds to bf16 and the port does not (the aggregation weights, the
+products of the dx pass), 2e-2, the JAX package's own bf16 tolerance.
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from textgcn_tpu.ops import pallas_attention as jatt
+
+from textgcn_tpu_torch.ops import attention as tatt
+
+CPU = torch.device("cpu")
+SLOPE = 0.2
+
+
+def _graph(n=300, e=3000, seed=0, symmetric=False):
+    """Coalesced COO whose row degrees span two orders of magnitude (rows
+    drawn from a power law), with rows that have no edges (the tail, and
+    every row = 5 mod 97), and val in [0.1, 1)."""
+    rng = np.random.RandomState(seed)
+    p = np.arange(1, n + 1) ** -1.2
+    p /= p.sum()
+    row = rng.choice(n, e, p=p)
+    col = rng.randint(0, n, e)
+    if symmetric:
+        row, col = np.concatenate([row, col]), np.concatenate([col, row])
+    key = np.unique(row * n + col)
+    row, col = key // n, key % n
+    keep = (row % 97) != 5
+    row, col = row[keep], col[keep]
+    val = rng.rand(len(row)) * 0.9 + 0.1
+    if symmetric:
+        lo = np.minimum(row, col) * n + np.maximum(row, col)
+        val = 0.1 + 0.9 * ((lo * 2654435761) % 1000) / 1000.0
+    return row, col, val, n
+
+
+def _both(row, col, val, n):
+    tg = tatt.AttentionGraph.from_coo(row, col, val, n, device=CPU)
+    jg = jatt.AttentionGraph.from_coo(row, col, val, n, w=8, k=128)
+    return tg, jg
+
+
+def _port_to_edges(tg, a):
+    """Port per-edge values (forward-CSR order) -> input edge order."""
+    return np.asarray(a)[tg.edge_pos.numpy()]
+
+
+def _jax_to_edges(jg, slots, plan="fwd"):
+    dst = jg.fwd_dst if plan == "fwd" else jg.bwd_dst
+    return np.asarray(slots).reshape(-1)[np.asarray(dst)]
+
+
+def _jax_slots(jg, edge_vals, fill):
+    flat = np.full(jg.fwd.n_sc * jg.fwd.c_sc * jg.fwd.k, fill, np.float32)
+    flat[np.asarray(jg.fwd_dst)] = edge_vals
+    return jnp.asarray(flat.reshape(jg.fwd.n_sc, -1))
+
+
+def _port_edges(tg, edge_vals):
+    """Input-order per-edge values -> port forward-CSR order."""
+    out = np.empty(len(edge_vals), np.float32)
+    out[tg.edge_pos.numpy()] = edge_vals
+    return torch.from_numpy(out)
+
+
+def _jax_stats_logits(jg, es, ed):
+    """JAX's forward prologue (``_gat_attention_fwd_impl``) up to the
+    stats+logits kernel."""
+    plan = jg.fwd
+    n_rows = plan.n_sc * plan.w_sc * plan.w
+    es_rep = jnp.broadcast_to(
+        jnp.pad(jnp.asarray(es), (0, n_rows - len(es)))[:, None], (n_rows, 128)
+    )
+    gd = jnp.take(
+        jnp.asarray(ed), plan.col.reshape(-1), mode="fill", fill_value=0.0
+    ).reshape(plan.n_sc, -1)
+    return jatt.stats_logits(plan, es_rep, gd, jnp.log(plan.val), SLOPE, True)
+
+
+def test_attention_graph_layout():
+    row, col, val, n = _graph(seed=1)
+    tg = tatt.AttentionGraph.from_coo(row, col, val, n, device=CPU)
+    ptr = tg.row_ptr.numpy()
+    rows = np.repeat(np.arange(n), np.diff(ptr))
+    np.testing.assert_array_equal(rows, tg.row.numpy())
+    # forward CSR sorted by (row, col); edge_pos maps input edges into it
+    key = rows * n + tg.col.numpy()
+    assert np.all(np.diff(key) > 0)
+    pos = tg.edge_pos.numpy()
+    np.testing.assert_array_equal(rows[pos], row)
+    np.testing.assert_array_equal(tg.col.numpy()[pos], col)
+    np.testing.assert_array_equal(
+        tg.logval.numpy()[pos], np.log(val.astype(np.float32))
+    )
+    # transpose CSR sorted by (col, row); perm_t points at the same edge
+    perm = tg.perm_t.numpy()
+    rows_t = np.repeat(np.arange(n), np.diff(tg.row_ptr_t.numpy()))
+    np.testing.assert_array_equal(tg.col.numpy()[perm], rows_t)
+    np.testing.assert_array_equal(rows[perm], tg.col_t.numpy())
+    assert np.all(np.diff(rows_t * n + tg.col_t.numpy()) > 0)
+    assert tg.max_degree == np.diff(ptr).max() > 20 * np.median(np.diff(ptr))
+    with pytest.raises(ValueError, match="coalesced"):
+        tatt.AttentionGraph.from_coo(
+            np.r_[row, row[:1]], np.r_[col, col[:1]], np.r_[val, val[:1]], n,
+            device=CPU,
+        )
+
+
+def test_stats_logits_match_jax():
+    row, col, val, n = _graph(seed=2)
+    tg, jg = _both(row, col, val, n)
+    rng = np.random.RandomState(3)
+    es, ed = rng.randn(n).astype(np.float32), rng.randn(n).astype(np.float32)
+    lg_t, mx_t, sm_t = tatt.stats_logits(
+        tg.row_ptr, tg.col, tg.logval, torch.from_numpy(es), torch.from_numpy(ed),
+        SLOPE,
+    )
+    lg_j, mx_j, sm_j = _jax_stats_logits(jg, es, ed)
+    # the same f32 operations per edge, but log(val) from numpy on the port's
+    # side and from XLA on JAX's (they may differ in the last bit)
+    np.testing.assert_allclose(
+        _port_to_edges(tg, lg_t), _jax_to_edges(jg, lg_j), rtol=1e-6, atol=1e-6
+    )
+    np.testing.assert_allclose(mx_t.numpy(), np.asarray(mx_j)[:n, 0], rtol=1e-6)
+    # f32 exp-sums in another order (online rescaling on both sides)
+    np.testing.assert_allclose(sm_t.numpy(), np.asarray(sm_j)[:n, 0], rtol=1e-5)
+    empty = np.diff(tg.row_ptr.numpy()) == 0
+    assert empty.sum() >= 4
+    assert np.all(mx_t.numpy()[empty] == np.float32(-1e30))
+    assert np.all(sm_t.numpy()[empty] == 0)
+
+
+def test_softmax_stats_match_jax():
+    row, col, val, n = _graph(seed=4)
+    tg, jg = _both(row, col, val, n)
+    elog = np.random.RandomState(5).randn(len(row)).astype(np.float32) * 3
+    mx_t, sm_t = tatt.softmax_stats(tg.row_ptr, _port_edges(tg, elog))
+    mx_j, sm_j = jatt.softmax_stats(jg.fwd, _jax_slots(jg, elog, -np.inf), True)
+    np.testing.assert_array_equal(mx_t.numpy(), np.asarray(mx_j)[:n, 0])
+    # f32 exp-sums in another order
+    np.testing.assert_allclose(sm_t.numpy(), np.asarray(sm_j)[:n, 0], rtol=1e-5)
+
+
+def test_rowsum_forward_and_transpose_match_jax():
+    row, col, val, n = _graph(seed=6)
+    tg, jg = _both(row, col, val, n)
+    v = np.random.RandomState(7).randn(len(row)).astype(np.float32)
+    vt = _port_edges(tg, v)
+    got_f = tatt.rowsum(tg.row_ptr, vt)
+    want_f = jatt.rowsum_slots(jg.fwd, _jax_slots(jg, v, 0.0), True)
+    flat_b = np.zeros(jg.bwd.n_sc * jg.bwd.c_sc * jg.bwd.k, np.float32)
+    flat_b[np.asarray(jg.bwd_dst)] = v
+    got_t = tatt.rowsum(tg.row_ptr_t, vt[tg.perm_t.long()])
+    want_t = jatt.rowsum_slots(
+        jg.bwd, jnp.asarray(flat_b.reshape(jg.bwd.n_sc, -1)), True
+    )
+    # f32 sums in another order
+    np.testing.assert_allclose(got_f.numpy(), np.asarray(want_f)[:n, 0], rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got_t.numpy(), np.asarray(want_t)[:n, 0], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("f", [8, 20])
+def test_sddmm_matches_jax(f):
+    row, col, val, n = _graph(seed=8)
+    tg, jg = _both(row, col, val, n)
+    rng = np.random.RandomState(9)
+    g = rng.randn(n, f).astype(np.float32)
+    x = rng.randn(n, f).astype(np.float32)
+    u_t = tatt.sddmm(
+        tg.row_ptr, tg.col,
+        tatt.features_bf16(torch.from_numpy(g)), tatt.features_bf16(torch.from_numpy(x)),
+    )
+    u_j = jatt.sddmm_slots(jg.fwd, jnp.asarray(g), jnp.asarray(x), True)
+    # both round g and x to bf16; their products are exact in f32, summed in
+    # another order
+    np.testing.assert_allclose(
+        _port_to_edges(tg, u_t), _jax_to_edges(jg, u_j), rtol=1e-5, atol=1e-5
+    )
+
+
+@pytest.mark.parametrize("f", [8, 20])
+def test_attn_agg_matches_jax(f):
+    row, col, val, n = _graph(seed=10)
+    tg, jg = _both(row, col, val, n)
+    rng = np.random.RandomState(11)
+    es, ed = rng.randn(n).astype(np.float32), rng.randn(n).astype(np.float32)
+    x = rng.randn(n, f).astype(np.float32)
+    lg, mx, sm = tatt.stats_logits(
+        tg.row_ptr, tg.col, tg.logval, torch.from_numpy(es), torch.from_numpy(ed), SLOPE
+    )
+    got = tatt.attn_agg(tg.row_ptr, tg.col, lg, mx, sm, tatt.features_bf16(torch.from_numpy(x)))
+    want = jatt._attn_agg(jg.fwd, *_jax_stats_logits(jg, es, ed), jnp.asarray(x), True)
+    # JAX rounds the softmax weights to bf16 before its dot; the port keeps f32
+    np.testing.assert_allclose(got[:, :f].numpy(), np.asarray(want), rtol=2e-2, atol=2e-2)
+    assert np.all(got[np.diff(tg.row_ptr.numpy()) == 0].numpy() == 0)
+
+
+def test_gat_attention_forward_and_grads_match_jax_vjp():
+    row, col, val, n = _graph(seed=12, symmetric=True)
+    tg, jg = _both(row, col, val, n)
+    rng = np.random.RandomState(13)
+    es, ed = rng.randn(n).astype(np.float32), rng.randn(n).astype(np.float32)
+    x = rng.randn(n, 24).astype(np.float32)
+    cot = rng.randn(n, 24).astype(np.float32)
+
+    out_j, vjp = jax.vjp(
+        lambda a, b, c: jatt.gat_attention(jg, a, b, c, SLOPE, True),
+        jnp.asarray(es), jnp.asarray(ed), jnp.asarray(x),
+    )
+    des_j, ded_j, dx_j = vjp(jnp.asarray(cot))
+    args = [torch.from_numpy(a).requires_grad_(True) for a in (es, ed, x)]
+    out_t = tatt.gat_attention(tg, *args, SLOPE)
+    out_t.backward(torch.from_numpy(cot))
+
+    # JAX rounds the forward weights, and the products of its dx pass, to bf16
+    np.testing.assert_allclose(out_t.detach().numpy(), np.asarray(out_j), rtol=2e-2, atol=2e-2)
+    np.testing.assert_allclose(args[2].grad.numpy(), np.asarray(dx_j), rtol=2e-2, atol=2e-2)
+    # des and ded: both take f32 weights from the stats and u from the same
+    # bf16 g and x (exact products); f32 sums in another order
+    np.testing.assert_allclose(args[0].grad.numpy(), np.asarray(des_j), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(args[1].grad.numpy(), np.asarray(ded_j), rtol=1e-4, atol=1e-4)
+
+
+def test_attention_spmm_forward_and_grads_match_jax_vjp():
+    row, col, val, n = _graph(seed=14)
+    tg, jg = _both(row, col, val, n)
+    rng = np.random.RandomState(15)
+    elog = rng.randn(len(row)).astype(np.float32)
+    elog[::50] = -np.inf  # dropped edges
+    x = rng.randn(n, 16).astype(np.float32)
+    cot = rng.randn(n, 16).astype(np.float32)
+
+    out_j, vjp = jax.vjp(
+        lambda lg, xx: jatt.attention_spmm(jg, lg, xx, True),
+        _jax_slots(jg, elog, -np.inf), jnp.asarray(x),
+    )
+    dlog_j, dx_j = vjp(jnp.asarray(cot))
+    lg_t = _port_edges(tg, elog).requires_grad_(True)
+    x_t = torch.from_numpy(x).requires_grad_(True)
+    out_t = tatt.attention_spmm(tg, lg_t, x_t)
+    out_t.backward(torch.from_numpy(cot))
+
+    # bf16 weights and dx products on the JAX side only
+    np.testing.assert_allclose(out_t.detach().numpy(), np.asarray(out_j), rtol=2e-2, atol=2e-2)
+    np.testing.assert_allclose(x_t.grad.numpy(), np.asarray(dx_j), rtol=2e-2, atol=2e-2)
+    # dlogits = wt * (u - S): f32 on both sides from the same bf16 inputs
+    np.testing.assert_allclose(
+        _port_to_edges(tg, lg_t.grad), _jax_to_edges(jg, dlog_j), rtol=1e-4, atol=1e-5
+    )
+
+
+def test_gat_attention_matches_its_segment_oracle_in_f32():
+    """With bf16-representable features and cotangent, the kernel path's
+    casts are exact: the op and its three gradients equal the plain segment
+    layout under autograd up to f32 sums in another order."""
+    from textgcn_tpu_torch.graph.structs import SparseGraph
+    from textgcn_tpu_torch.models.gat import gat_attention_segment
+
+    row, col, val, n = _graph(seed=16, symmetric=True)
+    tg = tatt.AttentionGraph.from_coo(row, col, val, n, device=CPU)
+    sg = SparseGraph.from_coo(row, col, val.astype(np.float32), n, device=CPU)
+    gen = torch.Generator().manual_seed(0)
+    es, ed = torch.randn(n, generator=gen), torch.randn(n, generator=gen)
+    x = torch.randn(n, 12, generator=gen).bfloat16().float()
+    cot = torch.randn(n, 12, generator=gen).bfloat16().float()
+    a = [t.clone().requires_grad_(True) for t in (es, ed, x)]
+    b = [t.clone().requires_grad_(True) for t in (es, ed, x)]
+    out_a, out_b = tatt.gat_attention(tg, *a), gat_attention_segment(sg, *b)
+    torch.testing.assert_close(out_a, out_b, rtol=1e-4, atol=1e-5)
+    out_a.backward(cot)
+    out_b.backward(cot)
+    for p, q in zip(a, b):
+        torch.testing.assert_close(p.grad, q.grad, rtol=1e-4, atol=1e-5)
+
+
+def test_wrappers_raise_off_cpu_and_cuda():
+    m = torch.device("meta")
+    i = torch.zeros(3, dtype=torch.int32, device=m)
+    v = torch.zeros(2, device=m)
+    x = torch.zeros(2, 8, dtype=torch.bfloat16, device=m)
+    for call in (
+        lambda: tatt.stats_logits(i, i[:2], v, v, v, SLOPE),
+        lambda: tatt.softmax_stats(i, v),
+        lambda: tatt.attn_agg(i, i[:2], v, v, v, x),
+        lambda: tatt.sddmm(i, i[:2], x, x),
+        lambda: tatt.rowsum(i, v),
+    ):
+        with pytest.raises(ValueError, match="no kernel"):
+            call()

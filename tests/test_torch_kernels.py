@@ -1,4 +1,4 @@
-"""The port's two CUDA kernels and their plain PyTorch versions.
+"""The port's CUDA kernels and their plain PyTorch versions.
 
 This file imports neither JAX nor the JAX package, so it also runs where
 only PyTorch is installed. On a machine with an NVIDIA GPU and nvcc:
@@ -15,6 +15,7 @@ import torch
 
 from textgcn_tpu_torch.graph import reorder
 from textgcn_tpu_torch.graph.normalize import max_symmetrize_coo, sym_normalize_coo
+from textgcn_tpu_torch.ops import attention as att
 from textgcn_tpu_torch.ops.bsr_spmm import bsr_spmm, bsr_spmm_plain
 from textgcn_tpu_torch.ops.row_reduce import row_reduce, row_reduce_plain
 
@@ -119,3 +120,129 @@ def test_hybrid_pass_on_gpu_matches_cpu_plain(cuda_dev):
     got = reorder.spmm_hybrid(h_gpu, x.to(cuda_dev)).cpu()
     assert (bsr_spmm.launches, row_reduce.launches) == (n1 + 1, n2 + 1)
     torch.testing.assert_close(got, reorder.spmm_hybrid(h_cpu, x), rtol=1e-4, atol=1e-4)
+
+
+def _attention_graph(dev, seed=0):
+    """A degree-sorted attention graph: hub rows of a few hundred edges, a
+    long tail, and rows without edges."""
+    r, c, v, n = _graph(seed=seed)
+    perm = reorder.degree_sort_permutation(r, c, n)
+    r, c = perm[r], perm[c]
+    keep = (r % 61) != 3
+    return att.AttentionGraph.from_coo(
+        r[keep], c[keep], v[keep], n, device=dev
+    ), np.random.RandomState(seed)
+
+
+def test_attention_plain_versions_match_numpy():
+    ag, rng = _attention_graph(CPU, seed=2)
+    n = ag.n_nodes
+    rows, col = ag.row.numpy(), ag.col.numpy()
+    es, ed = rng.randn(n).astype(np.float32), rng.randn(n).astype(np.float32)
+    x = rng.randn(n, 12).astype(np.float32)
+    lg, mx, sm = att.stats_logits(
+        ag.row_ptr, ag.col, ag.logval, torch.from_numpy(es), torch.from_numpy(ed), 0.2
+    )
+    base = es[rows] + ed[col]
+    want_lg = np.where(base >= 0, base, 0.2 * base) + ag.logval.numpy()
+    np.testing.assert_allclose(lg.numpy(), want_lg, rtol=1e-6, atol=1e-6)
+    out = att.attn_agg(ag.row_ptr, ag.col, lg, mx, sm, torch.from_numpy(x))
+    want = np.zeros((n, 12))
+    for r in range(n):
+        e = rows == r
+        if e.any():
+            w = np.exp(want_lg[e] - want_lg[e].max())
+            assert np.isclose(sm[r].item(), w.sum(), rtol=1e-5)
+            want[r] = (w / w.sum()) @ x[col[e]]
+        else:
+            assert mx[r].item() == np.float32(-1e30) and sm[r].item() == 0
+    np.testing.assert_allclose(out.numpy(), want, rtol=1e-5, atol=1e-6)
+    u = att.sddmm(ag.row_ptr, ag.col, torch.from_numpy(x), torch.from_numpy(x))
+    np.testing.assert_allclose(u.numpy(), np.sum(x[rows] * x[col], axis=1), rtol=1e-5, atol=1e-5)
+    v = rng.randn(ag.n_edges).astype(np.float32)
+    np.testing.assert_allclose(
+        att.rowsum(ag.row_ptr, torch.from_numpy(v)).numpy(),
+        np.bincount(rows, weights=v, minlength=n), rtol=1e-5, atol=1e-5,
+    )
+
+
+@pytest.mark.cuda
+def test_attn_stats_kernel_matches_plain_in_both_modes(cuda_dev):
+    ag, rng = _attention_graph(cuda_dev, seed=3)
+    es = torch.from_numpy(rng.randn(ag.n_nodes).astype(np.float32)).to(cuda_dev)
+    ed = torch.from_numpy(rng.randn(ag.n_nodes).astype(np.float32)).to(cuda_dev)
+    args = (ag.row_ptr, ag.col, ag.logval, es, ed, 0.2)
+    n0 = att.stats_logits.launches
+    got = att.stats_logits(*args)
+    torch.cuda.synchronize()
+    assert att.stats_logits.launches == n0 + 1
+    want = att.stats_logits_plain(*args)
+    # the same f32 logit per edge; exp-sums of up to ~650 terms in another
+    # order (the plain version adds with atomics)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-6)
+    n1 = att.softmax_stats.launches
+    for a, b in zip(att.softmax_stats(ag.row_ptr, want[0]), want[1:]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-6)
+    assert att.softmax_stats.launches == n1 + 1
+    with pytest.raises(TypeError, match="float32"):
+        att.stats_logits(ag.row_ptr, ag.col, ag.logval, es.double(), ed, 0.2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [8, 200, 264])
+def test_attn_agg_and_sddmm_kernels_match_plain(cuda_dev, f):
+    ag, rng = _attention_graph(cuda_dev, seed=4)
+    n = ag.n_nodes
+    lg = torch.from_numpy(rng.randn(ag.n_edges).astype(np.float32)).to(cuda_dev)
+    lg[::37] = -float("inf")
+    mx, sm = att.softmax_stats_plain(ag.row_ptr, lg)
+    x = torch.randn((n, f), device=cuda_dev).to(torch.bfloat16)
+    g = torch.randn((n, f), device=cuda_dev).to(torch.bfloat16)
+    n0, n1 = att.attn_agg.launches, att.sddmm.launches
+    out = att.attn_agg(ag.row_ptr, ag.col, lg, mx, sm, x)
+    u = att.sddmm(ag.row_ptr, ag.col, g, x)
+    torch.cuda.synchronize()
+    assert (att.attn_agg.launches, att.sddmm.launches) == (n0 + 1, n1 + 1)
+    # f32 weights times bf16 features, and exact bf16 products, summed in
+    # f32 in another order
+    torch.testing.assert_close(
+        out, att.attn_agg_plain(ag.row_ptr, ag.col, lg, mx, sm, x), rtol=1e-5, atol=1e-5
+    )
+    torch.testing.assert_close(u, att.sddmm_plain(ag.row_ptr, ag.col, g, x), rtol=1e-5, atol=1e-4)
+    with pytest.raises(ValueError, match="multiple of"):
+        att.sddmm(ag.row_ptr, ag.col, g[:, :6].contiguous(), x[:, :6].contiguous())
+    with pytest.raises(TypeError, match="bfloat16"):
+        att.attn_agg(ag.row_ptr, ag.col, lg, mx, sm, x.float())
+
+
+@pytest.mark.cuda
+def test_rowsum_kernel_matches_plain_on_both_csrs(cuda_dev):
+    ag, rng = _attention_graph(cuda_dev, seed=5)
+    v = torch.from_numpy(rng.randn(ag.n_edges).astype(np.float32)).to(cuda_dev)
+    n0 = att.rowsum.launches
+    for ptr, vals in ((ag.row_ptr, v), (ag.row_ptr_t, v[ag.perm_t.long()])):
+        # f32 sums in another order
+        torch.testing.assert_close(
+            att.rowsum(ptr, vals), att.rowsum_plain(ptr, vals), rtol=1e-5, atol=1e-5
+        )
+    assert att.rowsum.launches == n0 + 2
+
+
+@pytest.mark.cuda
+def test_gat_attention_on_gpu_matches_cpu_plain(cuda_dev):
+    """The op and its three gradients through the kernels (and K2 for dx)
+    equal the same op through the plain versions on the CPU."""
+    ag_c, rng = _attention_graph(CPU, seed=6)
+    ag_g, _ = _attention_graph(cuda_dev, seed=6)
+    n = ag_c.n_nodes
+    ins = [rng.randn(n), rng.randn(n), rng.randn(n, 200)]
+    cot = torch.from_numpy(rng.randn(n, 200).astype(np.float32))
+    grads = []
+    for ag, dev in ((ag_c, CPU), (ag_g, cuda_dev)):
+        ts = [torch.tensor(a, dtype=torch.float32, device=dev, requires_grad=True) for a in ins]
+        out = att.gat_attention(ag, *ts, 0.2)
+        out.backward(cot.to(dev))
+        grads.append([out.detach().cpu()] + [t.grad.cpu() for t in ts])
+    for a, b in zip(*grads):
+        torch.testing.assert_close(b, a, rtol=1e-4, atol=1e-4)

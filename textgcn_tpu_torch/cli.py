@@ -1,8 +1,8 @@
 """Command-line entry point: ``python -m textgcn_tpu_torch.cli train ...``.
 
-Port of the ``train`` subcommand of ``textgcn_tpu/cli.py``. It trains on the
-CUDA device and raises when there is none: the port never falls back to the
-CPU.
+Port of the ``train`` subcommand of ``textgcn_tpu/cli.py`` (GCN and GAT on
+the doc-word graph). It trains on the CUDA device and raises when there is
+none: the port never falls back to the CPU.
 """
 from __future__ import annotations
 
@@ -12,11 +12,13 @@ import sys
 import torch
 
 from textgcn_tpu_torch.graph.format import DENSE_MAX_NODES, SPMM_FORMATS
-from textgcn_tpu_torch.train.run import generate_seeds, run_experiment
+from textgcn_tpu_torch.models import MODELS
+from textgcn_tpu_torch.train.run import check_model_format, generate_seeds, run_experiment
 from textgcn_tpu_torch.train.trainer import TrainConfig
 
 
 def cmd_train(args) -> int:
+    check_model_format(args.model, args.spmm)
     if not torch.cuda.is_available():
         raise RuntimeError(
             "textgcn_tpu_torch trains on a CUDA device and none is available"
@@ -29,6 +31,7 @@ def cmd_train(args) -> int:
         early_stopping=args.early_stopping,
         val_ratio=args.val_ratio,
         spmm=args.spmm,
+        model=args.model,
     )
     summary = run_experiment(
         args.dataset,
@@ -49,11 +52,11 @@ def cmd_train(args) -> int:
     return 0
 
 
-def main(argv=None) -> int:
+def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="textgcn_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
 
-    p = sub.add_parser("train", help="train the GCN on a built graph (CUDA)")
+    p = sub.add_parser("train", help="train a GCN or GAT on a built graph (CUDA)")
     p.add_argument("--dataset", required=True)
     p.add_argument(
         "--graph", default="docword", choices=["docword"],
@@ -73,20 +76,32 @@ def main(argv=None) -> int:
         help="master seed for the runs' seeds (default: fresh random seeds)",
     )
     p.add_argument(
+        "--model", default="gcn", choices=sorted(MODELS),
+        help="model family: gcn (2-layer Kipf-Welling GCN) or gat (2-layer "
+        "graph attention network)",
+    )
+    p.add_argument(
         "--spmm",
         default="auto",
-        choices=list(SPMM_FORMATS),
-        help="graph format for the Â@X passes: segment = gather + index_add_ "
-        "(plain PyTorch, the oracle); dense = one [N, N] matmul; hybrid = "
-        "degree sort, then 128x128 tiles holding >= 24 edges run on the "
-        "tile kernel and the other edges on the residual kernel (relabels "
-        f"nodes); auto = dense up to {DENSE_MAX_NODES} nodes, and above "
-        "that an error until the port has GPU cost constants",
+        choices=[*SPMM_FORMATS, "onehot"],
+        help="graph format. GCN: segment = gather + index_add_ (plain "
+        "PyTorch, the oracle); dense = one [N, N] matmul; hybrid = degree "
+        "sort, then 128x128 tiles holding >= 24 edges run on the tile kernel "
+        "and the other edges on the residual kernel (relabels nodes); onehot "
+        "is not ported for the GCN yet and raises. GAT: segment = plain "
+        "PyTorch segment softmax (the oracle); dense = the [N, N] bf16 "
+        "log-adjacency; onehot = the attention kernels over a CSR; hybrid = "
+        "the same after the degree sort (relabels nodes). Both: auto = dense "
+        f"up to {DENSE_MAX_NODES} nodes, and above that an error until the "
+        "port has GPU cost constants",
     )
     p.add_argument("--quiet", action="store_true")
     p.set_defaults(fn=cmd_train)
+    return parser
 
-    args = parser.parse_args(argv)
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
     return args.fn(args)
 
 

@@ -2,7 +2,8 @@
 
 No JAX counterpart: the JAX package's Pallas kernels are compiled by XLA.
 
-``nvcc`` compiles every source in ``csrc/`` into one shared library with a
+``nvcc`` compiles every source in ``csrc/`` (one process per source, all
+started together) and links the objects into one shared library with a
 plain C interface (no PyTorch headers, so the build takes seconds), which
 ``ctypes`` loads. Tensors cross as raw device pointers and the launch goes on
 PyTorch's current stream. The build runs at the first CUDA launch, into
@@ -25,15 +26,19 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC.parent / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-# C entry points: (pointers..., ints..., stream) -> cudaError_t as int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C entry points: (pointers..., scalars..., stream) -> cudaError_t as int
 _SIGNATURES = {
     "textgcn_bsr_spmm": [_P, _P, _P, _P, _P, _I, _I, _P],
     "textgcn_row_reduce": [_P, _P, _P, _P, _P, _I, _I, _P],
+    "textgcn_attn_stats": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _F, _I, _P],
+    "textgcn_attn_agg": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+    "textgcn_sddmm": [_P, _P, _P, _P, _P, _I, _I, _P],
+    "textgcn_rowsum": [_P, _P, _P, _I, _P],
 }
 
 
@@ -73,27 +78,45 @@ def library_path() -> Path:
 def build() -> Path:
     """Compile ``csrc/*.cu`` unless the library for these sources exists.
 
-    Writes to a temporary name and renames, so a concurrent or interrupted
-    build never leaves a half-written library under the final name.
+    Each source compiles to an object in its own ``nvcc`` process, all in
+    parallel, and one ``nvcc -shared`` links them. The library is written
+    to a temporary name and renamed, so a concurrent or interrupted build
+    never leaves a half-written library under the final name.
     """
     path = library_path()
     if path.exists():
         return path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, path)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+        objs, procs = [], []
+        for src in sources():
+            obj = os.path.join(work, src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+            objs.append(obj)
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+            )))
+        logs, failed = [], []
+        for cmd, proc in procs:
+            out, _ = proc.communicate()
+            logs.append(out)
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}")
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        tmp = os.path.join(work, path.name)
+        cmd = [nvcc, "-shared", *NVCC_FLAGS[:2], "-o", tmp, *objs]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc link failed ({proc.returncode}): {' '.join(cmd)}\n"
+                f"{proc.stdout}{proc.stderr}"
+            )
+        os.replace(tmp, path)
     _Loaded.build_seconds = time.perf_counter() - t0
-    _Loaded.log = proc.stdout + proc.stderr
+    _Loaded.log = "".join(logs)
     return path
 
 

@@ -1,0 +1,478 @@
+"""GAT attention over a CSR: the attention graph, its four CUDA kernels with
+their plain PyTorch versions, and the two differentiable attention ops.
+
+Port of ``textgcn_tpu/ops/pallas_attention.py``. The kernels are
+hand-written CUDA for Hopper (``sm_90a``) in ``csrc/``:
+
+==================  ===========================  ==============================
+wrapper             kernel                       replaces (Pallas)
+==================  ===========================  ==============================
+``stats_logits``    ``csrc/attn_stats.cu``       ``_stats_logits_kernel`` (B5)
+``softmax_stats``   the same kernel, B6 mode     ``_stats_kernel`` (B6)
+``attn_agg``        ``csrc/attn_agg.cu``         ``_attn_agg_kernel`` (B7)
+``sddmm``           ``csrc/sddmm.cu``            ``_sddmm_kernel`` (B8)
+``rowsum``          ``csrc/rowsum.cu``           ``_rowsum_kernel`` (B9)
+==================  ===========================  ==============================
+
+Each source carries its note (what bounds it on the card, what its design
+does about that). ``dx`` of both ops goes through K2
+(:func:`textgcn_tpu_torch.ops.row_reduce.row_reduce`) over the transpose
+CSR, as the JAX package sends it through the one-hot kernel
+(``_onehot_kernel``) over the transpose plan.
+
+Layout. The TPU's ``OneHotPlan`` (windows, k-chunks, superchunks, phantom
+slots, 128-lane replicated stats) is not carried over. An
+:class:`AttentionGraph` is a forward CSR sorted by (row, col) with
+``log(val)`` per edge, computed once (JAX recomputes it per call), and a
+transpose CSR with ``perm_t``, the forward position of each transpose edge
+(the counterpart of ``slot_perm``). Per-edge arrays are in forward-CSR
+order; per-row statistics are one float per row.
+
+Every wrapper runs its plain version for CPU tensors only; for CUDA tensors
+it launches its kernel (building the library on first use) or raises, and
+adds one to its ``.launches`` where it launches. ``edge_logit_base`` and
+``spmm_onehot_ew`` of the JAX module are not ported yet (ROADMAP A.9).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from textgcn_tpu_torch.ops import _build
+from textgcn_tpu_torch.ops.row_reduce import row_reduce
+
+_NEG = -1e30  # finite -inf stand-in: keeps max/exp arithmetic NaN-free
+VEC = 8  # bf16 columns per 16-byte load: feature widths are multiples of it
+
+
+def check_coalesced(row: np.ndarray, col: np.ndarray, n_cols: int) -> None:
+    """Raise if a (row, col) pair occurs twice: log(val) and the dense
+    log-adjacency keep one value per pair, where a segment sum adds them."""
+    key = np.asarray(row, dtype=np.int64) * int(n_cols) + np.asarray(col, dtype=np.int64)
+    if len(np.unique(key)) != len(key):
+        raise ValueError(
+            "attention graphs need coalesced edges: duplicate (row, col) "
+            "pairs found; sum them first"
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class AttentionGraph:
+    """Forward and transpose CSR of a graph for kernel-path attention.
+
+    Attributes (int32 unless noted, on one device):
+      row_ptr:   [n_nodes + 1] forward CSR, edges sorted by (row, col).
+      col:       [E] column of each forward edge.
+      logval:    [E] f32, log(val) of each forward edge.
+      row:       [E] row of each forward edge (the counterpart of JAX's
+                 ``row_slot``: per-row statistics gathered to edges).
+      row_ptr_t: [n_cols + 1] transpose CSR, sorted by (col, row).
+      col_t:     [E] forward row of each transpose edge.
+      perm_t:    [E] forward position of each transpose edge.
+      edge_pos:  [E] forward position of each input edge, in input order
+                 (the counterpart of ``fwd_dst``).
+    ``n_nodes`` is the row space (softmax rows, outputs, es) and ``n_cols``
+    the column space (x, ed); they are equal for a square graph.
+    """
+
+    row_ptr: torch.Tensor
+    col: torch.Tensor
+    logval: torch.Tensor
+    row: torch.Tensor
+    row_ptr_t: torch.Tensor
+    col_t: torch.Tensor
+    perm_t: torch.Tensor
+    edge_pos: torch.Tensor
+    n_nodes: int
+    n_edges: int
+    n_cols: int
+
+    @staticmethod
+    def from_coo(row, col, val, n_nodes: int, n_cols: int = None, *, device):
+        """Build from host COO arrays (any order, coalesced)."""
+        row = np.asarray(row, dtype=np.int64)
+        col = np.asarray(col, dtype=np.int64)
+        val = np.asarray(val)
+        n_cols = int(n_nodes if n_cols is None else n_cols)
+        check_coalesced(row, col, n_cols)
+        order = np.lexsort((col, row))
+        edge_pos = np.empty(len(row), dtype=np.int64)
+        edge_pos[order] = np.arange(len(row))
+        r, c = row[order], col[order]
+        perm_t = np.lexsort((r, c))
+
+        def t(a):
+            return torch.from_numpy(np.ascontiguousarray(a).astype(np.int32)).to(device)
+
+        # log in f32, as JAX takes it of the f32 plan values; val 0 gives a
+        # -inf logit, which drops the edge from the softmax
+        with np.errstate(divide="ignore"):
+            logval = np.log(val[order].astype(np.float32))
+        return AttentionGraph(
+            row_ptr=t(np.searchsorted(r, np.arange(n_nodes + 1))),
+            col=t(c),
+            logval=torch.from_numpy(logval).to(device),
+            row=t(r),
+            row_ptr_t=t(np.searchsorted(c[perm_t], np.arange(n_cols + 1))),
+            col_t=t(r[perm_t]),
+            perm_t=t(perm_t),
+            edge_pos=t(edge_pos),
+            n_nodes=int(n_nodes),
+            n_edges=int(len(row)),
+            n_cols=n_cols,
+        )
+
+    @staticmethod
+    def from_sparse_graph(g) -> "AttentionGraph":
+        """Build from a :class:`~textgcn_tpu_torch.graph.structs.SparseGraph`
+        on its device (its padding dropped)."""
+        row, col, val = g.coo_numpy()
+        return AttentionGraph.from_coo(row, col, val, g.n_nodes, device=g.val.device)
+
+    @property
+    def max_degree(self) -> int:
+        """Edges of the longest forward row (the hub row one warp walks)."""
+        return int(torch.diff(self.row_ptr).max()) if self.n_nodes else 0
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch versions (any float inputs, any device)
+# ---------------------------------------------------------------------------
+
+
+def _rows(row_ptr):
+    n = row_ptr.numel() - 1
+    return torch.repeat_interleave(
+        torch.arange(n, device=row_ptr.device), torch.diff(row_ptr.long())
+    )
+
+
+def _shift(mx):
+    """The softmax shift of each row: its max, or 0 while it is the sentinel."""
+    return torch.where(mx > _NEG / 2, mx, 0.0)
+
+
+def softmax_stats_plain(row_ptr, logits):
+    """Plain PyTorch version of :func:`softmax_stats`."""
+    rows = _rows(row_ptr)
+    n = row_ptr.numel() - 1
+    lg = logits.float()
+    mx = torch.full((n,), _NEG, dtype=torch.float32, device=lg.device)
+    mx.scatter_reduce_(0, rows, lg, "amax")
+    sm = torch.zeros(n, dtype=torch.float32, device=lg.device)
+    sm.index_add_(0, rows, torch.exp(lg - _shift(mx)[rows]))
+    return mx, sm
+
+
+def stats_logits_plain(row_ptr, col, logval, es, ed, slope):
+    """Plain PyTorch version of :func:`stats_logits`."""
+    base = es.float()[_rows(row_ptr)] + ed.float()[col.long()]
+    logits = torch.where(base >= 0, base, slope * base) + logval
+    return (logits, *softmax_stats_plain(row_ptr, logits))
+
+
+def attn_agg_plain(row_ptr, col, logits, mx, sm, x):
+    """Plain PyTorch version of :func:`attn_agg` (any float ``x``)."""
+    rows = _rows(row_ptr)
+    inv = 1.0 / torch.clamp(sm, min=1e-30)
+    w = torch.exp(logits - _shift(mx)[rows]) * inv[rows]
+    out = torch.zeros(
+        row_ptr.numel() - 1, x.shape[1], dtype=torch.float32, device=x.device
+    )
+    return out.index_add_(0, rows, w[:, None] * x[col.long()].float())
+
+
+def sddmm_plain(row_ptr, col, g, x):
+    """Plain PyTorch version of :func:`sddmm` (any float ``g`` and ``x``)."""
+    return (g[_rows(row_ptr)].float() * x[col.long()].float()).sum(dim=1)
+
+
+def rowsum_plain(row_ptr, v):
+    """Plain PyTorch version of :func:`rowsum`."""
+    out = torch.zeros(row_ptr.numel() - 1, dtype=torch.float32, device=v.device)
+    return out.index_add_(0, _rows(row_ptr), v.float())
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def _on_cuda(name, ref, *tensors, **typed):
+    """Raise unless every tensor is a contiguous tensor on ``ref``'s CUDA
+    device; ``typed`` maps names to (tensor, dtype) pairs to check too."""
+    if ref.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {ref.device}")
+    for key, (t, dtype) in typed.items():
+        if t.device != ref.device:
+            raise ValueError(f"{name}: {key} is on {t.device}, expected {ref.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {key} must be contiguous")
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: {key} must be {dtype}, got {t.dtype}")
+
+
+def _features(name, x, n_rows=None):
+    """Check a bf16 feature table the kernels read as 16-byte vectors."""
+    if x.dim() != 2 or x.shape[1] % VEC or x.data_ptr() % 16:
+        raise ValueError(
+            f"{name}: features must be a 16-byte aligned [N, F] table with F "
+            f"a multiple of {VEC}, got {tuple(x.shape)}"
+        )
+    if n_rows is not None and x.shape[0] < n_rows:
+        raise ValueError(f"{name}: features need >= {n_rows} rows, got {x.shape[0]}")
+
+
+def _stream():
+    return torch.cuda.current_stream().cuda_stream
+
+
+def stats_logits(row_ptr, col, logval, es, ed, slope: float):
+    """Per-edge GAT logits ``leaky(es[row] + ed[col], slope) + logval`` over
+    the forward CSR, with each row's softmax max and sum over them.
+
+    Returns ``(logits [E], mx [n_rows], sm [n_rows])``, f32. A row with no
+    edges has ``mx = -1e30`` and ``sm = 0``. On CPU tensors this runs
+    :func:`stats_logits_plain`; on CUDA tensors it launches
+    ``csrc/attn_stats.cu`` or raises.
+    """
+    if es.device.type == "cpu":
+        return stats_logits_plain(row_ptr, col, logval, es, ed, slope)
+    i32, f32 = torch.int32, torch.float32
+    _on_cuda("stats_logits", es, row_ptr=(row_ptr, i32), col=(col, i32),
+             logval=(logval, f32), es=(es, f32), ed=(ed, f32))
+    n_rows = row_ptr.numel() - 1
+    if es.numel() < n_rows or col.numel() != logval.numel():
+        raise ValueError("stats_logits: es needs a value per row and logval one per edge")
+    logits = torch.empty_like(logval)
+    mx = torch.empty(n_rows, dtype=f32, device=es.device)
+    sm = torch.empty_like(mx)
+    lib = _build.load()
+    with torch.cuda.device(es.device):
+        err = lib.textgcn_attn_stats(
+            row_ptr.data_ptr(), col.data_ptr(), logval.data_ptr(), es.data_ptr(),
+            ed.data_ptr(), logits.data_ptr(), mx.data_ptr(), sm.data_ptr(),
+            n_rows, float(slope), 1, _stream(),
+        )
+    stats_logits.launches += 1
+    _build.check_launch("stats_logits", err)
+    return logits, mx, sm
+
+
+def softmax_stats(row_ptr, logits):
+    """Each row's softmax max and sum over given per-edge ``logits`` (the
+    kernel of :func:`stats_logits` without building them). Returns
+    ``(mx, sm)``, [n_rows] f32 each."""
+    if logits.device.type == "cpu":
+        return softmax_stats_plain(row_ptr, logits)
+    _on_cuda("softmax_stats", logits, row_ptr=(row_ptr, torch.int32),
+             logits=(logits, torch.float32))
+    n_rows = row_ptr.numel() - 1
+    mx = torch.empty(n_rows, dtype=torch.float32, device=logits.device)
+    sm = torch.empty_like(mx)
+    lib = _build.load()
+    with torch.cuda.device(logits.device):
+        err = lib.textgcn_attn_stats(
+            row_ptr.data_ptr(), None, None, None, None, logits.data_ptr(),
+            mx.data_ptr(), sm.data_ptr(), n_rows, 0.0, 0, _stream(),
+        )
+    softmax_stats.launches += 1
+    _build.check_launch("softmax_stats", err)
+    return mx, sm
+
+
+def attn_agg(row_ptr, col, logits, mx, sm, x):
+    """``out[r] = sum_e exp(logits[e] - shift_r) / max(sm[r], 1e-30) *
+    x[col[e]]`` over the forward CSR (``shift_r`` = ``mx[r]``, or 0 at the
+    sentinel). ``x`` is [N, F] bf16 with F a multiple of 8; returns a new
+    [n_rows, F] f32 tensor. The weights stay f32 (the TPU rounds them to
+    bf16). On CPU tensors this runs :func:`attn_agg_plain`; on CUDA tensors
+    it launches ``csrc/attn_agg.cu`` or raises.
+    """
+    if x.device.type == "cpu":
+        return attn_agg_plain(row_ptr, col, logits, mx, sm, x)
+    i32, f32 = torch.int32, torch.float32
+    _on_cuda("attn_agg", x, row_ptr=(row_ptr, i32), col=(col, i32),
+             logits=(logits, f32), mx=(mx, f32), sm=(sm, f32),
+             x=(x, torch.bfloat16))
+    _features("attn_agg", x)
+    n_rows = row_ptr.numel() - 1
+    out = torch.empty(n_rows, x.shape[1], dtype=f32, device=x.device)
+    lib = _build.load()
+    with torch.cuda.device(x.device):
+        err = lib.textgcn_attn_agg(
+            row_ptr.data_ptr(), col.data_ptr(), logits.data_ptr(), mx.data_ptr(),
+            sm.data_ptr(), x.data_ptr(), out.data_ptr(), n_rows,
+            x.shape[1] // VEC, _stream(),
+        )
+    attn_agg.launches += 1
+    _build.check_launch("attn_agg", err)
+    return out
+
+
+def sddmm(row_ptr, col, g, x):
+    """``u[e] = g[row_e] . x[col_e]`` for every edge of the forward CSR, in
+    forward-CSR order. ``g`` [>= n_rows, F] and ``x`` [N, F] are bf16 with F
+    a multiple of 8; returns [E] f32. On CPU tensors this runs
+    :func:`sddmm_plain`; on CUDA tensors it launches ``csrc/sddmm.cu`` or
+    raises.
+    """
+    if x.device.type == "cpu":
+        return sddmm_plain(row_ptr, col, g, x)
+    i32, bf16 = torch.int32, torch.bfloat16
+    _on_cuda("sddmm", x, row_ptr=(row_ptr, i32), col=(col, i32), g=(g, bf16),
+             x=(x, bf16))
+    n_rows = row_ptr.numel() - 1
+    _features("sddmm", g, n_rows)
+    _features("sddmm", x)
+    if g.shape[1] != x.shape[1]:
+        raise ValueError(f"sddmm: g is {tuple(g.shape)} and x {tuple(x.shape)}")
+    u = torch.empty(col.numel(), dtype=torch.float32, device=x.device)
+    lib = _build.load()
+    with torch.cuda.device(x.device):
+        err = lib.textgcn_sddmm(
+            row_ptr.data_ptr(), col.data_ptr(), g.data_ptr(), x.data_ptr(),
+            u.data_ptr(), n_rows, x.shape[1] // VEC, _stream(),
+        )
+    sddmm.launches += 1
+    _build.check_launch("sddmm", err)
+    return u
+
+
+def rowsum(row_ptr, v):
+    """``out[r] = sum_{e in row r} v[e]`` over a CSR; returns [n_rows] f32.
+    On CPU tensors this runs :func:`rowsum_plain`; on CUDA tensors it
+    launches ``csrc/rowsum.cu`` or raises."""
+    if v.device.type == "cpu":
+        return rowsum_plain(row_ptr, v)
+    _on_cuda("rowsum", v, row_ptr=(row_ptr, torch.int32), v=(v, torch.float32))
+    n_rows = row_ptr.numel() - 1
+    out = torch.empty(n_rows, dtype=torch.float32, device=v.device)
+    lib = _build.load()
+    with torch.cuda.device(v.device):
+        err = lib.textgcn_rowsum(
+            row_ptr.data_ptr(), v.data_ptr(), out.data_ptr(), n_rows, _stream()
+        )
+    rowsum.launches += 1
+    _build.check_launch("rowsum", err)
+    return out
+
+
+stats_logits.launches = 0
+softmax_stats.launches = 0
+attn_agg.launches = 0
+sddmm.launches = 0
+rowsum.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# differentiable attention ops
+# ---------------------------------------------------------------------------
+
+
+def features_bf16(x: torch.Tensor) -> torch.Tensor:
+    """``x`` as the kernels read it: a contiguous bf16 [N, F'] table, F
+    padded with zero columns to F' = the next multiple of 8."""
+    f = x.shape[1]
+    fp = -(-f // VEC) * VEC
+    if fp == f:
+        return x.to(torch.bfloat16).contiguous()
+    out = x.new_zeros((x.shape[0], fp), dtype=torch.bfloat16)
+    out[:, :f] = x
+    return out
+
+
+def edge_weights(ag: AttentionGraph, logits, mx, sm):
+    """Per-edge softmax weights [E] from the row statistics, 0 for a -inf
+    logit (the backward's counterpart of the weights :func:`attn_agg` forms
+    in registers)."""
+    st = torch.stack([mx, sm], dim=1).index_select(0, ag.row)
+    w = torch.exp(logits - _shift(st[:, 0])) / torch.clamp(st[:, 1], min=1e-30)
+    return torch.where(logits > _NEG / 2, w, 0.0)
+
+
+def _softmax_backward(ag: AttentionGraph, wt, g16, x16):
+    """``dlogits = wt * (u - S_row)`` with ``u = g[row] . x[col]`` (SDDMM)
+    and ``S_row = sum_row wt * u`` (rowsum), and ``dx = Aᵀ_wt @ g`` (K2 over
+    the transpose CSR with the weights moved there)."""
+    u = sddmm(ag.row_ptr, ag.col, g16, x16)
+    s_row = rowsum(ag.row_ptr, wt * u)
+    dlog = wt * (u - s_row.index_select(0, ag.row))
+    dx = row_reduce(ag.row_ptr_t, ag.col_t, wt.index_select(0, ag.perm_t), g16)
+    return dlog, dx
+
+
+class _GatAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, ag, es, ed, x, slope):
+        logits, mx, sm = stats_logits(
+            ag.row_ptr, ag.col, ag.logval, es.contiguous(), ed.contiguous(), slope
+        )
+        x16 = features_bf16(x)
+        out = attn_agg(ag.row_ptr, ag.col, logits, mx, sm, x16)
+        ctx.ag, ctx.slope = ag, slope
+        ctx.save_for_backward(logits, mx, sm, x16)
+        return out[:, : x.shape[1]]
+
+    @staticmethod
+    def backward(ctx, g):
+        ag, slope = ctx.ag, ctx.slope
+        logits, mx, sm, x16 = ctx.saved_tensors
+        f = g.shape[1]
+        wt = edge_weights(ag, logits, mx, sm)
+        dlog, dx = _softmax_backward(ag, wt, features_bf16(g), x16)
+        # leaky' from the stored logits: logit - logval = leaky(base) has
+        # base's sign; a -inf - -inf NaN picks the slope where dlog is 0
+        dbase = dlog * torch.where(logits - ag.logval >= 0, 1.0, slope)
+        des = rowsum(ag.row_ptr, dbase)
+        ded = rowsum(ag.row_ptr_t, dbase.index_select(0, ag.perm_t))
+        return None, des, ded, dx[:, :f], None
+
+
+def gat_attention(ag: AttentionGraph, es, ed, x, slope: float = 0.2):
+    """The sparse side of a GAT layer as one op, differentiable in (es, ed,
+    x): ``out[r] = sum_e softmax_r(leaky(es[r] + ed[col_e]) + log(val_e)) *
+    x[col_e]``. ``es`` [n_nodes] and ``ed`` [n_cols] f32, ``x`` [n_cols, F].
+
+    Forward: :func:`stats_logits`, then :func:`attn_agg` on bf16 features.
+    Backward (JAX ``_gat_bwd``): :func:`sddmm` and :func:`rowsum` for the
+    softmax, :func:`rowsum` for des (forward CSR) and ded (transpose CSR),
+    K2 over the transpose CSR for dx.
+    """
+    if es.numel() != ag.n_nodes or ed.numel() != ag.n_cols or x.shape[0] != ag.n_cols:
+        raise ValueError(
+            f"gat_attention: es [{ag.n_nodes}], ed [{ag.n_cols}] and x "
+            f"[{ag.n_cols}, F] expected, got {tuple(es.shape)}, "
+            f"{tuple(ed.shape)}, {tuple(x.shape)}"
+        )
+    return _GatAttention.apply(ag, es, ed, x, float(slope))
+
+
+class _AttentionSpmm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, ag, logits, x):
+        logits = logits.contiguous()
+        mx, sm = softmax_stats(ag.row_ptr, logits)
+        x16 = features_bf16(x)
+        out = attn_agg(ag.row_ptr, ag.col, logits, mx, sm, x16)
+        ctx.ag = ag
+        ctx.save_for_backward(logits, mx, sm, x16)
+        return out[:, : x.shape[1]]
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, mx, sm, x16 = ctx.saved_tensors
+        wt = edge_weights(ctx.ag, logits, mx, sm)
+        dlog, dx = _softmax_backward(ctx.ag, wt, features_bf16(g), x16)
+        return None, dlog, dx[:, : g.shape[1]]
+
+
+def attention_spmm(ag: AttentionGraph, logits, x):
+    """Softmax-weighted aggregation over the forward CSR, differentiable in
+    ``logits`` ([E] f32 in forward-CSR order; -inf drops an edge) and ``x``
+    [n_cols, F]. Forward: :func:`softmax_stats` + :func:`attn_agg`; backward
+    (JAX ``_attn_bwd``): K2 over the transpose CSR for dx, :func:`sddmm` and
+    :func:`rowsum` for dlogits."""
+    return _AttentionSpmm.apply(ag, logits, x)

@@ -2,7 +2,8 @@
 
 Port of the doc-word path of ``textgcn_tpu/train/prepare.py``
 (``PreparedData``, ``load_graph_edges``, ``prepare_docword_data``,
-``apply_spmm_format``, ``permute_rows_1d_docs``): read the weighted
+``apply_spmm_format``, ``apply_attention_format``,
+``apply_dense_attention_format``, ``permute_rows_1d_docs``): read the weighted
 edgelist, max-symmetrize (A := max(A, Aᵀ)), sym-normalize with self-loops,
 pack into a :class:`SparseGraph`, and read labels and splits. The topic-graph
 path (``prepare_topic_data``) comes with the topic pipeline.
@@ -18,7 +19,10 @@ import numpy as np
 from textgcn_tpu_torch.graph.build_topic import read_weighted_edgelist
 from textgcn_tpu_torch.graph.format import convert_graph, permute_rows
 from textgcn_tpu_torch.graph.normalize import max_symmetrize_coo, sym_normalize_coo
+from textgcn_tpu_torch.graph.reorder import degree_sort_permutation
 from textgcn_tpu_torch.graph.structs import SparseGraph
+from textgcn_tpu_torch.models.gat import DenseAttentionGraph
+from textgcn_tpu_torch.ops.attention import AttentionGraph
 from textgcn_tpu_torch.text.datasets import DatasetLabels, load_labels
 
 
@@ -50,6 +54,44 @@ def apply_spmm_format(pre: PreparedData, fmt: str = "auto") -> PreparedData:
     if not isinstance(pre.graph, SparseGraph) or fmt == "segment":
         return pre
     graph, perm = convert_graph(pre.graph, fmt, symmetric=True)
+    return _relabeled(pre, graph, perm)
+
+
+def apply_attention_format(pre: PreparedData, degree_sort: bool = False) -> PreparedData:
+    """Convert ``pre.graph`` to the attention-kernel layout
+    (:class:`textgcn_tpu_torch.ops.attention.AttentionGraph`) that GAT's
+    kernels run on.
+
+    ``degree_sort=True`` (the ``--spmm hybrid`` spelling) first applies the
+    degree-sort relabeling of the hybrid format, with features, labels and
+    split indices permuted alike. No-op when the graph is already converted.
+    """
+    if not isinstance(pre.graph, SparseGraph):
+        return pre
+    g = pre.graph
+    row, col, val = g.coo_numpy()
+    perm = None
+    if degree_sort:
+        perm = degree_sort_permutation(row, col, g.n_nodes)
+        row, col = perm[row], perm[col]
+    ag = AttentionGraph.from_coo(row, col, val, g.n_nodes, device=g.val.device)
+    return _relabeled(pre, ag, perm)
+
+
+def apply_dense_attention_format(pre: PreparedData) -> PreparedData:
+    """Convert ``pre.graph`` to the dense bf16 log-adjacency
+    (:class:`textgcn_tpu_torch.models.gat.DenseAttentionGraph`), GAT's
+    layout for small graphs. No-op when the graph is already converted."""
+    if not isinstance(pre.graph, SparseGraph):
+        return pre
+    return dataclasses.replace(
+        pre, graph=DenseAttentionGraph.from_sparse_graph(pre.graph)
+    )
+
+
+def _relabeled(pre: PreparedData, graph, perm: Optional[np.ndarray]) -> PreparedData:
+    """``pre`` with ``graph``, and with features, labels and split indices
+    relabeled by ``perm`` (``perm[old] = new``) unless it is None."""
     if perm is None:
         return dataclasses.replace(pre, graph=graph)
     labels = pre.labels

@@ -1,7 +1,8 @@
 """Multi-seed training runner and its human/machine reports.
 
-Port of ``textgcn_tpu/train/run.py`` (``run_experiment`` on one device,
-``generate_seeds``, ``aggregate``, ``write_reports``). The reports keep the
+Port of ``textgcn_tpu/train/run.py`` (``run_experiment`` on one device with
+its single-device GAT layouts, ``generate_seeds``, ``aggregate``,
+``write_reports``). The reports keep the
 JAX package's schema: ``{ds}_{family}_training_results.json`` (with full
 per-epoch histories and hyperparameters) and ``.txt``. The summary also
 names the device it ran on.
@@ -18,12 +19,49 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from textgcn_tpu_torch.graph.format import DENSE_MAX_NODES
 from textgcn_tpu_torch.train.prepare import (
     PreparedData,
+    apply_attention_format,
+    apply_dense_attention_format,
     apply_spmm_format,
     prepare_docword_data,
 )
 from textgcn_tpu_torch.train.trainer import TrainConfig, Trainer
+
+# --spmm spellings GAT takes: onehot / hybrid = the attention-kernel layout
+# without / with the degree sort, dense = the dense log-adjacency, auto =
+# dense up to DENSE_MAX_NODES, segment = the plain PyTorch oracle
+GAT_FORMATS = ("auto", "segment", "dense", "onehot", "hybrid")
+
+
+def check_model_format(model: str, spmm: str) -> None:
+    """Raise for a pairing of model family and graph format that the port
+    does not run yet (before any data is read)."""
+    if model == "gcn" and spmm == "onehot":
+        raise NotImplementedError(
+            "--spmm onehot for the GCN is not ported yet (ROADMAP A.4: a bare "
+            "residual CSR through K2); choose hybrid, segment, dense or auto"
+        )
+
+
+def apply_gat_format(pre: PreparedData, fmt: str) -> PreparedData:
+    """Convert ``pre.graph`` to the GAT layout that ``fmt`` names."""
+    if fmt in ("onehot", "hybrid"):
+        return apply_attention_format(pre, degree_sort=fmt == "hybrid")
+    if fmt == "auto":
+        if pre.graph.n_nodes > DENSE_MAX_NODES:
+            raise NotImplementedError(
+                f"GAT --spmm auto above {DENSE_MAX_NODES} nodes needs the GPU "
+                "cost model (ROADMAP A.3); choose --spmm hybrid, onehot, "
+                "segment or dense"
+            )
+        fmt = "dense"
+    if fmt == "dense":
+        return apply_dense_attention_format(pre)
+    if fmt != "segment":
+        raise ValueError(f"GAT takes --spmm {' | '.join(GAT_FORMATS)}, got {fmt!r}")
+    return pre
 
 
 def generate_seeds(nums: int, master_seed: Optional[int] = None) -> List[int]:
@@ -75,6 +113,7 @@ def run_experiment(
     """Train ``times`` seeds on ``dataset`` on ``device``; write reports;
     return the summary."""
     device = torch.device(device)
+    check_model_format(config.model, config.spmm)
     if graph_family != "docword":
         raise NotImplementedError(
             f"graph family {graph_family!r}: the port has the doc-word graph "
@@ -82,7 +121,10 @@ def run_experiment(
         )
     if pre_data is None:
         pre_data = prepare_docword_data(dataset, data_root=data_root, device=device)
-    pre_data = apply_spmm_format(pre_data, config.spmm)
+    if config.model == "gat":
+        pre_data = apply_gat_format(pre_data, config.spmm)
+    else:
+        pre_data = apply_spmm_format(pre_data, config.spmm)
     seeds = seeds or generate_seeds(times)
 
     runs: List[Dict[str, Any]] = []
@@ -141,7 +183,8 @@ def write_reports(summary: Dict[str, Any], output_dir: str) -> None:
 
     txt_path = os.path.join(output_dir, f"{ds}_{fam}_training_results.txt")
     with open(txt_path, "w", encoding="utf-8") as f:
-        f.write(f"{fam} GCN training results — {ds}\n")
+        model = summary["hyperparameters"]["model"].upper()
+        f.write(f"{fam} {model} training results — {ds}\n")
         f.write("=" * 60 + "\n")
         f.write(f"generated: {summary['timestamp']}\n")
         f.write(f"device: {summary['device']['name']}\n")

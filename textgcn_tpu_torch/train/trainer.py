@@ -1,7 +1,8 @@
-"""Full-batch semi-supervised GCN training.
+"""Full-batch semi-supervised training of a GCN or GAT.
 
 Port of ``textgcn_tpu/train/trainer.py`` (``TrainConfig``, ``EarlyStopping``,
-``train_val_split``, ``Trainer.fit / evaluate / test``):
+``train_val_split``, ``Trainer.fit / evaluate / test``, the model families'
+graph check):
 
 - Adam with the reference's settings (lr 0.02, betas 0.9/0.999, eps 1e-8);
 - cross-entropy on the train nodes' logits only (semi-supervised masking);
@@ -25,7 +26,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from textgcn_tpu_torch.models.gcn import GCN, Params
+from textgcn_tpu_torch.graph.structs import SparseGraph
+from textgcn_tpu_torch.models import MODELS
+from textgcn_tpu_torch.models.gat import DenseAttentionGraph
+from textgcn_tpu_torch.models.gcn import Params
+from textgcn_tpu_torch.ops.attention import AttentionGraph
 from textgcn_tpu_torch.train.metrics import accuracy, macro_f1
 
 
@@ -40,9 +45,11 @@ class TrainConfig:
     early_stopping: int = 10
     val_ratio: float = 0.1
     seed: int = 42
-    # SpMM graph format (textgcn_tpu_torch.graph.format.SPMM_FORMATS),
-    # applied by run_experiment before the Trainer is built
+    # SpMM graph format (textgcn_tpu_torch.graph.format.SPMM_FORMATS, and
+    # onehot for GAT), applied by run_experiment before the Trainer is built
     spmm: str = "auto"
+    # model family (textgcn_tpu_torch.models.MODELS): gcn | gat
+    model: str = "gcn"
 
 
 class EarlyStopping:
@@ -85,9 +92,26 @@ def _eval_metrics(logits, y, idx, num_classes):
     return torch.stack([loss, accuracy(sl, st), f1, p, r])
 
 
+def model_class(model: str, graph) -> type:
+    """The module class of family ``model`` for ``graph``; raises for an
+    unknown family or a GAT on a container that has no attention layout."""
+    if model not in MODELS:
+        raise ValueError(f"unknown model {model!r}; choose one of {sorted(MODELS)}")
+    if model == "gat" and not isinstance(
+        graph, (SparseGraph, AttentionGraph, DenseAttentionGraph)
+    ):
+        raise ValueError(
+            "GAT needs the segment format (SparseGraph), the attention-kernel "
+            "AttentionGraph (spmm onehot or hybrid) or the dense "
+            f"DenseAttentionGraph (spmm dense or auto); got {type(graph).__name__}"
+        )
+    return MODELS[model]
+
+
 class Trainer:
-    """Trains a 2-layer GCN full-batch on a prepared graph on ``device``
-    (the graph's tensors must already be there)."""
+    """Trains a 2-layer model of family ``config.model`` full-batch on a
+    prepared graph on ``device`` (the graph's tensors must already be
+    there)."""
 
     def __init__(
         self,
@@ -116,25 +140,26 @@ class Trainer:
         self.num_classes = int(num_classes)
         self.cfg = config
         self.history: List[Dict[str, float]] = []
-        self.model: Optional[GCN] = None
+        self.model: Optional[torch.nn.Module] = None
         self.train_time = 0.0
         self.model_param = 0
 
     def fit(self, verbose: bool = True, params: Optional[Params] = None) -> Dict[str, Any]:
         """Train to ``max_epoch`` or an early stop.
 
-        ``params``: starting parameters (the flat dict of
-        :func:`textgcn_tpu_torch.models.gcn.gcn_init`); by default they are
-        drawn from the generator seeded with ``cfg.seed``.
+        ``params``: starting parameters (the flat dict of the family's
+        ``*_init``, e.g. :func:`textgcn_tpu_torch.models.gcn.gcn_init`); by
+        default they are drawn from the generator seeded with ``cfg.seed``.
         """
         cfg = self.cfg
         tr, va = train_val_split(self.train_idx_all, cfg.val_ratio, cfg.seed)
         train_idx = torch.tensor(tr, dtype=torch.int64, device=self.device)
         val_idx = torch.tensor(va, dtype=torch.int64, device=self.device)
 
+        model_cls = model_class(cfg.model, self.graph)
         gen = torch.Generator(device=self.device).manual_seed(cfg.seed)
         n_feat = self.graph.n_nodes if self.x is None else self.x.shape[1]
-        model = GCN(
+        model = model_cls(
             n_feat, cfg.n_hidden, self.num_classes, cfg.dropout,
             device=self.device, generator=None if params is not None else gen,
         )
