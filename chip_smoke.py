@@ -17,6 +17,15 @@ drives the port's two main paths on R8 doc-word:
   kernels against the plain segment layer under autograd, then trains
   ``train --model gat --spmm hybrid`` once through the CLI; the attention
   kernels and K2 must run there and test accuracy must reach 0.88.
+- Streaming (beyond memory), at the JAX package's baseline scale config
+  (10M nodes, 500M symmetric edges): generates the lattice stream on the
+  card into a chunk cache, holds K2 in its per-chunk role (B11) and a whole
+  pass against the plain version and checks the pass's symmetry, trains the
+  streamed GCN (F=128, H=16, C=8, bf16) for ten steps with K2's launches
+  counted, holds one step's loss and gradients against the plain version
+  and against a step whose device cache holds only half the chunks (the
+  rest stream in from pinned host memory on every pass), and streams the
+  R8 doc-word graph from pinned host chunks.
 
 Each phase prints one line; any failure raises and exits non-zero. The last
 lines are the kernels' JSON record, the card's name and power limit, and
@@ -54,6 +63,18 @@ ATT_TOL = 1e-4
 # would hide a wrong kernel of that size
 GAT_LAYER_TOL = 1e-3
 SLOPE = 0.2
+# streaming: benchmarks/synthetic_large.py lattice_config(10M, 2*25), the
+# JAX package's streamed_train_perf (bench.py) config
+STREAM_N, STREAM_DEG = 10_000_000, 50
+STREAM_F, STREAM_H, STREAM_C, STREAM_STEPS = 128, 16, 8, 10
+# <A x, y> vs <x, A y> with positive x, y: f32 row sums of 50 positive terms
+# (each within 50 * 2^-24 relative), inner products summed in f64
+SYM_TOL = 1e-5
+# one train step on K2 vs on the plain reduce: f32 sums in another order,
+# re-rounded to bf16 at the stream casts; a flip moves one element by 2^-8
+# relative and flips are rare, so the loss agrees to 1e-4 relative and each
+# gradient to 1e-3 of its largest entry
+STEP_LOSS_TOL, STEP_GRAD_TOL = 1e-4, 1e-3
 
 
 def log(phase, msg):
@@ -89,6 +110,256 @@ def compare(got, want, tol):
             f"mismatch: max abs err {max_abs:.3e} beyond tol {tol} * (1 + |ref|)"
         )
     return max_abs, max_rel
+
+
+def wall(fn):
+    """(result, seconds) of ``fn()`` on the host clock, synchronised."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def pinned_copies(chunks):
+    """Host copies of device chunks, as views of one page-locked buffer per
+    field (three allocations instead of one per chunk and field)."""
+    from textgcn_tpu_torch.ops.streamed_sorted import SortedChunk
+
+    fields = ("row_ptr", "col", "val")
+    bufs = {
+        k: torch.empty(sum(getattr(c, k).numel() for c in chunks),
+                       dtype=getattr(chunks[0], k).dtype, pin_memory=True)
+        for k in fields
+    }
+    off = dict.fromkeys(fields, 0)
+    out = []
+    for c in chunks:
+        views = []
+        for k in fields:
+            t = getattr(c, k)
+            views.append(bufs[k][off[k] : off[k] + t.numel()].copy_(t))
+            off[k] += t.numel()
+        out.append(SortedChunk(*views, c.r0))
+    return out
+
+
+def stream_phases(dev, gen, records, r8_graph):
+    """The streamed (beyond-memory) slice; returns K2's launches in the
+    streamed train run."""
+    from textgcn_tpu_torch.graph.format import convert_graph
+    from textgcn_tpu_torch.ops.row_reduce import row_reduce, row_reduce_plain
+    from textgcn_tpu_torch.ops.spmm import spmm, spmm_coo_segment
+    from textgcn_tpu_torch.ops import streamed_sorted as ss
+    from textgcn_tpu_torch.train import streamed as st
+
+    # 10. stream data: the lattice generated on the card into a chunk cache
+    t_phase = time.perf_counter()
+    n_chunks, w_sc, w, cell_e = ss.lattice_config(STREAM_N, STREAM_DEG)
+    lattice = ss.make_lattice_stream(n_chunks, w_sc, w, cell_e, seed=SEED, device=dev)
+    n = lattice.n_rows
+    src = ss.CachedChunkSource(lattice.chunk, n_chunks, 16 << 30, dev)
+    chunks, gen_s = wall(lambda: list(src))
+    if src.host_loads != n_chunks or sum(c.n_edges for c in chunks) != lattice.n_edges:
+        raise AssertionError("lattice: wrong chunk or edge count")
+    deg = torch.cat([torch.diff(c.row_ptr) for c in chunks])
+    if int(deg.sum()) != lattice.n_edges or deg.numel() != n:
+        raise AssertionError("lattice: row_ptr does not cover every row once")
+    log("stream data", f"lattice {n_chunks} chunks x {w_sc} windows x {w} rows, "
+        f"cell_e {cell_e}: {n} rows, {lattice.n_edges} edges "
+        f"({lattice.chunk_edges} per chunk), degree mean {float(deg.float().mean()):.2f} "
+        f"(min {int(deg.min())}, max {int(deg.max())}); chunk cache "
+        f"{src.cached_bytes} bytes on the card; generated in {gen_s:.3f} s; "
+        f"phase {time.perf_counter() - t_phase:.1f} s")
+    del deg, chunks
+
+    # 11. B11: K2 onto one chunk's row range of an accumulator, vs plain
+    t_phase = time.perf_counter()
+    chunk = next(iter(src))
+    for f in (16, 8):
+        x = torch.randn((n, f), generator=gen, device=dev).bfloat16()
+        base = torch.randn((n, f), generator=gen, device=dev)
+        got = ss.sorted_chunk_add(base.clone(), chunk, x)
+        want = ss.sorted_chunk_add(base.clone(), chunk, x, reduce=row_reduce_plain)
+        err, rel = compare(got, want, K2_TOL)
+        outside = torch.ones(n, dtype=torch.bool, device=dev)
+        outside[chunk.r0 : chunk.r0 + chunk.rows] = False
+        if not torch.equal(got[outside], base[outside]):
+            raise AssertionError("B11 touched rows outside its chunk")
+        ms = cuda_ms(lambda: ss.sorted_chunk_add(base, chunk, x))
+        plain_ms = cuda_ms(lambda: ss.sorted_chunk_add(base, chunk, x, reduce=row_reduce_plain))
+        records.setdefault("sorted_chunk_add", []).append((err, ms, plain_ms))
+        log("B11 chunk add", f"F={f}, one chunk ({chunk.rows} rows, "
+            f"{chunk.n_edges} edges) onto a random base: max abs err {err:.3e} "
+            f"(rel {rel:.3e}), tol {K2_TOL}*(1+|ref|) (f32 sums in another "
+            f"order); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    del x, base, got, want, outside
+    log("B11 chunk add", f"phase {time.perf_counter() - t_phase:.1f} s")
+
+    # 12. stream pass: regenerated and cached passes, vs plain; symmetry
+    t_phase = time.perf_counter()
+    x = torch.randn((n, 16), generator=gen, device=dev).bfloat16()
+    regen, regen_s = wall(lambda: ss.spmm_streamed_sorted(lattice, x))
+    got, cached_s = wall(lambda: ss.spmm_streamed_sorted(src, x))
+    if not torch.equal(regen, got):
+        raise AssertionError("a regenerated lattice pass differs from the cached one")
+    want, plain_s = wall(lambda: ss.spmm_streamed_sorted(src, x, reduce=row_reduce_plain))
+    err, rel = compare(got, want, K2_TOL)
+    ms16 = cuda_ms(lambda: ss.spmm_streamed_sorted(src, x), reps=3, warmup=1)
+    x8 = torch.randn((n, 8), generator=gen, device=dev).bfloat16()
+    ms8 = cuda_ms(lambda: ss.spmm_streamed_sorted(src, x8), reps=3, warmup=1)
+    _, plain8_s = wall(lambda: ss.spmm_streamed_sorted(src, x8, reduce=row_reduce_plain))
+    del regen, got, want, x8
+    xs = torch.rand((n, 16), generator=gen, device=dev).bfloat16()
+    ys = torch.rand((n, 16), generator=gen, device=dev).bfloat16()
+    lhs = (ss.spmm_streamed_sorted(src, xs).double() * ys.double()).sum()
+    rhs = (xs.double() * ss.spmm_streamed_sorted(src, ys).double()).sum()
+    sym_rel = float((lhs - rhs).abs() / lhs.abs())
+    if not sym_rel <= SYM_TOL:
+        raise AssertionError(f"stream pass not symmetric: rel {sym_rel:.3e} > {SYM_TOL}")
+    del xs, ys, x
+    log("stream pass", f"F=16 pass over {n_chunks} chunks vs plain: max abs err "
+        f"{err:.3e} (rel {rel:.3e}), tol {K2_TOL}*(1+|ref|); regenerating pass "
+        f"== cached pass; <Ax,y> vs <x,Ay> rel {sym_rel:.3e} (tol {SYM_TOL}); "
+        f"pass with generation {1000 * regen_s:.1f} ms, cached pass (host clock) "
+        f"{1000 * cached_s:.1f} ms, cached pass {ms16:.3f} ms at F=16 and "
+        f"{ms8:.3f} ms at F=8 (CUDA events, 3 reps); plain pass {1000 * plain_s:.1f} "
+        f"ms at F=16, {1000 * plain8_s:.1f} ms at F=8 (host clock); phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+    # 13. stream train: the segmented GCN step on the cached stream
+    t_phase = time.perf_counter()
+    y = torch.randint(0, STREAM_C, (n,), generator=gen, device=dev)
+    # the features carry the label, as the JAX package's streamed train test
+    x = torch.randn((n, STREAM_F), generator=gen, device=dev, dtype=torch.bfloat16).mul_(0.1)
+    x += (torch.arange(STREAM_F, device=dev) % STREAM_C == y[:, None]).to(torch.bfloat16)
+    mask = (torch.rand(n, generator=gen, device=dev) < 0.5).float()
+
+    def init(opt_cls, lr):
+        params, _ = st.init_streamed(
+            torch.Generator(device=dev).manual_seed(SEED + 3), STREAM_F,
+            STREAM_H, STREAM_C, device=dev,
+        )
+        return params, opt_cls(params.values(), lr=lr)
+
+    # one step's loss and gradients (SGD with lr 0 keeps the weights) on K2
+    # and on the plain reduce, outside the counted run
+    res = []
+    for reduce in (row_reduce, row_reduce_plain):
+        params, opt = init(torch.optim.SGD, 0.0)
+        step = st.make_streamed_train_step_segmented(
+            st.make_sorted_stream(src, reduce), n, opt
+        )
+        (loss, step_s) = wall(lambda: float(step(params, x, y, mask)))
+        res.append((loss, {k: p.grad for k, p in params.items()}, step_s))
+    (loss_k, grads_k, _), (loss_p, grads_p, plain_step_s) = res
+    grads_k0 = {k: g.clone() for k, g in grads_k.items()}
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    grad_rel = {
+        k: float((grads_k[k] - grads_p[k]).abs().max() / grads_p[k].abs().max())
+        for k in grads_p
+    }
+    if not (loss_rel <= STEP_LOSS_TOL and max(grad_rel.values()) <= STEP_GRAD_TOL):
+        raise AssertionError(f"streamed step on K2 vs plain: loss rel {loss_rel:.3e}, "
+                             f"grads {grad_rel}")
+    del res, grads_k, grads_p
+
+    params, opt = init(torch.optim.Adam, 0.02)
+    step = st.make_streamed_train_step_segmented(st.make_sorted_stream(src), n, opt)
+    row_reduce.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for _ in range(STREAM_STEPS):
+        loss, dt = wall(lambda: float(step(params, x, y, mask)))
+        losses.append(loss)
+        times.append(dt)
+    launches = row_reduce.launches
+    peak = torch.cuda.max_memory_allocated()
+    if not all(math.isfinite(v) for v in losses) or not losses[-1] < 0.9 * losses[0]:
+        raise AssertionError(f"streamed GCN did not train: losses {losses}")
+    if launches != STREAM_STEPS * 4 * n_chunks:
+        raise AssertionError(f"K2 launched {launches} times in the streamed run")
+    host, pin_s = wall(lambda: pinned_copies(list(src)))
+    total_bytes = src.cached_bytes
+    log("stream train", f"GCN F={STREAM_F} H={STREAM_H} C={STREAM_C} bf16 on "
+        f"{n} nodes / {lattice.n_edges} edges, Adam lr 0.02: losses "
+        f"{', '.join(f'{v:.4f}' for v in losses)}; step 1 {times[0]:.3f} s, steps "
+        f"2-{STREAM_STEPS} mean {sum(times[1:]) / (STREAM_STEPS - 1):.3f} s/step; "
+        f"K2 launches {launches}; peak memory {peak} bytes allocated (x, labels, "
+        f"chunk cache, activations); one step on K2 vs plain: loss rel "
+        f"{loss_rel:.3e} (tol {STEP_LOSS_TOL}), grads rel to max "
+        f"{', '.join(f'{k} {v:.3e}' for k, v in grad_rel.items())} (tol "
+        f"{STEP_GRAD_TOL}); plain step {plain_step_s:.3f} s; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    del params, opt, step, src
+
+    # 14. stream beyond: the device cache holds half the chunks' bytes, the
+    # rest are copied in from pinned host memory on each of the step's passes
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    budget = total_bytes // 2
+    part = ss.CachedChunkSource(host.__getitem__, n_chunks, budget, dev)
+    params, opt = init(torch.optim.SGD, 0.0)
+    step = st.make_streamed_train_step_segmented(st.make_sorted_stream(part), n, opt)
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    for _ in range(2):
+        steps.append(wall(lambda: float(step(params, x, y, mask))))
+    beyond_peak = torch.cuda.max_memory_allocated()
+    (loss_b, first_s), (loss_b2, second_s) = steps
+    n_cached = part.cached_bytes // host[0].nbytes  # lattice chunks are equal in size
+    want_loads = n_chunks + 7 * (n_chunks - n_cached)
+    if part.cached_bytes > budget or part.host_loads != want_loads or n_cached == 0:
+        raise AssertionError(f"beyond-memory source: {part.cached_bytes} B cached of "
+                             f"{budget}, {part.host_loads} host loads, want {want_loads}")
+    loss_rel_b = abs(loss_b - loss_k) / abs(loss_k)
+    grad_rel_b = {
+        k: float((p.grad - grads_k0[k]).abs().max() / grads_k0[k].abs().max())
+        for k, p in params.items()
+    }
+    if not (loss_b2 == loss_b and loss_rel_b <= STEP_LOSS_TOL
+            and max(grad_rel_b.values()) <= STEP_GRAD_TOL):
+        raise AssertionError(f"step with host-fed chunks vs resident: loss {loss_b} "
+                             f"{loss_b2} vs {loss_k}, grads {grad_rel_b}")
+    log("stream beyond", f"one step with the device cache holding {n_cached} of "
+        f"{n_chunks} chunks ({part.cached_bytes} of {total_bytes} bytes, budget "
+        f"{budget}); {n_chunks - n_cached} chunks copied from pinned host memory "
+        f"on each pass, {part.host_loads} host loads over two steps; vs the "
+        f"resident step on K2: loss rel {loss_rel_b:.3e} (tol {STEP_LOSS_TOL}), "
+        f"grads rel to max {', '.join(f'{k} {v:.3e}' for k, v in grad_rel_b.items())} "
+        f"(tol {STEP_GRAD_TOL}); step 1 {first_s:.3f} s, step 2 {second_s:.3f} s; "
+        f"peak memory {beyond_peak} bytes allocated; pinned host copies made in "
+        f"{pin_s:.3f} s; phase {time.perf_counter() - t_phase:.1f} s")
+    del x, y, mask, params, opt, step, part, host, lattice
+
+    # 15. stream hostfed: R8 doc-word from pinned host chunks
+    t_phase = time.perf_counter()
+    sg, perm = convert_graph(r8_graph, "streamed")
+    if perm is not None or sg.n_chunks < 4 or not sg.chunks[0].col.is_pinned():
+        raise AssertionError("convert_graph(streamed): not >= 4 pinned host chunks")
+    x = torch.randn((sg.n_nodes, 200), generator=gen, device=dev).bfloat16()
+    got, host_s = wall(lambda: spmm(sg, x))
+    want = spmm_coo_segment(r8_graph.row, r8_graph.col, r8_graph.val, x.float(), sg.n_nodes)
+    err, rel = compare(got, want, K2_TOL)
+    with tempfile.TemporaryDirectory() as d:
+        ss.save_chunks(sg.chunks, d, sg.n_nodes)
+        loads = []
+        for budget in (1 << 30, 0):
+            src = ss.CachedChunkSource(ss.chunk_loader_from_dir(d), sg.n_chunks, budget, dev)
+            outs = [ss.spmm_streamed_sorted_hostfed(src, x) for _ in range(2)]
+            if not all(torch.equal(o, got) for o in outs):
+                raise AssertionError("a cached host-fed pass differs from the pinned one")
+            loads.append(src.host_loads)
+    if loads != [sg.n_chunks, 2 * sg.n_chunks]:
+        raise AssertionError(f"CachedChunkSource host loads {loads}")
+    log("stream hostfed", f"R8 doc-word ({sg.n_nodes} nodes, {sg.n_edges} "
+        f"edges) in {sg.n_chunks} pinned host chunks, F=200 vs the segment "
+        f"oracle: max abs err {err:.3e} (rel {rel:.3e}), tol {K2_TOL}*(1+|ref|); "
+        f"host-fed pass {1000 * host_s:.2f} ms (host clock, first); "
+        f"CachedChunkSource host loads over two passes {loads[0]} (full "
+        f"budget), {loads[1]} (zero budget); phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return launches
 
 
 def train_via_cli(cli, model, flags, acc_min, counters, need):
@@ -371,6 +642,7 @@ def main() -> int:
         f"(bf16-representable weights and cotangent: exact casts, f32 sums in "
         f"another order); forward+backward {ms:.4f} ms on the kernels, "
         f"{seg_ms:.4f} ms segment")
+    r8_graph = pre.graph
     del seg, p, cot, res, ag, pre, pre_att
 
     # 9. the GAT main path, through the CLI
@@ -378,6 +650,9 @@ def main() -> int:
         cli, "gat", ["--model", "gat", "--spmm", "hybrid"], GAT_ACC_MIN,
         counters, need=("row_reduce", "attn_stats", "attn_agg", "sddmm", "rowsum"),
     )
+
+    # 10-15. the streamed slice at the baseline scale config
+    stream_launches = stream_phases(dev, gen, records, r8_graph)
 
     sources = {
         "bsr_spmm": ("textgcn_tpu_torch/csrc/bsr_spmm.cu",
@@ -392,13 +667,17 @@ def main() -> int:
                   "textgcn_tpu/ops/pallas_attention.py:185"),
         "rowsum": ("textgcn_tpu_torch/csrc/rowsum.cu",
                    "textgcn_tpu/ops/pallas_attention.py:140"),
+        "sorted_chunk_add": ("textgcn_tpu_torch/csrc/row_reduce.cu",
+                             "textgcn_tpu/ops/streamed_sorted.py:81"),
     }
+    total = {k: launches[k] + gat_launches[k] for k in launches}
+    total["sorted_chunk_add"] = stream_launches
     kernels = []
     for name, (src, replaces) in sources.items():
         _, ms, plain_ms = records[name][0]
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": launches[name] + gat_launches[name],
+            "launches": total[name],
             "max_abs_err": max(r[0] for r in records[name]),
             "ms": ms, "plain_ms": plain_ms,
         })

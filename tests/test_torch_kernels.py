@@ -246,3 +246,129 @@ def test_gat_attention_on_gpu_matches_cpu_plain(cuda_dev):
         grads.append([out.detach().cpu()] + [t.grad.cpu() for t in ts])
     for a, b in zip(*grads):
         torch.testing.assert_close(b, a, rtol=1e-4, atol=1e-4)
+
+
+def _lattice_chunks(dev, seed=0):
+    from textgcn_tpu_torch.ops.streamed_sorted import make_lattice_stream
+
+    # two blocks of 4 windows of 32 rows, degree 50: one cross pair
+    return make_lattice_stream(4, 4, 32, 400, seed=seed, device=dev)
+
+
+def test_sorted_chunk_add_plain_matches_numpy():
+    from textgcn_tpu_torch.ops.streamed_sorted import sorted_chunk_add
+
+    lat = _lattice_chunks(CPU)
+    ch = lat.chunk(1)
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.randn(lat.n_rows, 16).astype(np.float32)).bfloat16()
+    base = rng.randn(lat.n_rows, 16).astype(np.float32)
+    want = base.astype(np.float64)
+    rows = ch.r0 + np.repeat(np.arange(ch.rows), np.diff(ch.row_ptr.numpy()))
+    np.add.at(want, rows, ch.val.numpy()[:, None] * x.float().numpy()[ch.col.numpy()])
+    got = sorted_chunk_add(torch.from_numpy(base.copy()), ch, x)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [16, 8])
+def test_sorted_chunk_add_kernel_matches_plain(cuda_dev, f):
+    """B11: K2 onto one row-sorted chunk's row range of an accumulator."""
+    from textgcn_tpu_torch.ops.streamed_sorted import sorted_chunk_add
+
+    lat = _lattice_chunks(cuda_dev, seed=1)
+    ch = lat.chunk(2)
+    gen = torch.Generator(device=cuda_dev).manual_seed(0)
+    x = torch.randn((lat.n_rows, f), generator=gen, device=cuda_dev).bfloat16()
+    base = torch.randn((lat.n_rows, f), generator=gen, device=cuda_dev)
+    n0 = row_reduce.launches
+    got = sorted_chunk_add(base.clone(), ch, x)
+    torch.cuda.synchronize()
+    assert row_reduce.launches == n0 + 1
+    want = sorted_chunk_add(base.clone(), ch, x, reduce=row_reduce_plain)
+    # f32 sums of 50 products per row in another order
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    outside = torch.ones(lat.n_rows, dtype=torch.bool, device=cuda_dev)
+    outside[ch.r0 : ch.r0 + ch.rows] = False
+    assert torch.equal(got[outside], base[outside])
+
+
+@pytest.mark.cuda
+def test_lattice_pass_and_its_vjp_on_gpu_match_plain(cuda_dev):
+    from textgcn_tpu_torch.ops import streamed_sorted as ss
+
+    lat = _lattice_chunks(cuda_dev, seed=2)
+    gen = torch.Generator(device=cuda_dev).manual_seed(1)
+    x = torch.randn((lat.n_rows, 16), generator=gen, device=cuda_dev).bfloat16()
+    n0 = row_reduce.launches
+    got = ss.spmm_streamed_sorted(lat, x)
+    assert row_reduce.launches == n0 + len(lat)
+    torch.testing.assert_close(
+        got, ss.spmm_streamed_sorted(lat, x, reduce=row_reduce_plain), rtol=1e-5, atol=1e-5
+    )
+    xg = x.clone().requires_grad_(True)
+    g = torch.randn((lat.n_rows, 16), generator=gen, device=cuda_dev)
+    ss.spmm_streamed_sorted_sym(lat, xg).backward(g)
+    # symmetric Â: the VJP is the same pass on the cotangent, cast to bf16
+    assert xg.grad.dtype == torch.bfloat16
+    torch.testing.assert_close(
+        xg.grad, ss.spmm_streamed_sorted(lat, g.bfloat16()).bfloat16(), rtol=0, atol=0
+    )
+
+
+@pytest.mark.cuda
+def test_hostfed_pass_with_lookahead_matches_resident(cuda_dev):
+    from textgcn_tpu_torch.ops import streamed_sorted as ss
+
+    lat = _lattice_chunks(CPU, seed=3)
+    host = [c.pin_memory() for c in lat]
+    dev_chunks = [c.to(cuda_dev) for c in host]
+    x = torch.randn((lat.n_rows, 24), device=cuda_dev).bfloat16()
+    resident = ss.spmm_streamed_sorted(dev_chunks, x)
+    n0 = row_reduce.launches
+    for _ in range(3):
+        got = ss.spmm_streamed_sorted_hostfed(host, x)
+        # the same kernel on the same chunks: bit-equal
+        assert torch.equal(got, resident)
+    assert row_reduce.launches == n0 + 3 * len(host)
+    # a source with some chunks cached on the device and the rest on the host
+    src = ss.CachedChunkSource(lambda i: host[i], len(host), host[0].nbytes, cuda_dev)
+    assert torch.equal(ss.spmm_streamed_sorted_hostfed(src, x), resident)
+    assert torch.equal(ss.spmm_streamed_sorted_hostfed(src, x), resident)
+    assert src.host_loads == 1 + 2 * (len(host) - 1)
+
+
+@pytest.mark.cuda
+def test_streamed_step_beyond_the_device_cache_matches_resident(cuda_dev):
+    """The streamed GCN step through a CachedChunkSource whose budget holds
+    one chunk of four: the others are copied in from pinned host chunks on
+    every pass, and loss and gradients equal the step on resident chunks."""
+    from textgcn_tpu_torch.ops import streamed_sorted as ss
+    from textgcn_tpu_torch.train import streamed as st
+
+    lat = _lattice_chunks(CPU, seed=4)
+    host = [c.pin_memory() for c in lat]
+    n, f, h, c = lat.n_rows, 24, 16, 8
+    gen = torch.Generator(device=cuda_dev).manual_seed(2)
+    x = torch.randn((n, f), generator=gen, device=cuda_dev).bfloat16()
+    y = torch.randint(0, c, (n,), generator=gen, device=cuda_dev)
+    mask = (torch.rand(n, generator=gen, device=cuda_dev) < 0.5).float()
+    src = ss.CachedChunkSource(host.__getitem__, len(host), host[0].nbytes, cuda_dev)
+    res = []
+    for chunks in ([ch.to(cuda_dev) for ch in host], src):
+        params, _ = st.init_streamed(
+            torch.Generator(device=cuda_dev).manual_seed(3), f, h, c, device=cuda_dev
+        )
+        opt = torch.optim.SGD(params.values(), lr=0.0)
+        step = st.make_streamed_train_step_segmented(st.make_sorted_stream(chunks), n, opt)
+        n0 = row_reduce.launches
+        loss = float(step(params, x, y, mask))
+        assert row_reduce.launches == n0 + 4 * len(host)
+        res.append((loss, {k: p.grad for k, p in params.items()}))
+    (loss_r, grads_r), (loss_c, grads_c) = res
+    # the same kernel over the same chunks in the same order
+    assert loss_c == loss_r
+    for k in grads_r:
+        assert torch.equal(grads_c[k], grads_r[k]), k
+    assert src.cached_bytes == host[0].nbytes
+    assert src.host_loads == len(host) + 3 * (len(host) - 1)

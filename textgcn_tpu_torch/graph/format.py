@@ -11,6 +11,11 @@ segment     gather + ``index_add_`` (plain PyTorch); the oracle.
 dense       one [N, N] @ [N, F] matmul; for graphs up to 10k nodes.
 hybrid      degree-sort permutation, then tiles with >= 24 edges go to the
             tile kernel K1 and the other edges to the residual kernel K2.
+streamed    host-resident row-range chunks of a row-sorted CSR (at most
+            ``CHUNK_EDGES`` edges each), streamed through K2 with a one-chunk
+            transfer lookahead (``SortedStreamGraph``): forward passes
+            only. Not in ``SPMM_FORMATS``, so the CLI does not offer it;
+            training streams through ``spmm_streamed_sorted_sym``.
 auto        dense up to ``DENSE_MAX_NODES`` nodes. Above, the JAX package
             prices formats with TPU constants; the port has no GPU
             constants yet and raises (ROADMAP A: the H100 machine model).
@@ -28,6 +33,7 @@ import numpy as np
 
 from textgcn_tpu_torch.graph.reorder import reorder_and_build
 from textgcn_tpu_torch.graph.structs import DenseGraph, SparseGraph
+from textgcn_tpu_torch.ops.streamed_sorted import SortedStreamGraph
 
 SPMM_FORMATS = ("auto", "segment", "dense", "hybrid")
 
@@ -42,14 +48,19 @@ def convert_graph(
     symmetric: bool = True,
     dense_max_nodes: int = DENSE_MAX_NODES,
 ) -> Tuple[object, Optional[np.ndarray]]:
-    """SparseGraph → (graph container on g's device, node permutation or None).
+    """SparseGraph → (graph container, node permutation or None). ``fmt`` is
+    one of ``SPMM_FORMATS`` or ``"streamed"``. Containers live on g's
+    device, except ``streamed``, whose chunks stay on the host.
 
     ``symmetric=True`` asserts value-symmetry of the matrix (true for every
     sym-normalized Â); the hybrid backward relies on it.
     """
+    if fmt == "streamed":
+        row, col, val = g.coo_numpy()
+        return SortedStreamGraph.from_coo(row, col, val, g.n_nodes, symmetric=symmetric), None
     if fmt not in SPMM_FORMATS:
         raise ValueError(
-            f"unknown spmm format {fmt!r}; choose one of {SPMM_FORMATS}"
+            f"unknown spmm format {fmt!r}; choose one of {SPMM_FORMATS} or 'streamed'"
         )
     if fmt == "auto":
         if g.n_nodes > dense_max_nodes:

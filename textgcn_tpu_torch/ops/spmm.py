@@ -8,7 +8,8 @@ segment-sum oracle):
   the ``--spmm segment`` path. Plain PyTorch, as the JAX version is plain XLA.
 - :func:`spmm_dense`: one ``torch.matmul`` (the JAX package leaves it to XLA).
 - :func:`spmm` dispatches on the container type; ``HybridGraph`` goes to
-  :func:`textgcn_tpu_torch.graph.reorder.spmm_hybrid` and its two kernels.
+  :func:`textgcn_tpu_torch.graph.reorder.spmm_hybrid` and its two kernels,
+  a host-resident ``SortedStreamGraph`` to its chunk stream through K2.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ import torch
 
 from textgcn_tpu_torch.graph.reorder import HybridGraph, spmm_hybrid
 from textgcn_tpu_torch.graph.structs import DenseGraph, SparseGraph
+from textgcn_tpu_torch.ops.streamed_sorted import SortedStreamGraph
 
 
 def _spmm_coo(row, col, val, x, n_nodes):
@@ -56,7 +58,12 @@ def spmm_dense(a_dense: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 def spmm(graph, x: torch.Tensor) -> torch.Tensor:
     """Â @ x, dispatched on the container type (``DenseGraph``,
-    ``SparseGraph``, ``HybridGraph``); differentiable in ``x``."""
+    ``SparseGraph``, ``HybridGraph``: differentiable in ``x``;
+    ``SortedStreamGraph``: a forward pass streamed from the host, not
+    differentiable; training streams through
+    :func:`textgcn_tpu_torch.ops.streamed_sorted.spmm_streamed_sorted_sym`)."""
+    if isinstance(graph, SortedStreamGraph):
+        return graph.spmm(x)
     if isinstance(graph, DenseGraph):
         return spmm_dense(graph.a, x)
     if isinstance(graph, HybridGraph):
