@@ -26,6 +26,20 @@ drives the port's two main paths on R8 doc-word:
   and against a step whose device cache holds only half the chunks (the
   rest stream in from pinned host memory on every pass), and streams the
   R8 doc-word graph from pinned host chunks.
+- Sharded GCN (B10): at 4 shards of R8 doc-word, in this process, holds each
+  rank's tile leg (K1 on its rectangular block, as ``bsr_leg``) and its
+  whole pass (K1, then K2 in place) against the plain versions, and the
+  four shards put together against the single-device hybrid pass; trains
+  ``train --spmm hybrid --shards 1 --partition allgather`` once through the
+  CLI (an NCCL group of one), and 4 ranks on this one card through the
+  library (gloo, which carries CUDA tensors; NCCL refuses two ranks on one
+  GPU): ``bsr_leg`` and K2 must run on rank 0 and test accuracy must reach
+  0.95 in both.
+
+Every kernel's record also carries its bound on the card (the larger of its
+bytes over the memory rate and its operations over the peak rate, from this
+run's inputs) and the time of one PyTorch call that computes the same
+function, where there is one.
 
 Each phase prints one line; any failure raises and exits non-zero. The last
 lines are the kernels' JSON record, the card's name and power limit, and
@@ -38,6 +52,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import torch
 
@@ -75,6 +90,12 @@ SYM_TOL = 1e-5
 # relative and flips are rare, so the loss agrees to 1e-4 relative and each
 # gradient to 1e-3 of its largest entry
 STEP_LOSS_TOL, STEP_GRAD_TOL = 1e-4, 1e-3
+# sharded GCN: ranks of R8 doc-word
+SHARDS = 4
+# H100 SXM peaks (NVIDIA's data sheet): HBM rate, dense bf16 tensor
+# cores, f32 outside them
+HBM_BYTES_PER_S = 3.35e12
+PEAK_BF16, PEAK_F32 = 989e12, 67e12
 
 
 def log(phase, msg):
@@ -112,6 +133,68 @@ def compare(got, want, tol):
     return max_abs, max_rel
 
 
+def bound(n_bytes, n_ops, peak):
+    """(ms, what bounds it): the larger of the bytes over the memory rate
+    and the operations over ``peak``."""
+    t_bytes, t_ops = 1e3 * n_bytes / HBM_BYTES_PER_S, 1e3 * n_ops / peak
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def rows_read(idx, width, itemsize):
+    """Bytes of the distinct rows ``idx`` gathers from a ``width``-wide table
+    (what a sparse gather needs, each row read once)."""
+    return int(torch.unique(idx).numel()) * width * itemsize
+
+
+def csr(row_ptr, col, val, shape):
+    """An f32 CSR tensor of the same matrix, for the library yardsticks."""
+    return torch.sparse_csr_tensor(row_ptr.long(), col.long(), val.float(), size=shape)
+
+
+def tiles_csr(b, n_cols):
+    """The tile stack of a BlockSparseGraph as an f32 CSR tensor
+    [n_block_rows*128, n_cols] (its nonzeros only)."""
+    nbr, nbc = b.n_block_rows, n_cols // 128
+    dense = torch.zeros((nbr * 128, n_cols), device=b.blocks.device)
+    dense.view(nbr, 128, nbc, 128).permute(0, 2, 1, 3)[
+        b.block_rows.long(), b.block_cols.long()
+    ] = b.blocks.float()
+    return dense.to_sparse_csr()
+
+
+def k1_yardsticks(b, xp, n_cols):
+    """K1's bound on the card and the time of ``torch.sparse.mm`` on an f32
+    CSR of its tiles, for tiles ``b`` against the padded table ``xp``."""
+    fp = xp.shape[1]
+    n_bytes = (nbytes(b.blocks, b.tile_ptr, b.block_cols)
+               + rows_read(b.block_cols, 128 * fp, 2) + b.n_block_rows * 128 * fp * 4)
+    bnd = bound(n_bytes, 2 * b.nnzb * 128 * 128 * fp, PEAK_BF16)
+    a, xf = tiles_csr(b, n_cols), xp.float()
+    lib = cuda_ms(lambda: torch.sparse.mm(a, xf))
+    return (*bnd, lib)
+
+
+def k2_yardsticks(row_ptr, col, val, x, base=None):
+    """K2's bound (the distinct x rows gathered; the output written, and the
+    base read first when there is one) and the time of ``torch.sparse.addmm``
+    (``torch.sparse.mm`` from zero) on an f32 CSR of the same edges."""
+    n_rows, f = row_ptr.numel() - 1, x.shape[1]
+    n_bytes = (nbytes(row_ptr, col, val) + rows_read(col, f, x.element_size())
+               + (1 if base is None else 2) * n_rows * f * 4)
+    bnd = bound(n_bytes, 2 * col.numel() * f, PEAK_F32)
+    a, xf = csr(row_ptr, col, val, (n_rows, x.shape[0])), x.float()
+    if base is None:
+        lib = cuda_ms(lambda: torch.sparse.mm(a, xf))
+    else:
+        b0 = base[:n_rows]
+        lib = cuda_ms(lambda: torch.sparse.addmm(b0, a, xf))
+    return (*bnd, lib)
+
+
 def wall(fn):
     """(result, seconds) of ``fn()`` on the host clock, synchronised."""
     torch.cuda.synchronize()
@@ -144,7 +227,7 @@ def pinned_copies(chunks):
     return out
 
 
-def stream_phases(dev, gen, records, r8_graph):
+def stream_phases(dev, gen, records, yard, r8_graph):
     """The streamed (beyond-memory) slice; returns K2's launches in the
     streamed train run."""
     from textgcn_tpu_torch.graph.format import convert_graph
@@ -189,6 +272,10 @@ def stream_phases(dev, gen, records, r8_graph):
         ms = cuda_ms(lambda: ss.sorted_chunk_add(base, chunk, x))
         plain_ms = cuda_ms(lambda: ss.sorted_chunk_add(base, chunk, x, reduce=row_reduce_plain))
         records.setdefault("sorted_chunk_add", []).append((err, ms, plain_ms))
+        if f == 16:
+            yard["sorted_chunk_add"] = k2_yardsticks(
+                chunk.row_ptr, chunk.col, chunk.val, x, base[chunk.r0 : chunk.r0 + chunk.rows]
+            )
         log("B11 chunk add", f"F={f}, one chunk ({chunk.rows} rows, "
             f"{chunk.n_edges} edges) onto a random base: max abs err {err:.3e} "
             f"(rel {rel:.3e}), tol {K2_TOL}*(1+|ref|) (f32 sums in another "
@@ -362,6 +449,67 @@ def stream_phases(dev, gen, records, r8_graph):
     return launches
 
 
+def shard_phase(dev, gen, records, yard, h, row, col, val):
+    """B10 at SHARDS ranks of R8 doc-word, in this process: each rank's
+    share built from the degree-sorted graph; K1 on its rectangular block
+    (``bsr_leg``) and its whole pass against the plain versions; the shards
+    put together against the single-device hybrid pass ``h``."""
+    from textgcn_tpu_torch.graph.reorder import feature_table, hybrid_pass
+    from textgcn_tpu_torch.ops.bsr_spmm import bsr_leg, bsr_spmm_plain
+    from textgcn_tpu_torch.parallel.mesh_kernels import (
+        MeshHybridAllGather, shard_hybrid_pass, shard_hybrid_pass_plain,
+    )
+
+    t_phase = time.perf_counter()
+    n = h.n_nodes
+    shards = [
+        MeshHybridAllGather.from_coo(row, col, val, n, SHARDS, p, device=dev)
+        for p in range(SHARDS)
+    ]
+    build_s = time.perf_counter() - t_phase
+    m0 = shards[0]
+    log("B10 shard legs", f"{SHARDS} shards of {m0.rows_per_shard} rows ({m0.n_pad} "
+        f"padded, {m0.n_pad // 128} block-columns): tiles "
+        f"{[m.bsr.nnzb for m in shards]} ({m0.bsr_edges} tile edges in all, the "
+        f"single-device hybrid's {h.bsr.n_edges}), residual edges "
+        f"{[0 if m.rest is None else m.rest.n_edges for m in shards]}; built in "
+        f"{build_s:.1f} s on the host")
+    for f in (200, 8):
+        x = torch.zeros((m0.n_pad, f), device=dev)
+        x[:n] = torch.randn((n, f), generator=gen, device=dev)
+        xp = feature_table(x, m0.n_pad, torch.bfloat16)
+        outs, cells = [], []
+        for m in shards:
+            b = m.bsr
+            args = (b.blocks, b.tile_ptr, b.block_cols, xp)
+            err, _ = compare(bsr_leg(*args), bsr_spmm_plain(*args), K1_TOL)
+            ms = cuda_ms(lambda: bsr_leg(*args))
+            plain_ms = cuda_ms(lambda: bsr_spmm_plain(*args))
+            bound_ms, bound_by, lib_ms = k1_yardsticks(b, xp, m0.n_pad)
+            out = shard_hybrid_pass(m, x)
+            perr, _ = compare(out, shard_hybrid_pass_plain(m, x), K1_TOL)
+            pass_ms = cuda_ms(lambda: shard_hybrid_pass(m, x))
+            outs.append(out)
+            records.setdefault("bsr_leg", []).append((max(err, perr), ms, plain_ms))
+            yard.setdefault("bsr_leg", (bound_ms, bound_by, lib_ms))
+            cells.append(f"rank {m.shard}: {b.nnzb} tiles, K1 {ms:.4f} ms (plain "
+                         f"{plain_ms:.4f}, bound {bound_ms:.4f} by {bound_by}, "
+                         f"torch.sparse.mm {lib_ms:.4f}), pass {pass_ms:.4f} ms, "
+                         f"err K1 {err:.3e} pass {perr:.3e}")
+        whole = torch.cat(outs)
+        want = hybrid_pass(h, x[:n])
+        same = torch.equal(whole[:n], want)
+        err, _ = compare(whole[:n], want, K1_TOL)
+        if whole[n:].any():
+            raise AssertionError("shard rows past the last node are not zero")
+        log("B10 shard legs", f"F={f}: {'; '.join(cells)}; tol {K1_TOL}*(1+|ref|) "
+            f"(same bf16 products, f32 sums in another order); the {SHARDS} shards "
+            f"put together vs the single-device hybrid pass: "
+            f"{'bit-equal' if same else f'max abs err {err:.3e}'}")
+    del shards, outs, whole, want, x, xp
+    log("B10 shard legs", f"phase {time.perf_counter() - t_phase:.1f} s")
+
+
 def train_via_cli(cli, model, flags, acc_min, counters, need):
     """Train R8 doc-word once through the port's CLI with every launch count
     set to 0 just before; check the run and return the counts (summed over
@@ -383,6 +531,8 @@ def train_via_cli(cli, model, flags, acc_min, counters, need):
             summary = json.load(fh)
     if rc != 0:
         raise AssertionError(f"cli train returned {rc}")
+    if "--shards" in flags and summary.get("sharding", {}).get("kernel") != "hybrid":
+        raise AssertionError(f"a sharded run's report lacks its sharding: {summary.get('sharding')}")
     if min(launches[k] for k in need) < 1:
         raise AssertionError(f"a kernel of the {model} path never launched: {launches}")
     run = summary["runs"][0]
@@ -401,6 +551,48 @@ def train_via_cli(cli, model, flags, acc_min, counters, need):
         f"{json.dumps(summary['device_memory'])}")
     if test["acc"] < acc_min:
         raise AssertionError(f"{model} test accuracy {test['acc']:.4f} < {acc_min}")
+    return launches, run
+
+
+def train_sharded_ranks(pre, counters, run1):
+    """SHARDS ranks of the sharded GCN on this one card through the library
+    (gloo), the CLI run's seed and settings, every launch count set to 0 just
+    before; rank 0 runs in this process, so the counts read just after are
+    its own. ``run1`` is the CLI's one-rank run, printed beside it."""
+    from textgcn_tpu_torch.parallel.launch import HostData, run_sharded_seeds
+    from textgcn_tpu_torch.train.run import generate_seeds
+    from textgcn_tpu_torch.train.trainer import TrainConfig
+
+    data = HostData.from_prepared(pre)
+    for fns in counters.values():
+        for fn in fns:
+            fn.launches = 0
+    t0 = time.perf_counter()
+    (run,) = run_sharded_seeds(
+        data, generate_seeds(1, SEED), TrainConfig(spmm="hybrid"), SHARDS,
+        backend="gloo", devices=["cuda:0"] * SHARDS,
+    )
+    wall_s = time.perf_counter() - t0
+    launches = {k: sum(fn.launches for fn in fns) for k, fns in counters.items()}
+    if min(launches["bsr_leg"], launches["row_reduce"]) < 1:
+        raise AssertionError(f"a kernel of the sharded path never launched on rank 0: {launches}")
+    hist, test = run["history"], run["test"]
+    if not all(math.isfinite(r[k]) for r in hist for k in ("train_loss", "val_loss")):
+        raise AssertionError("non-finite loss in the sharded training history")
+    common = min(len(hist), len(run1["history"]))
+    drift = max(
+        abs(a["train_loss"] - b["train_loss"]) / abs(b["train_loss"])
+        for a, b in zip(hist[:common], run1["history"][:common])
+    )
+    log("train sharded x4", f"{SHARDS} ranks on cuda:0 (gloo), seed {run['seed']}: "
+        f"{len(hist)} epochs, train {test['train_time']:.3f} s = "
+        f"{1000 * test['train_time'] / len(hist):.3f} ms/epoch, {wall_s:.1f} s with "
+        f"spawn and set-up; test acc {test['acc']:.4f}, macro-F1 {test['macro_f1']:.4f}; "
+        f"rank 0 launches {launches}; vs the one-rank CLI run ({run1['epochs_run']} "
+        f"epochs, acc {run1['test']['acc']:.4f}): train loss max rel diff {drift:.3e} "
+        f"over the first {common} epochs")
+    if test["acc"] < ACC_MIN:
+        raise AssertionError(f"sharded x{SHARDS} test accuracy {test['acc']:.4f} < {ACC_MIN}")
     return launches
 
 
@@ -417,7 +609,7 @@ def main() -> int:
     from textgcn_tpu_torch.ops import _build
     from textgcn_tpu_torch.ops import attention as att
     from textgcn_tpu_torch.ops.bsr_spmm import (
-        F_ALIGN, bsr_spmm, bsr_spmm_plain,
+        F_ALIGN, bsr_leg, bsr_spmm, bsr_spmm_plain,
     )
     from textgcn_tpu_torch.ops.row_reduce import row_reduce, row_reduce_plain
     from textgcn_tpu_torch.ops.spmm import spmm_coo_segment
@@ -425,6 +617,8 @@ def main() -> int:
         apply_attention_format, prepare_docword_data,
     )
 
+    # the library yardsticks build CSR tensors, a beta API that says so
+    warnings.filterwarnings("ignore", message="Sparse")
     # plain versions and the oracle run in full f32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -462,8 +656,9 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(SEED)
     n_pad = bsr.n_block_rows * bsr.bm
     # kernel name -> [(max abs err, ms, plain ms), ...]; the first entry is
-    # the one the JSON record reports times from (F=200, the forward CSR)
-    records = {}
+    # the one the JSON record reports times from (F=200, the forward CSR);
+    # yard: kernel name -> (bound ms, bound by, library ms or None) for it
+    records, yard = {}, {}
 
     # 3. K1 vs plain
     for f in (200, 8):
@@ -479,6 +674,8 @@ def main() -> int:
             f"{rel:.3e}, tol {K1_TOL}*(1+|ref|) (same bf16 products, f32 sums "
             f"in another order); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
         records.setdefault("bsr_spmm", []).append((err, ms, plain_ms))
+        if f == 200:
+            yard["bsr_spmm"] = k1_yardsticks(bsr, xp, n_pad)
 
         # 4. K2 vs plain on the real residual leg, onto K1's output and from 0
         rargs = (rest.row_ptr, rest.col, rest.val, xp)
@@ -495,6 +692,8 @@ def main() -> int:
             f"(f32 sums of a few products per row); kernel {ms:.4f} ms, "
             f"plain {plain_ms:.4f} ms (with base)")
         records.setdefault("row_reduce", []).append((max(err_b, err_z), ms, plain_ms))
+        if f == 200:
+            yard["row_reduce"] = k2_yardsticks(rest.row_ptr, rest.col, rest.val, xp, base)
 
     # 5. full hybrid pass and its backward vs the segment oracle, F=200
     row, col, val = pre.graph.coo_numpy()
@@ -515,27 +714,40 @@ def main() -> int:
         x.grad, spmm_coo_segment(seg.col, seg.row, seg.val, cot, h.n_nodes),
         HYBRID_TOL,
     )
-    ms = cuda_ms(lambda: hybrid_pass(h, x.detach()))
+    hyb_ms = cuda_ms(lambda: hybrid_pass(h, x.detach()))
     seg_ms = cuda_ms(
         lambda: spmm_coo_segment(seg.row, seg.col, seg.val, x.detach(), h.n_nodes)
     )
     log("hybrid", f"F=200 pass vs segment oracle: max abs err {err:.3e} (rel "
         f"{rel:.3e}), backward {gerr:.3e}, tol {HYBRID_TOL}*(1+|ref|) (bf16 "
         f"features and tiles); backward == pass on the cotangent; hybrid pass "
-        f"{ms:.4f} ms, segment pass {seg_ms:.4f} ms")
-    del seg, x, y, want, cot, bwd_again, h, bsr, rest
+        f"{hyb_ms:.4f} ms, segment pass {seg_ms:.4f} ms")
+    del seg, x, y, want, cot, bwd_again, bsr, rest
+
+    # 5b. B10: the sharded tile legs at SHARDS ranks, in this process
+    shard_phase(dev, gen, records, yard, h, perm[row], perm[col], val)
+    del h
 
     # 6. the GCN main path, through the CLI
     counters = {
-        "bsr_spmm": (bsr_spmm,), "row_reduce": (row_reduce,),
+        "bsr_spmm": (bsr_spmm,), "bsr_leg": (bsr_leg,), "row_reduce": (row_reduce,),
         "attn_stats": (att.stats_logits, att.softmax_stats),
         "attn_agg": (att.attn_agg,), "sddmm": (att.sddmm,),
         "rowsum": (att.rowsum,),
     }
-    launches = train_via_cli(
+    launches, _ = train_via_cli(
         cli, "gcn", ["--spmm", "hybrid"], ACC_MIN, counters,
         need=("bsr_spmm", "row_reduce"),
     )
+
+    # 6b. the sharded GCN through the CLI: an NCCL group of one on this card
+    shard1, run1 = train_via_cli(
+        cli, "gcn sharded", ["--spmm", "hybrid", "--shards", "1", "--partition", "allgather"],
+        ACC_MIN, counters, need=("bsr_leg", "row_reduce"),
+    )
+    # 6c. SHARDS ranks on this one card through the library (gloo: NCCL
+    # refuses two ranks on one GPU); rank 0 runs here, so its launches count
+    shard4 = train_sharded_ranks(pre, counters, run1)
 
     # 7. the attention kernels vs plain on the degree-sorted R8 attention graph
     t0 = time.perf_counter()
@@ -561,11 +773,21 @@ def main() -> int:
     )
     ms6 = cuda_ms(lambda: att.softmax_stats(ag.row_ptr, logits))
     plain6 = cuda_ms(lambda: att.softmax_stats_plain(ag.row_ptr, logits))
-    log("B5/B6 attn_stats", f"logits+stats: max abs err {err:.3e}, kernel "
-        f"{ms:.4f} ms, plain {plain_ms:.4f} ms; stats of given logits: max "
-        f"abs err {err6:.3e}, kernel {ms6:.4f} ms, plain {plain6:.4f} ms; tol "
-        f"{ATT_TOL}*(1+|ref|) (same f32 logits, exp-sums in another order)")
     records["attn_stats"] = [(err, ms, plain_ms), (err6, ms6, plain6)]
+    e, n_rows = ag.n_edges, ag.n_nodes
+    # B5 per edge: gather-add, leaky relu (compare, multiply), add log(val),
+    # subtract the max, exp, add: ~7 f32 operations, and one max; it writes
+    # the logits and two statistics per row. B6 reads the logits instead.
+    yard["attn_stats"] = (*bound(
+        nbytes(ag.row_ptr, ag.col, ag.logval, es, ed) + 4 * e + 8 * n_rows, 8 * e, PEAK_F32,
+    ), None)
+    bound6 = bound(nbytes(ag.row_ptr, logits) + 8 * n_rows, 4 * e, PEAK_F32)
+    log("B5/B6 attn_stats", f"logits+stats: max abs err {err:.3e}, kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {yard['attn_stats'][0]:.4f} ms "
+        f"by {yard['attn_stats'][1]}; stats of given logits: max abs err "
+        f"{err6:.3e}, kernel {ms6:.4f} ms, plain {plain6:.4f} ms, bound "
+        f"{bound6[0]:.4f} ms by {bound6[1]}; no one PyTorch call computes either; "
+        f"tol {ATT_TOL}*(1+|ref|) (same f32 logits, exp-sums in another order)")
     # the backward's softmax weights, moved to the transpose CSR (dx's val)
     w_t = att.edge_weights(ag, logits, mx, sm).index_select(0, ag.perm_t)
     for f in (200, 8):
@@ -576,11 +798,25 @@ def main() -> int:
         ms = cuda_ms(lambda: att.attn_agg(*a_args))
         plain_ms = cuda_ms(lambda: att.attn_agg_plain(*a_args))
         records.setdefault("attn_agg", []).append((err, ms, plain_ms))
+        if f == 200:
+            yard["attn_agg"] = (*bound(
+                nbytes(ag.row_ptr, ag.col, logits, mx, sm) + rows_read(ag.col, f, 2)
+                + 4 * n * f, (2 * f + 3) * ag.n_edges, PEAK_F32,
+            ), None)
         d_args = (ag.row_ptr, ag.col, g16, x16)
         err_d, _ = compare(att.sddmm(*d_args), att.sddmm_plain(*d_args), ATT_TOL)
         ms_d = cuda_ms(lambda: att.sddmm(*d_args))
         plain_d = cuda_ms(lambda: att.sddmm_plain(*d_args))
         records.setdefault("sddmm", []).append((err_d, ms_d, plain_d))
+        if f == 200:
+            pattern = csr(ag.row_ptr, ag.col, torch.zeros(ag.n_edges, device=dev), (n, n))
+            gf, xt = g16.float(), x16.float().t().contiguous()
+            lib = cuda_ms(lambda: torch.sparse.sampled_addmm(pattern, gf, xt, beta=0.0))
+            yard["sddmm"] = (*bound(
+                nbytes(ag.row_ptr, ag.col) + rows_read(ag.row, f, 2) + rows_read(ag.col, f, 2)
+                + 4 * ag.n_edges, 2 * f * ag.n_edges, PEAK_F32,
+            ), lib)
+            del pattern, gf, xt
         log("B7/B8 attn_agg, sddmm", f"F={f}: attn_agg max abs err {err:.3e}, "
             f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; sddmm max abs err "
             f"{err_d:.3e}, kernel {ms_d:.4f} ms, plain {plain_d:.4f} ms; tol "
@@ -592,20 +828,26 @@ def main() -> int:
         ms_k = cuda_ms(lambda: row_reduce(*k_args))
         plain_k = cuda_ms(lambda: row_reduce_plain(*k_args))
         records["row_reduce"].append((err_k, ms_k, plain_k))
+        bnd_k, by_k, lib_k = k2_yardsticks(*k_args)
         log("K2 row_reduce as dx", f"F={f}, transpose CSR with the softmax "
             f"weights: max abs err {err_k:.3e}, kernel {ms_k:.4f} ms, plain "
-            f"{plain_k:.4f} ms; tol {ATT_TOL}*(1+|ref|) (f32 sums in another "
+            f"{plain_k:.4f} ms, bound {bnd_k:.4f} ms by {by_k}, torch.sparse.mm "
+            f"{lib_k:.4f} ms; tol {ATT_TOL}*(1+|ref|) (f32 sums in another "
             f"order)")
     v = torch.randn(ag.n_edges, generator=gen, device=dev)
     v_t = v.index_select(0, ag.perm_t)
-    for ptr, vals, csr in (
+    for ptr, vals, csr_name in (
         (ag.row_ptr, v, "forward"), (ag.row_ptr_t, v_t, "transpose"),
     ):
         err, _ = compare(att.rowsum(ptr, vals), att.rowsum_plain(ptr, vals), ATT_TOL)
         ms = cuda_ms(lambda: att.rowsum(ptr, vals))
         plain_ms = cuda_ms(lambda: att.rowsum_plain(ptr, vals))
         records.setdefault("rowsum", []).append((err, ms, plain_ms))
-        log("B9 rowsum", f"{csr} CSR: max abs err {err:.3e}, kernel "
+        if csr_name == "forward":
+            lengths = torch.diff(ptr.long())
+            lib = cuda_ms(lambda: torch.segment_reduce(vals, "sum", lengths=lengths))
+            yard["rowsum"] = (*bound(nbytes(ptr, vals) + 4 * n, ag.n_edges, PEAK_F32), lib)
+        log("B9 rowsum", f"{csr_name} CSR: max abs err {err:.3e}, kernel "
             f"{ms:.4f} ms, plain {plain_ms:.4f} ms; tol {ATT_TOL}*(1+|ref|) "
             f"(f32 sums in another order)")
     del x16, g16, v, v_t, w_t, logits, mx, sm, got, want
@@ -646,13 +888,13 @@ def main() -> int:
     del seg, p, cot, res, ag, pre, pre_att
 
     # 9. the GAT main path, through the CLI
-    gat_launches = train_via_cli(
+    gat_launches, _ = train_via_cli(
         cli, "gat", ["--model", "gat", "--spmm", "hybrid"], GAT_ACC_MIN,
         counters, need=("row_reduce", "attn_stats", "attn_agg", "sddmm", "rowsum"),
     )
 
     # 10-15. the streamed slice at the baseline scale config
-    stream_launches = stream_phases(dev, gen, records, r8_graph)
+    stream_launches = stream_phases(dev, gen, records, yard, r8_graph)
 
     sources = {
         "bsr_spmm": ("textgcn_tpu_torch/csrc/bsr_spmm.cu",
@@ -669,17 +911,21 @@ def main() -> int:
                    "textgcn_tpu/ops/pallas_attention.py:140"),
         "sorted_chunk_add": ("textgcn_tpu_torch/csrc/row_reduce.cu",
                              "textgcn_tpu/ops/streamed_sorted.py:81"),
+        "bsr_leg": ("textgcn_tpu_torch/csrc/bsr_spmm.cu",
+                    "textgcn_tpu/parallel/mesh_kernels.py:641"),
     }
-    total = {k: launches[k] + gat_launches[k] for k in launches}
+    total = {k: launches[k] + gat_launches[k] + shard1[k] + shard4[k] for k in launches}
     total["sorted_chunk_add"] = stream_launches
     kernels = []
     for name, (src, replaces) in sources.items():
         _, ms, plain_ms = records[name][0]
+        bound_ms, bound_by, library_ms = yard[name]
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": total[name],
             "max_abs_err": max(r[0] for r in records[name]),
-            "ms": ms, "plain_ms": plain_ms,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms,
         })
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -16,7 +16,13 @@ import torch
 from textgcn_tpu_torch.graph import reorder
 from textgcn_tpu_torch.graph.normalize import max_symmetrize_coo, sym_normalize_coo
 from textgcn_tpu_torch.ops import attention as att
-from textgcn_tpu_torch.ops.bsr_spmm import bsr_spmm, bsr_spmm_plain
+from textgcn_tpu_torch.graph.structs import BlockSparseGraph
+from textgcn_tpu_torch.ops.bsr_spmm import bsr_leg, bsr_spmm, bsr_spmm_plain
+from textgcn_tpu_torch.parallel.mesh_kernels import (
+    MeshHybridAllGather,
+    shard_hybrid_pass,
+    shard_hybrid_pass_plain,
+)
 from textgcn_tpu_torch.ops.row_reduce import row_reduce, row_reduce_plain
 
 CPU = torch.device("cpu")
@@ -49,6 +55,40 @@ def test_bsr_spmm_plain_matches_dense_numpy():
     want = a @ xp.float().numpy().astype(np.float64)
     got = bsr_spmm(b.blocks, b.tile_ptr, b.block_cols, xp)  # CPU: plain version
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+def _shard(dev, n_shards, shard, store_bf16=True):
+    """One shard's hybrid block (its block-rows against all block-columns)
+    of the degree-sorted test graph."""
+    r, c, v, n = _graph(seed=2)
+    perm = reorder.degree_sort_permutation(r, c, n)
+    return MeshHybridAllGather.from_coo(
+        perm[r], perm[c], v, n, n_shards, shard, store_bf16=store_bf16, device=dev
+    )
+
+
+@pytest.mark.parametrize("shard", [0, 1, 3])
+def test_bsr_spmm_plain_on_a_rectangular_block_matches_dense_numpy(shard):
+    """A shard's tiles: 256 rows x 1024 columns at 4 shards of the 700-node
+    graph; shard 3 holds only rows past the last node, so its block-rows
+    have no tiles and come out zero."""
+    mh = _shard(CPU, 4, shard, store_bf16=False)
+    b = mh.bsr
+    assert (b.n_block_rows * 128, mh.n_pad) == (mh.rows_per_shard, 1024) == (256, 1024)
+    a = np.zeros((mh.rows_per_shard, mh.n_pad))
+    for t in range(b.nnzb):
+        i, j = int(b.block_rows[t]) * 128, int(b.block_cols[t]) * 128
+        a[i : i + 128, j : j + 128] += b.blocks[t].numpy()
+    x = torch.from_numpy(np.random.RandomState(shard).randn(mh.n_pad, 24).astype(np.float32))
+    got = bsr_leg(b.blocks, b.tile_ptr, b.block_cols, x)  # CPU: plain version
+    assert got.shape == (mh.rows_per_shard, 24)
+    np.testing.assert_allclose(got.numpy(), a @ x.numpy().astype(np.float64), rtol=1e-5, atol=1e-5)
+    if shard == 3:
+        assert b.nnzb == 0 and not got.any()
+    with pytest.raises(ValueError, match="outside"):
+        BlockSparseGraph.from_coo(
+            np.array([0]), np.array([600]), np.array([1.0]), 128, n_cols=512, device=CPU
+        )
 
 
 @pytest.mark.parametrize("with_base", [True, False])
@@ -90,6 +130,31 @@ def test_bsr_spmm_kernel_matches_plain(cuda_dev, f):
         bsr_spmm(b.blocks.float(), b.tile_ptr, b.block_cols, xp)
     with pytest.raises(ValueError, match="multiple of"):
         bsr_spmm(b.blocks, b.tile_ptr, b.block_cols, xp[:, :8].contiguous())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shard", [0, 2, 3])
+@pytest.mark.parametrize("f", [16, 208])
+def test_bsr_leg_kernel_on_a_rectangular_block_matches_plain(cuda_dev, shard, f):
+    """K1 as B10: one shard's block-rows against all block-columns (shard 3
+    has no tiles), then the shard's whole pass (K1, K2 in place)."""
+    mh = _shard(cuda_dev, 4, shard)
+    b = mh.bsr
+    gen = torch.Generator(device=cuda_dev).manual_seed(f)
+    x = torch.randn((mh.n_pad, f), generator=gen, device=cuda_dev).to(torch.bfloat16)
+    args = (b.blocks, b.tile_ptr, b.block_cols, x)
+    n_leg, n_spmm = bsr_leg.launches, bsr_spmm.launches
+    got = bsr_leg(*args)
+    torch.cuda.synchronize()
+    assert (bsr_leg.launches, bsr_spmm.launches) == (n_leg + 1, n_spmm)
+    assert got.shape == (mh.rows_per_shard, f)
+    # the same bf16 products summed in f32 in another order
+    torch.testing.assert_close(got, bsr_spmm_plain(*args), rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(
+        shard_hybrid_pass(mh, x), shard_hybrid_pass_plain(mh, x), rtol=1e-4, atol=1e-4
+    )
+    with pytest.raises(ValueError, match="multiple of 128"):
+        bsr_leg(b.blocks, b.tile_ptr, b.block_cols, x[:-8].contiguous())
 
 
 @pytest.mark.cuda

@@ -144,7 +144,7 @@ def test_odd_width_pads_one_column():
 
 @pytest.mark.parametrize("n_chunks,w_sc,w,cell_e", [(5, 2, 8, 64), (4, 4, 16, 24)])
 def test_port_lattice_is_symmetric_sorted_and_sized(n_chunks, w_sc, w, cell_e):
-    lat = ss.make_lattice_stream(n_chunks, w_sc, w, cell_e, seed=7)
+    lat = ss.make_lattice_stream(n_chunks, w_sc, w, cell_e, seed=7, device="cpu")
     g_rows = w_sc * w
     assert lat.n_rows == n_chunks * g_rows
     assert lat.n_edges == n_chunks * w_sc * w_sc * cell_e
@@ -173,7 +173,7 @@ def test_port_lattice_is_symmetric_sorted_and_sized(n_chunks, w_sc, w, cell_e):
 
 
 def test_port_lattice_has_a_self_paired_block_when_odd():
-    lat = ss.make_lattice_stream(5, 2, 8, 64, seed=7)
+    lat = ss.make_lattice_stream(5, 2, 8, 64, seed=7, device="cpu")
     assert (lat.partner[lat.partner] == np.arange(5)).all()
     assert int((lat.partner == np.arange(5)).sum()) == 1
 
@@ -429,7 +429,7 @@ def test_segmented_step_through_a_cache_below_the_graph_matches_resident(budget_
     """A CachedChunkSource whose byte budget holds fewer chunks than the
     graph has: the rest stream from host chunks on every pass, and the step's
     loss and gradients equal the resident step's."""
-    lat = ss.make_lattice_stream(N_CHUNKS, W_SC, W, CELL_E, seed=9)
+    lat = ss.make_lattice_stream(N_CHUNKS, W_SC, W, CELL_E, seed=9, device="cpu")
     host = list(lat)
     budget = sum(c.nbytes for c in host[:budget_chunks])
     f, h, c = 12, 6, 3
@@ -454,7 +454,7 @@ def test_segmented_step_through_a_cache_below_the_graph_matches_resident(budget_
 def test_segmented_step_trains_in_bf16():
     """Ten bf16 steps on the port's lattice, features carrying the label,
     lower the loss below 0.9 of the first."""
-    lat = ss.make_lattice_stream(N_CHUNKS, W_SC, W, CELL_E, seed=5)
+    lat = ss.make_lattice_stream(N_CHUNKS, W_SC, W, CELL_E, seed=5, device="cpu")
     src = ss.CachedChunkSource(lat.chunk, len(lat), 1 << 30, "cpu")
     f, h, c = 12, 8, 3
     rng = np.random.default_rng(6)

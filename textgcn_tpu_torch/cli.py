@@ -1,8 +1,9 @@
 """Command-line entry point: ``python -m textgcn_tpu_torch.cli train ...``.
 
 Port of the ``train`` subcommand of ``textgcn_tpu/cli.py`` (GCN and GAT on
-the doc-word graph). It trains on the CUDA device and raises when there is
-none: the port never falls back to the CPU.
+the doc-word graph; the GCN also sharded over ``--shards N`` GPUs). It trains
+on CUDA devices and raises when there are too few: the port never falls
+back to the CPU.
 """
 from __future__ import annotations
 
@@ -13,15 +14,29 @@ import torch
 
 from textgcn_tpu_torch.graph.format import DENSE_MAX_NODES, SPMM_FORMATS
 from textgcn_tpu_torch.models import MODELS
+from textgcn_tpu_torch.parallel.trainer import check_sharded
 from textgcn_tpu_torch.train.run import check_model_format, generate_seeds, run_experiment
 from textgcn_tpu_torch.train.trainer import TrainConfig
 
 
 def cmd_train(args) -> int:
+    if args.shards is not None:
+        check_sharded(args.model, args.spmm, args.partition)
+        if args.spmm != "hybrid":
+            raise NotImplementedError(
+                f"--shards with --spmm {args.spmm}: the CLI shards the hybrid "
+                "kernels only (the segment oracle runs through the library; "
+                "ROADMAP A.11 has the one-hot mesh kernel)"
+            )
     check_model_format(args.model, args.spmm)
     if not torch.cuda.is_available():
         raise RuntimeError(
             "textgcn_tpu_torch trains on a CUDA device and none is available"
+        )
+    if args.shards is not None and torch.cuda.device_count() < args.shards:
+        raise RuntimeError(
+            f"--shards {args.shards} needs {args.shards} CUDA devices (one rank "
+            f"each) but {torch.cuda.device_count()} are visible"
         )
     cfg = TrainConfig(
         n_hidden=args.nhid,
@@ -42,6 +57,8 @@ def cmd_train(args) -> int:
         config=cfg,
         seeds=generate_seeds(args.times, args.seed),
         verbose=not args.quiet,
+        n_shards=args.shards,
+        partition=args.partition,
         device="cuda",
     )
     acc = summary["test_accuracy"]
@@ -94,6 +111,19 @@ def build_parser() -> argparse.ArgumentParser:
         "the same after the degree sort (relabels nodes). Both: auto = dense "
         f"up to {DENSE_MAX_NODES} nodes, and above that an error until the "
         "port has GPU cost constants",
+    )
+    p.add_argument(
+        "--shards", type=int, default=None, metavar="N",
+        help="train the GCN row-sharded over N GPUs, one rank each (rank 0 "
+        "in this process, NCCL); needs N visible devices, --spmm hybrid and "
+        "--partition allgather",
+    )
+    p.add_argument(
+        "--partition", default="halo", choices=["halo", "allgather"],
+        help="sharded aggregation layout: allgather = every rank gathers all "
+        "feature rows, then runs its rows' tiles (K1) and residual (K2); halo "
+        "(the JAX package's default, a feature ring) is not ported yet and "
+        "raises",
     )
     p.add_argument("--quiet", action="store_true")
     p.set_defaults(fn=cmd_train)

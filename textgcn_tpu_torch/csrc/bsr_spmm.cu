@@ -4,14 +4,18 @@
 //                        sum_k tiles[t, i, k] * x[tile_col[t]*128 + k, :]
 //
 // Replaces the Pallas kernels textgcn_tpu/ops/pallas_spmm.py
-// `_make_grouped_kernel` and `_bsr_kernel`. The Python wrapper, its checks and
-// its plain PyTorch version are in textgcn_tpu_torch/ops/bsr_spmm.py.
+// `_make_grouped_kernel` and `_bsr_kernel`, and, on one shard's block-rows,
+// textgcn_tpu/parallel/mesh_kernels.py `_bsr_leg_apply`. The Python wrappers
+// (`bsr_spmm`, `bsr_leg`), their checks and their plain PyTorch version are
+// in textgcn_tpu_torch/ops/bsr_spmm.py.
 //
 // Layout: `tiles` is the flat [T, 128, 128] bf16 tile stack sorted by
 // block-row; `tile_ptr` [n_block_rows + 1] is a CSR over tiles (the tiles of
 // block-row br are tile_ptr[br] .. tile_ptr[br+1]-1); `tile_col` [T] is each
-// tile's block-column. `x` is [n_block_rows*128, f] bf16 and `out` is
-// [n_block_rows*128, f] f32, both row-major with f a multiple of 16.
+// tile's block-column. `x` is [n_block_cols*128, f] bf16 and `out` is
+// [n_block_rows*128, f] f32, both row-major with f a multiple of 16; the
+// matrix may be rectangular (a shard's block-rows against all columns). A
+// block-row without tiles gets zeros.
 //
 // Design: one block per (half block-row, 64-column feature chunk). The block
 // loops over its block-row's tiles, so it owns its 64 output rows and writes

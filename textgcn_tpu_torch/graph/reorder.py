@@ -183,26 +183,41 @@ def reorder_and_build(
     )
 
 
+def feature_table(x: torch.Tensor, n_rows: int, dtype: torch.dtype) -> torch.Tensor:
+    """``x`` as the kernels' padded feature table: [n_rows, F'] in ``dtype``
+    (F' = F rounded up to the kernels' 16-column step), zero past x's rows
+    and columns. ``x`` itself when it already has that shape and type."""
+    f = x.shape[1]
+    fp = -(-f // F_ALIGN) * F_ALIGN
+    if tuple(x.shape) == (n_rows, fp) and x.dtype == dtype and x.is_contiguous():
+        return x
+    xp = x.new_zeros((n_rows, fp), dtype=dtype)
+    xp[: x.shape[0], :f] = x
+    return xp
+
+
+def tile_and_residual(bsr: BlockSparseGraph, rest, xp: torch.Tensor, tile=bsr_spmm,
+                      reduce=row_reduce) -> torch.Tensor:
+    """The two legs on one padded table: ``tile`` (K1) into a fresh f32
+    output, then ``reduce`` (K2) adds the residual onto that output in place.
+    The residual leg always reads bf16 features."""
+    out = tile(bsr.blocks, bsr.tile_ptr, bsr.block_cols, xp)
+    if rest is not None:
+        xq = xp if xp.dtype == torch.bfloat16 else xp.to(torch.bfloat16)
+        reduce(rest.row_ptr, rest.col, rest.val, xq, base=out)
+    return out
+
+
 def hybrid_pass(h: HybridGraph, x: torch.Tensor) -> torch.Tensor:
     """One hybrid pass ``Â @ x`` (no autograd).
 
     Builds one padded feature table [n_pad, F'] in the tile stack's type
-    (F' = F rounded up to the kernels' 16-column step), runs the tile kernel
-    into a fresh f32 output, lets the residual kernel add onto that output in
-    place, and slices once. The residual leg always reads bf16 features.
+    (:func:`feature_table`), runs both legs on it
+    (:func:`tile_and_residual`) and slices once.
     """
-    n, f = h.n_nodes, x.shape[1]
     bsr = h.bsr
-    xp = x.new_zeros(
-        (bsr.n_block_rows * bsr.bm, -(-f // F_ALIGN) * F_ALIGN),
-        dtype=bsr.blocks.dtype,
-    )
-    xp[:n, :f] = x
-    out = bsr_spmm(bsr.blocks, bsr.tile_ptr, bsr.block_cols, xp)
-    if h.rest is not None:
-        xq = xp if xp.dtype == torch.bfloat16 else xp.to(torch.bfloat16)
-        row_reduce(h.rest.row_ptr, h.rest.col, h.rest.val, xq, base=out)
-    return out[:n, :f]
+    xp = feature_table(x, bsr.n_block_rows * bsr.bm, bsr.blocks.dtype)
+    return tile_and_residual(bsr, h.rest, xp)[: h.n_nodes, : x.shape[1]]
 
 
 class _SpmmHybrid(torch.autograd.Function):

@@ -10,8 +10,11 @@ construction is the JAX module's numpy code, so the layouts are equal.
   they add nothing to a segment sum and alias no real node.
 - :class:`BlockSparseGraph`: dense ``bm x bn`` tiles sorted by block-row,
   plus ``tile_ptr``, a CSR over tiles that the CUDA tile kernel reads
-  (:mod:`textgcn_tpu_torch.ops.bsr_spmm`). Every block-row holds at least one
-  tile: an empty one gets an explicit zero tile, as in the JAX container.
+  (:mod:`textgcn_tpu_torch.ops.bsr_spmm`). In a square matrix every
+  block-row holds at least one tile: an empty one gets an explicit zero
+  tile, as in the JAX container. A rectangular block (one shard's rows
+  against all columns) gets none: the kernel writes zeros for a block-row
+  without tiles.
 """
 from __future__ import annotations
 
@@ -114,7 +117,8 @@ class BlockSparseGraph:
       block_cols:   [nnzb] int32 block-column of each tile.
       tile_ptr:     [n_block_rows + 1] int32; the tiles of block-row ``i`` are
                     ``tile_ptr[i] .. tile_ptr[i+1]-1``.
-      n_nodes:      true node count (<= n_block_rows * bm).
+      n_nodes:      true node count, or row count of a rectangular block
+                    (<= n_block_rows * bm).
       n_edges:      number of real scalar nonzeros.
       bm, bn:       tile shape.
       n_block_rows: number of block-rows (padded node count / bm).
@@ -148,35 +152,49 @@ class BlockSparseGraph:
         max_block_bytes: int = 2 << 30,
         symmetric: bool = False,
         *,
+        n_cols: int = None,
         device,
     ) -> "BlockSparseGraph":
         """Tile a COO matrix into dense (bm, bn) blocks, keeping nonzero
         tiles sorted by (block_row, block_col).
 
+        ``n_cols`` makes the matrix rectangular, ``n_nodes`` rows by
+        ``n_cols`` columns (one shard's rows against every column), with no
+        coverage tiles; every ``col`` must fall below it, since the tile
+        kernel reads its feature table through the block-columns unchecked.
         ``max_block_bytes`` guards against uniformly sparse graphs, whose
         tile stack would explode; use the segment SpMM for those.
         """
         row = np.asarray(row, dtype=np.int64)
         col = np.asarray(col, dtype=np.int64)
         val = np.asarray(val, dtype=np.float64)
-        n_pad = _round_up(max(n_nodes, 1), max(bm, bn))
-        n_block_rows = n_pad // bm
-        n_block_cols = n_pad // bn
+        square = n_cols is None
+        if square:
+            n_pad = _round_up(max(n_nodes, 1), max(bm, bn))
+            n_block_rows = n_pad // bm
+            n_block_cols = n_pad // bn
+        else:
+            if len(col) and (int(col.max()) >= n_cols or int(row.max()) >= n_nodes):
+                raise ValueError(
+                    f"an edge falls outside the {n_nodes} x {n_cols} block"
+                )
+            n_block_rows = -(-max(n_nodes, 1) // bm)
+            n_block_cols = -(-max(n_cols, 1) // bn)
 
         bkey = (row // bm) * n_block_cols + (col // bn)
         order = np.argsort(bkey, kind="stable")
         row, col, val, bkey = row[order], col[order], val[order], bkey[order]
 
         uniq_keys = np.unique(bkey)
-        # an explicit zero tile on the diagonal of every empty block-row
+        # square: an explicit zero tile on the diagonal of every empty block-row
         present = np.zeros(n_block_rows, dtype=bool)
         if len(uniq_keys):
             present[(uniq_keys // n_block_cols).astype(np.int64)] = True
-        missing = np.nonzero(~present)[0]
+        missing = np.nonzero(~present)[0] if square else ()
         if len(missing):
             extra = missing * n_block_cols + np.minimum(missing, n_block_cols - 1)
             uniq_keys = np.sort(np.concatenate([uniq_keys, extra]))
-        nnzb = max(len(uniq_keys), 1)
+        nnzb = max(len(uniq_keys), 1) if square else len(uniq_keys)
         itemsize = torch.empty((), dtype=dtype).element_size()
         if nnzb * bm * bn * itemsize > max_block_bytes:
             raise ValueError(

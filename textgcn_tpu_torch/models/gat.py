@@ -38,7 +38,7 @@ from torch import nn
 
 from textgcn_tpu_torch.graph.structs import SparseGraph
 from textgcn_tpu_torch.models.gcn import _init_layer
-from textgcn_tpu_torch.ops.attention import AttentionGraph, check_coalesced, gat_attention
+from textgcn_tpu_torch.ops.attention import AttentionGraph, check_coalesced, det_exp, gat_attention
 
 Params = Dict[str, torch.Tensor]
 LAYERS = ("gat1", "gat2")
@@ -113,7 +113,7 @@ def segment_softmax(logits: torch.Tensor, row: torch.Tensor, n_nodes: int) -> to
         mx = torch.full((n_nodes + 1,), -math.inf, dtype=logits.dtype, device=logits.device)
         mx.scatter_reduce_(0, row, logits, "amax")
         shift = torch.where(torch.isfinite(mx), mx, 0.0)[row]
-    expd = torch.where(torch.isfinite(logits), torch.exp(logits - shift), 0.0)
+    expd = torch.where(torch.isfinite(logits), det_exp(logits - shift), 0.0)
     denom = logits.new_zeros(n_nodes + 1).index_add(0, row, expd)
     return expd / torch.clamp(denom[row], min=1e-30)
 
@@ -153,7 +153,7 @@ def gat_layer_dense(p: Params, dg: DenseAttentionGraph, x, *, negative_slope: fl
     h, es, ed = _project(p, x)
     logit = F.leaky_relu(es[:, None] + ed[None, :], negative_slope) + dg.loga.float()
     m = torch.amax(logit, dim=1, keepdim=True)
-    e = torch.where(logit > _NEG / 2, torch.exp(logit - torch.where(m > _NEG / 2, m, 0.0)), 0.0)
+    e = torch.where(logit > _NEG / 2, det_exp(logit - torch.where(m > _NEG / 2, m, 0.0)), 0.0)
     att = (e / torch.clamp(e.sum(dim=1, keepdim=True), min=1e-30)).to(torch.bfloat16)
     return torch.matmul(att.float(), h.to(torch.bfloat16).float()) + p["b"]
 

@@ -45,6 +45,20 @@ from textgcn_tpu_torch.ops.row_reduce import row_reduce
 
 _NEG = -1e30  # finite -inf stand-in: keeps max/exp arithmetic NaN-free
 VEC = 8  # bf16 columns per 16-byte load: feature widths are multiples of it
+_LOG2E = 1.4426950408889634
+
+
+def det_exp(x: torch.Tensor) -> torch.Tensor:
+    """``exp(x)`` that gives the same bits in every process.
+
+    On the CPU the first float32 ``torch.exp`` of a process that runs on
+    several threads returns some elements up to ~1e-4 relative off (seen
+    with PyTorch 2.13's MKL build: about 1 process in 7 on a 40k-element
+    call; later calls, and one-thread runs, are exact). ``exp2`` does not
+    share that path. The extra rounding of ``x * log2(e)`` costs ~|x|·2^-24
+    relative, far below every tolerance these values meet.
+    """
+    return torch.exp2(x * _LOG2E)
 
 
 def check_coalesced(row: np.ndarray, col: np.ndarray, n_cols: int) -> None:
@@ -162,7 +176,7 @@ def softmax_stats_plain(row_ptr, logits):
     mx = torch.full((n,), _NEG, dtype=torch.float32, device=lg.device)
     mx.scatter_reduce_(0, rows, lg, "amax")
     sm = torch.zeros(n, dtype=torch.float32, device=lg.device)
-    sm.index_add_(0, rows, torch.exp(lg - _shift(mx)[rows]))
+    sm.index_add_(0, rows, det_exp(lg - _shift(mx)[rows]))
     return mx, sm
 
 
@@ -177,7 +191,7 @@ def attn_agg_plain(row_ptr, col, logits, mx, sm, x):
     """Plain PyTorch version of :func:`attn_agg` (any float ``x``)."""
     rows = _rows(row_ptr)
     inv = 1.0 / torch.clamp(sm, min=1e-30)
-    w = torch.exp(logits - _shift(mx)[rows]) * inv[rows]
+    w = det_exp(logits - _shift(mx)[rows]) * inv[rows]
     out = torch.zeros(
         row_ptr.numel() - 1, x.shape[1], dtype=torch.float32, device=x.device
     )
@@ -389,7 +403,7 @@ def edge_weights(ag: AttentionGraph, logits, mx, sm):
     logit (the backward's counterpart of the weights :func:`attn_agg` forms
     in registers)."""
     st = torch.stack([mx, sm], dim=1).index_select(0, ag.row)
-    w = torch.exp(logits - _shift(st[:, 0])) / torch.clamp(st[:, 1], min=1e-30)
+    w = det_exp(logits - _shift(st[:, 0])) / torch.clamp(st[:, 1], min=1e-30)
     return torch.where(logits > _NEG / 2, w, 0.0)
 
 

@@ -336,7 +336,7 @@ class LatticeStream:
 
 
 def make_lattice_stream(
-    n_chunks: int, w_sc: int, w: int, cell_e: int, seed: int = 0, device="cpu"
+    n_chunks: int, w_sc: int, w: int, cell_e: int, seed: int = 0, *, device
 ) -> LatticeStream:
     """Symmetric synthetic sorted stream: the window-lattice construction of
     the JAX package's ``make_lattice_edge_fn``.

@@ -1,0 +1,88 @@
+"""Process-group set-up and the two collectives the sharded path uses.
+
+Port of ``textgcn_tpu/parallel/distributed.py``. Where the JAX package joins
+its processes with ``jax.distributed.initialize`` and lets XLA place the
+mesh collectives, the port holds one ``torch.distributed`` rank per device:
+NCCL between GPUs, gloo between CPU processes (the tests).
+
+:class:`DistributedConfig` reads a launcher's environment: torchrun's
+``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR`` and ``MASTER_PORT``, else the MPI
+(``OMPI_COMM_WORLD_RANK`` / ``_SIZE``) or SLURM (``SLURM_PROCID`` /
+``SLURM_NTASKS``) variables for rank and world size. Nothing in a machine's
+environment names the job's address otherwise: a run started by hand passes
+it (``tcp://host:port`` or a ``file://`` store).
+"""
+from __future__ import annotations
+
+import dataclasses
+import datetime
+import os
+from typing import Optional
+
+import torch
+import torch.distributed as dist
+
+
+@dataclasses.dataclass(frozen=True)
+class DistributedConfig:
+    """Process-level topology, resolvable from launcher variables."""
+
+    init_method: Optional[str] = None  # "tcp://host:port" or "file://path"
+    world_size: Optional[int] = None
+    rank: Optional[int] = None
+
+    @staticmethod
+    def from_env(env=None) -> "DistributedConfig":
+        """Read the common launcher conventions, first hit per field:
+        torchrun's ``RANK`` / ``WORLD_SIZE`` / ``MASTER_ADDR`` +
+        ``MASTER_PORT``, then ``OMPI_COMM_WORLD_*``, then ``SLURM_*``."""
+        env = os.environ if env is None else env
+        addr, port = env.get("MASTER_ADDR"), env.get("MASTER_PORT")
+        init = f"tcp://{addr}:{port}" if addr and port else None
+        size = (
+            env.get("WORLD_SIZE")
+            or env.get("OMPI_COMM_WORLD_SIZE")
+            or env.get("SLURM_NTASKS")
+        )
+        rank = env.get("RANK") or env.get("OMPI_COMM_WORLD_RANK") or env.get("SLURM_PROCID")
+        return DistributedConfig(
+            init_method=init,
+            world_size=int(size) if size is not None else None,
+            rank=int(rank) if rank is not None else None,
+        )
+
+
+def init_process_group(
+    cfg: DistributedConfig, backend: str, timeout_s: float = 600.0
+) -> None:
+    """Join the job described by ``cfg`` (all three fields set).
+    ``timeout_s`` bounds every collective, so a rank whose peer died raises
+    instead of waiting forever."""
+    if cfg.init_method is None or cfg.world_size is None or cfg.rank is None:
+        raise ValueError(f"incomplete distributed config {cfg}")
+    dist.init_process_group(
+        backend,
+        init_method=cfg.init_method,
+        world_size=cfg.world_size,
+        rank=cfg.rank,
+        timeout=datetime.timedelta(seconds=timeout_s),
+    )
+
+
+def all_gather_rows(x_local: torch.Tensor, group=None) -> torch.Tensor:
+    """Concatenate every rank's ``[rps, F]`` block in rank order: the
+    all-gathered ``[n_pad, F]`` table (``jax.lax.all_gather(..., tiled=True)``)."""
+    x_local = x_local.contiguous()
+    world = dist.get_world_size(group)
+    if world == 1:
+        return x_local
+    out = x_local.new_empty((world * x_local.shape[0], *x_local.shape[1:]))
+    dist.all_gather(list(out.chunk(world)), x_local, group=group)
+    return out
+
+
+def all_reduce_sum(t: torch.Tensor, group=None) -> torch.Tensor:
+    """Sum ``t`` over the ranks, in place; returns ``t``."""
+    if dist.get_world_size(group) > 1:
+        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
+    return t

@@ -1,0 +1,284 @@
+"""Full-batch GCN training with the rows sharded over a process group.
+
+Port of ``textgcn_tpu/parallel/trainer.py`` (``ShardedTrainer`` for
+``model="gcn"`` on the all-gather partition, ``masks_for_split``,
+``metrics_from_confusion``) onto ``torch.distributed``. Every rank of the
+group builds one ``ShardedTrainer`` with its own ``rank`` and calls the same
+methods in the same order; each step's collectives pair up across ranks.
+
+- ``kernel="hybrid"`` degree-sorts the graph (features, labels and splits
+  are permuted alike, as the JAX trainer does) and aggregates through K1 and
+  K2 per rank (:mod:`~textgcn_tpu_torch.parallel.mesh_kernels`);
+  ``kernel="segment"`` keeps the node order and aggregates in plain PyTorch.
+- The loss is the global masked mean: each rank sums ``nll`` over its train
+  rows and divides by the global train count; the gradients of the
+  replicated parameters are summed over the ranks before Adam steps. With
+  identity features layer 1's ``[rows_per_shard, H]`` table rows are the
+  rank's own parameters.
+- Validation and test metrics come from a ``[C, C]`` confusion matrix summed
+  over the ranks, with the val loss in the same all-reduce; every rank reads
+  the same val loss, so every rank stops on the same epoch.
+- Init and dropout are drawn, in the single-device port ``Trainer``'s
+  order, for all ``n_nodes`` rows from a generator seeded with ``cfg.seed``;
+  each rank keeps its rows. A run therefore does not depend on the number
+  of ranks, and follows the single-device hybrid run up to the order of
+  float sums.
+
+Not ported yet (ROADMAP A.11): the halo partition, the one-hot mesh kernel,
+the other model families, sharded checkpoints and the ``epoch_block`` scan.
+"""
+from __future__ import annotations
+
+import time
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from textgcn_tpu_torch.graph.format import permute_rows
+from textgcn_tpu_torch.graph.reorder import degree_sort_permutation
+from textgcn_tpu_torch.models.gcn import LAYERS, Params, gcn_init
+from textgcn_tpu_torch.parallel.distributed import all_reduce_sum
+from textgcn_tpu_torch.parallel.mesh_kernels import MeshHybridAllGather
+from textgcn_tpu_torch.parallel.partition import ShardCOO, shard_rows
+from textgcn_tpu_torch.parallel.sharded import sharded_gcn_forward
+from textgcn_tpu_torch.train.prepare import permute_rows_1d_docs
+from textgcn_tpu_torch.train.trainer import EarlyStopping, TrainConfig, train_val_split
+
+SHARDED_KERNELS = ("hybrid", "segment")
+
+
+def check_sharded(model: str, kernel: str, partition: str) -> None:
+    """Raise for a sharded configuration the port does not run yet."""
+    if model != "gcn" or kernel not in SHARDED_KERNELS or partition != "allgather":
+        raise NotImplementedError(
+            f"sharded training runs --model gcn with --partition allgather and "
+            f"kernel {' | '.join(SHARDED_KERNELS)} so far; got model {model!r}, "
+            f"kernel {kernel!r}, partition {partition!r} (ROADMAP A.11: the halo "
+            "partition, the one-hot mesh kernel and the other families wait)"
+        )
+
+
+def masks_for_split(n_pad: int, idx: np.ndarray, dtype=np.float32) -> np.ndarray:
+    m = np.zeros((n_pad,), dtype=dtype)
+    m[np.asarray(idx)] = 1.0
+    return m
+
+
+def confusion(logits: torch.Tensor, y: torch.Tensor, w: torch.Tensor, num_classes: int):
+    """Masked ``[C, C]`` confusion matrix: ``conf[t, p]`` = weight of the
+    rows with target ``t`` predicted ``p``."""
+    conf = torch.zeros(num_classes * num_classes, dtype=torch.float32, device=logits.device)
+    return conf.index_add_(0, y * num_classes + logits.argmax(dim=1), w).reshape(
+        num_classes, num_classes
+    )
+
+
+def metrics_from_confusion(conf: np.ndarray) -> Dict[str, float]:
+    """Accuracy and the reference's macro P/R/F1 convention (F1 of the macro
+    averages, 0 for an empty class) from a ``[C, C]`` confusion matrix."""
+    conf = np.asarray(conf, dtype=np.float64)
+    total = conf.sum()
+    tp = np.diag(conf)
+    fp = conf.sum(axis=0) - tp
+    fn = conf.sum(axis=1) - tp
+    prec = np.where(tp + fp > 0, tp / np.maximum(tp + fp, 1.0), 0.0)
+    rec = np.where(tp + fn > 0, tp / np.maximum(tp + fn, 1.0), 0.0)
+    p, r = float(prec.mean()), float(rec.mean())
+    f1 = 2 * p * r / (p + r) if p + r > 0 else 0.0
+    return {
+        "acc": float(tp.sum() / max(total, 1.0)),
+        "macro_f1": f1,
+        "precision": p,
+        "recall": r,
+    }
+
+
+def _local_params(full: Params, identity: bool, shard: int, rps: int) -> Params:
+    """A rank's parameters from the whole model's: with identity features
+    its rows of the ``[n, H]`` layer-1 table (zero past the last node)."""
+    out = {k: v.detach().clone() for k, v in full.items()}
+    if identity:
+        w1 = full["gc1.w"]
+        local = w1.new_zeros((rps, w1.shape[1]))
+        part = w1[shard * rps : (shard + 1) * rps]
+        local[: len(part)] = part
+        out["gc1.w"] = local
+    return out
+
+
+def shard_params_from_jax(
+    params_np: dict, shard: int, rows_per_shard: int, identity: bool, *, device
+) -> Params:
+    """The JAX ``ShardedTrainer``'s parameters (the pytree ``{"gc1": {"w",
+    "b"}, "gc2": {...}}`` of host arrays; with identity features ``gc1.w`` is
+    its ``[n_pad, H]`` table) → rank ``shard``'s flat f32 parameter dict."""
+    out = {}
+    for layer in LAYERS:
+        for k in ("w", "b"):
+            a = np.asarray(params_np[layer][k], dtype=np.float32)
+            if identity and (layer, k) == ("gc1", "w"):
+                a = shard_rows(a, shard, rows_per_shard)
+            out[f"{layer}.{k}"] = torch.tensor(a, device=device)
+    return out
+
+
+class ShardedTrainer:
+    """Trains the 2-layer GCN full-batch as rank ``rank`` of ``n_shards``.
+
+    ``graph`` is the whole graph as a
+    :class:`~textgcn_tpu_torch.graph.structs.SparseGraph` (any device; its
+    host COO is read once), ``features`` the host ``[N, F]`` array or None
+    for identity features. ``group`` is the process group (default: the
+    default group); ``device`` is this rank's.
+    """
+
+    def __init__(
+        self,
+        graph,
+        features: Optional[np.ndarray],
+        target: np.ndarray,
+        train_idx: np.ndarray,
+        test_idx: np.ndarray,
+        num_classes: int,
+        config: TrainConfig = TrainConfig(),
+        *,
+        n_shards: int,
+        rank: int,
+        device,
+        group=None,
+        partition: str = "allgather",
+        kernel: str = "hybrid",
+    ):
+        check_sharded(config.model, kernel, partition)
+        self.device = torch.device(device)
+        self.group = group
+        self.rank = int(rank)
+        row, col, val = graph.coo_numpy()
+        n = graph.n_nodes
+        if kernel == "hybrid":
+            # the single-device hybrid's degree sort: P Â Pᵀ (P x) = P (Â x)
+            perm = degree_sort_permutation(row, col, n)
+            row, col = perm[row], perm[col]
+            if features is not None:
+                features = permute_rows(np.asarray(features, dtype=np.float32), perm)
+            target = permute_rows_1d_docs(np.asarray(target), perm)
+            train_idx, test_idx = perm[np.asarray(train_idx)], perm[np.asarray(test_idx)]
+            self.graph = MeshHybridAllGather.from_coo(
+                row, col, val, n, n_shards, rank, device=self.device
+            )
+        else:
+            self.graph = ShardCOO.from_coo(row, col, val, n, n_shards, rank, device=self.device)
+        self.rps, self.n_pad = self.graph.rows_per_shard, self.graph.n_pad
+        self.n_nodes = n
+        self.cfg = config
+        self.num_classes = int(num_classes)
+        self.y = self._local(np.asarray(target).astype(np.int64))
+        self.x = None if features is None else self._local(np.asarray(features, np.float32))
+        self.train_idx_all = np.asarray(train_idx)
+        self.test_idx = np.asarray(test_idx)
+        self.history: List[Dict[str, float]] = []
+        self.params: Optional[Params] = None
+        self.train_time = 0.0
+        self.model_param = 0
+
+    def _local(self, a: np.ndarray) -> torch.Tensor:
+        """This rank's rows of a node-indexed host array, on its device."""
+        return torch.from_numpy(shard_rows(a, self.rank, self.rps)).to(self.device)
+
+    def _mask(self, idx: np.ndarray) -> torch.Tensor:
+        return self._local(masks_for_split(self.n_pad, idx))
+
+    def _forward(self, train: bool, generator=None) -> torch.Tensor:
+        return sharded_gcn_forward(
+            self.params, self.graph, self.x, group=self.group,
+            dropout=self.cfg.dropout, train=train, generator=generator,
+        )
+
+    def _eval_sums(self, logits, mask) -> torch.Tensor:
+        """This rank's [nll sum, confusion...] over the rows of ``mask``."""
+        nll = F.cross_entropy(logits, self.y, reduction="none")
+        conf = confusion(logits, self.y, mask, self.num_classes)
+        return torch.cat([(nll * mask).sum()[None], conf.flatten()])
+
+    def fit(self, verbose: bool = True, params: Optional[Params] = None) -> Dict[str, Any]:
+        """Train to ``max_epoch`` or an early stop (every rank together).
+
+        ``params``: this rank's starting parameters (e.g.
+        :func:`shard_params_from_jax`); by default the whole model is drawn
+        from the generator seeded with ``cfg.seed`` and the rank keeps its
+        rows.
+        """
+        cfg, C = self.cfg, self.num_classes
+        tr, va = train_val_split(self.train_idx_all, cfg.val_ratio, cfg.seed)
+        tmask, vmask = self._mask(tr), self._mask(va)
+        identity = self.x is None
+        n_feat = self.n_nodes if identity else self.x.shape[1]
+        gen = torch.Generator(device=self.device).manual_seed(cfg.seed)
+        if params is None:
+            full = gcn_init(gen, n_feat, cfg.n_hidden, C, device=self.device)
+            params = _local_params(full, identity, self.rank, self.rps)
+            del full
+        self.params = {k: v.detach().clone().requires_grad_(True) for k, v in params.items()}
+        # the single-device count: the layer-1 table has n_feat rows
+        self.model_param = n_feat * cfg.n_hidden + cfg.n_hidden + (cfg.n_hidden + 1) * C
+        # every rank holds and updates the same copy of these
+        replicated = [k for k in self.params if not (identity and k == "gc1.w")]
+        opt = torch.optim.Adam(self.params.values(), lr=cfg.lr, betas=(0.9, 0.999), eps=1e-8)
+        stopper = EarlyStopping(cfg.early_stopping)
+
+        start = time.perf_counter()
+        for epoch in range(cfg.max_epoch):
+            logits = self._forward(True, gen)
+            nll = F.cross_entropy(logits, self.y, reduction="none")
+            loss = (nll * tmask).sum() / len(tr)
+            opt.zero_grad(set_to_none=True)
+            loss.backward()
+            grads = all_reduce_sum(
+                torch.cat([self.params[k].grad.flatten() for k in replicated]), self.group
+            )
+            for k, g in zip(replicated, grads.split([self.params[k].numel() for k in replicated])):
+                self.params[k].grad.copy_(g.view_as(self.params[k]))
+            opt.step()
+
+            with torch.no_grad():
+                sums = all_reduce_sum(
+                    torch.cat([loss.detach()[None], self._eval_sums(self._forward(False), vmask)]),
+                    self.group,
+                ).tolist()
+            rec = {
+                "epoch": epoch,
+                "train_loss": sums[0],
+                "val_loss": sums[1] / len(va),
+                **metrics_from_confusion(np.asarray(sums[2:]).reshape(C, C)),
+            }
+            self.history.append(rec)
+            if verbose:
+                print(
+                    " ".join(
+                        f"{k}:{v}" if isinstance(v, int) else f"{k}:{v:.4f}"
+                        for k, v in rec.items()
+                    )
+                )
+            if stopper(rec["val_loss"]):
+                break  # the params of the stopping epoch are kept
+        self.train_time = time.perf_counter() - start
+        return {"epochs_run": len(self.history), "train_time": self.train_time}
+
+    def evaluate(self, idx: np.ndarray, prefix: str = "test") -> Dict[str, float]:
+        if self.params is None:
+            raise ValueError("fit() first")
+        with torch.no_grad():
+            sums = all_reduce_sum(
+                self._eval_sums(self._forward(False), self._mask(idx)), self.group
+            ).tolist()
+        out = {f"{prefix}_loss": sums[0] / len(idx)}
+        out.update(metrics_from_confusion(np.asarray(sums[1:]).reshape(self.num_classes, -1)))
+        return out
+
+    def test(self) -> Dict[str, float]:
+        out = self.evaluate(self.test_idx, prefix="test")
+        out["train_time"] = self.train_time
+        out["model_param"] = self.model_param
+        return out

@@ -1,11 +1,11 @@
 """Multi-seed training runner and its human/machine reports.
 
 Port of ``textgcn_tpu/train/run.py`` (``run_experiment`` on one device with
-its single-device GAT layouts, ``generate_seeds``, ``aggregate``,
-``write_reports``). The reports keep the
-JAX package's schema: ``{ds}_{family}_training_results.json`` (with full
-per-epoch histories and hyperparameters) and ``.txt``. The summary also
-names the device it ran on.
+its single-device GAT layouts, and sharded over ``n_shards`` devices for the
+GCN; ``generate_seeds``, ``aggregate``, ``write_reports``). The reports keep
+the JAX package's schema: ``{ds}_{family}_training_results.json`` (with full
+per-epoch histories and hyperparameters, and ``"sharding"`` for a sharded
+run) and ``.txt``. The summary also names the device it ran on.
 """
 from __future__ import annotations
 
@@ -20,6 +20,8 @@ import numpy as np
 import torch
 
 from textgcn_tpu_torch.graph.format import DENSE_MAX_NODES
+from textgcn_tpu_torch.parallel.launch import HostData, run_sharded_seeds
+from textgcn_tpu_torch.parallel.trainer import check_sharded
 from textgcn_tpu_torch.train.prepare import (
     PreparedData,
     apply_attention_format,
@@ -107,18 +109,44 @@ def run_experiment(
     seeds: Optional[List[int]] = None,
     pre_data: Optional[PreparedData] = None,
     verbose: bool = True,
+    n_shards: Optional[int] = None,
+    partition: str = "halo",
     *,
     device,
 ) -> Dict[str, Any]:
     """Train ``times`` seeds on ``dataset`` on ``device``; write reports;
-    return the summary."""
+    return the summary.
+
+    ``n_shards``: train row-sharded over that many ranks
+    (:mod:`textgcn_tpu_torch.parallel`), rank ``r`` on ``cuda:r`` with NCCL
+    for a CUDA ``device``, or on CPU processes with gloo for the CPU. Rank 0
+    runs in this process. The kernel is ``config.spmm``; see
+    :func:`~textgcn_tpu_torch.parallel.trainer.check_sharded` for what runs.
+    """
     device = torch.device(device)
+    if n_shards is not None:
+        check_sharded(config.model, config.spmm, partition)
     check_model_format(config.model, config.spmm)
     if graph_family != "docword":
         raise NotImplementedError(
             f"graph family {graph_family!r}: the port has the doc-word graph "
             "so far (ROADMAP A: the R8 topic graph comes next)"
         )
+    if n_shards is not None:
+        # the host prepares the data once; each rank builds its own shard
+        if pre_data is None:
+            pre_data = prepare_docword_data(dataset, data_root=data_root, device="cpu")
+        seeds = seeds or generate_seeds(times)
+        cuda = device.type == "cuda"
+        runs = run_sharded_seeds(
+            HostData.from_prepared(pre_data), seeds, config, n_shards,
+            kernel=config.spmm, partition=partition,
+            backend="nccl" if cuda else "gloo",
+            devices=[f"cuda:{r}" for r in range(n_shards)] if cuda else ["cpu"] * n_shards,
+            verbose=verbose,
+        )
+        sharding = {"n_shards": n_shards, "partition": partition, "kernel": config.spmm}
+        return _summarize(dataset, graph_family, output_dir, config, runs, device, sharding)
     if pre_data is None:
         pre_data = prepare_docword_data(dataset, data_root=data_root, device=device)
     if config.model == "gat":
@@ -153,6 +181,11 @@ def run_experiment(
             }
         )
 
+    return _summarize(dataset, graph_family, output_dir, config, runs, device)
+
+
+def _summarize(dataset, graph_family, output_dir, config, runs, device, sharding=None):
+    """The run summary (JAX schema), written as the reports and returned."""
     accs = [r["test"]["acc"] for r in runs]
     f1s = [r["test"]["macro_f1"] for r in runs]
     summary = {
@@ -160,7 +193,7 @@ def run_experiment(
         "device": {"type": device.type, "name": device_name(device)},
         "dataset": dataset,
         "graph_family": graph_family,
-        "times": len(seeds),
+        "times": len(runs),
         "hyperparameters": dataclasses.asdict(config),
         "test_accuracy": aggregate(accs),
         "test_macro_f1": aggregate(f1s),
@@ -169,6 +202,8 @@ def run_experiment(
         "runs": runs,
         "timestamp": time.strftime("%Y-%m-%d %H:%M:%S"),
     }
+    if sharding is not None:
+        summary["sharding"] = sharding
     write_reports(summary, output_dir)
     return summary
 
