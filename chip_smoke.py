@@ -12,9 +12,11 @@ drives the port's two main paths on R8 doc-word:
   segment-sum oracle, then trains ``train --dataset R8 --graph docword
   --spmm hybrid`` once through the CLI; both kernels must run there and test
   accuracy must reach 0.95.
-- GAT: holds the four attention kernels against their plain versions on the
-  degree-sorted attention graph, one GAT layer forward and backward on the
-  kernels against the plain segment layer under autograd, then trains
+- GAT: holds the four attention kernels and K2 as dx against their plain
+  versions on the degree-sorted attention graph (two launches of K2 as dx
+  and of ``sddmm`` must give the same bits), one GAT layer forward and
+  backward on the kernels against the plain segment layer under autograd,
+  then trains
   ``train --model gat --spmm hybrid`` once through the CLI; the attention
   kernels and K2 must run there and test accuracy must reach 0.88.
 - Streaming (beyond memory), at the JAX package's baseline scale config
@@ -39,7 +41,14 @@ drives the port's two main paths on R8 doc-word:
 Every kernel's record also carries its bound on the card (the larger of its
 bytes over the memory rate and its operations over the peak rate, from this
 run's inputs) and the time of one PyTorch call that computes the same
-function, where there is one.
+function, where there is one. K2's record is split by role: ``row_reduce``
+(the residual leg, B2) and ``row_reduce_dx`` (GAT's dx, B3); B11 is
+``sorted_chunk_add``. ``ms``, ``plain_ms`` and ``library_ms`` are CUDA
+events around 20 back-to-back calls (the host's cost of a call included
+where it exceeds the kernel, as in K2's short roles); ``device_ms`` and
+``library_device_ms`` are the same calls captured in a CUDA graph and
+replayed, device time only (null for ``torch.segment_reduce``, which cannot
+be captured).
 
 Each phase prints one line; any failure raises and exits non-zero. The last
 lines are the kernels' JSON record, the card's name and power limit, and
@@ -118,6 +127,39 @@ def cuda_ms(fn, reps=20, warmup=3):
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, reps=20, replays=5):
+    """Device time of one ``fn()`` in ms: ``reps`` calls captured in one
+    CUDA graph, replayed ``replays`` times between CUDA events. The host's
+    cost of a call (Python, the wrapper's checks, ctypes) is not in it, as
+    it is in :func:`cuda_ms` when a kernel is shorter than its call, and
+    neither are host hiccups. ``fn`` must not synchronize with the host."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (reps * replays)
+
+
+def both_ms(fn):
+    """(ms a call by :func:`cuda_ms`, device ms by :func:`graph_ms`)."""
+    return cuda_ms(fn), graph_ms(fn)
+
+
 def compare(got, want, tol):
     """(max abs error, max error relative to max |want|); raises past
     |got - want| <= tol * (1 + |want|)."""
@@ -174,8 +216,7 @@ def k1_yardsticks(b, xp, n_cols):
                + rows_read(b.block_cols, 128 * fp, 2) + b.n_block_rows * 128 * fp * 4)
     bnd = bound(n_bytes, 2 * b.nnzb * 128 * 128 * fp, PEAK_BF16)
     a, xf = tiles_csr(b, n_cols), xp.float()
-    lib = cuda_ms(lambda: torch.sparse.mm(a, xf))
-    return (*bnd, lib)
+    return (*bnd, *both_ms(lambda: torch.sparse.mm(a, xf)))
 
 
 def k2_yardsticks(row_ptr, col, val, x, base=None):
@@ -188,11 +229,9 @@ def k2_yardsticks(row_ptr, col, val, x, base=None):
     bnd = bound(n_bytes, 2 * col.numel() * f, PEAK_F32)
     a, xf = csr(row_ptr, col, val, (n_rows, x.shape[0])), x.float()
     if base is None:
-        lib = cuda_ms(lambda: torch.sparse.mm(a, xf))
-    else:
-        b0 = base[:n_rows]
-        lib = cuda_ms(lambda: torch.sparse.addmm(b0, a, xf))
-    return (*bnd, lib)
+        return (*bnd, *both_ms(lambda: torch.sparse.mm(a, xf)))
+    b0 = base[:n_rows]
+    return (*bnd, *both_ms(lambda: torch.sparse.addmm(b0, a, xf)))
 
 
 def wall(fn):
@@ -269,9 +308,9 @@ def stream_phases(dev, gen, records, yard, r8_graph):
         outside[chunk.r0 : chunk.r0 + chunk.rows] = False
         if not torch.equal(got[outside], base[outside]):
             raise AssertionError("B11 touched rows outside its chunk")
-        ms = cuda_ms(lambda: ss.sorted_chunk_add(base, chunk, x))
+        ms, dev_ms = both_ms(lambda: ss.sorted_chunk_add(base, chunk, x))
         plain_ms = cuda_ms(lambda: ss.sorted_chunk_add(base, chunk, x, reduce=row_reduce_plain))
-        records.setdefault("sorted_chunk_add", []).append((err, ms, plain_ms))
+        records.setdefault("sorted_chunk_add", []).append((err, ms, dev_ms, plain_ms))
         if f == 16:
             yard["sorted_chunk_add"] = k2_yardsticks(
                 chunk.row_ptr, chunk.col, chunk.val, x, base[chunk.r0 : chunk.r0 + chunk.rows]
@@ -279,7 +318,8 @@ def stream_phases(dev, gen, records, yard, r8_graph):
         log("B11 chunk add", f"F={f}, one chunk ({chunk.rows} rows, "
             f"{chunk.n_edges} edges) onto a random base: max abs err {err:.3e} "
             f"(rel {rel:.3e}), tol {K2_TOL}*(1+|ref|) (f32 sums in another "
-            f"order); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+            f"order); kernel {ms:.4f} ms a call ({dev_ms:.4f} device), plain "
+            f"{plain_ms:.4f} ms")
     del x, base, got, want, outside
     log("B11 chunk add", f"phase {time.perf_counter() - t_phase:.1f} s")
 
@@ -483,16 +523,18 @@ def shard_phase(dev, gen, records, yard, h, row, col, val):
             b = m.bsr
             args = (b.blocks, b.tile_ptr, b.block_cols, xp)
             err, _ = compare(bsr_leg(*args), bsr_spmm_plain(*args), K1_TOL)
-            ms = cuda_ms(lambda: bsr_leg(*args))
+            ms, dev_ms = both_ms(lambda: bsr_leg(*args))
             plain_ms = cuda_ms(lambda: bsr_spmm_plain(*args))
-            bound_ms, bound_by, lib_ms = k1_yardsticks(b, xp, m0.n_pad)
+            yard_m = k1_yardsticks(b, xp, m0.n_pad)
+            bound_ms, bound_by, lib_ms = yard_m[:3]
             out = shard_hybrid_pass(m, x)
             perr, _ = compare(out, shard_hybrid_pass_plain(m, x), K1_TOL)
             pass_ms = cuda_ms(lambda: shard_hybrid_pass(m, x))
             outs.append(out)
-            records.setdefault("bsr_leg", []).append((max(err, perr), ms, plain_ms))
-            yard.setdefault("bsr_leg", (bound_ms, bound_by, lib_ms))
-            cells.append(f"rank {m.shard}: {b.nnzb} tiles, K1 {ms:.4f} ms (plain "
+            records.setdefault("bsr_leg", []).append((max(err, perr), ms, dev_ms, plain_ms))
+            yard.setdefault("bsr_leg", yard_m)
+            cells.append(f"rank {m.shard}: {b.nnzb} tiles, K1 {ms:.4f} ms a call "
+                         f"({dev_ms:.4f} device; plain "
                          f"{plain_ms:.4f}, bound {bound_ms:.4f} by {bound_by}, "
                          f"torch.sparse.mm {lib_ms:.4f}), pass {pass_ms:.4f} ms, "
                          f"err K1 {err:.3e} pass {perr:.3e}")
@@ -611,7 +653,9 @@ def main() -> int:
     from textgcn_tpu_torch.ops.bsr_spmm import (
         F_ALIGN, bsr_leg, bsr_spmm, bsr_spmm_plain,
     )
-    from textgcn_tpu_torch.ops.row_reduce import row_reduce, row_reduce_plain
+    from textgcn_tpu_torch.ops.row_reduce import (
+        SEGMENT_EDGES, row_reduce, row_reduce_plain,
+    )
     from textgcn_tpu_torch.ops.spmm import spmm_coo_segment
     from textgcn_tpu_torch.train.prepare import (
         apply_attention_format, prepare_docword_data,
@@ -635,11 +679,15 @@ def main() -> int:
 
     # 2. build
     t0 = time.perf_counter()
-    _build.load()
+    lib = _build.load()
     info = _build.build_info()
     regs = [ln.strip() for ln in info["log"].splitlines() if "registers" in ln]
+    seg_edges = lib.textgcn_row_reduce_segment_edges()
+    if seg_edges != SEGMENT_EDGES:
+        raise AssertionError(f"K2 built for S = {seg_edges}, its tables for {SEGMENT_EDGES}")
     log("build", f"nvcc built {_build.library_path().name} in "
-        f"{time.perf_counter() - t0:.1f} s; ptxas: {' | '.join(regs)}")
+        f"{time.perf_counter() - t0:.1f} s; K2's S = {seg_edges} edges a warp; "
+        f"ptxas: {' | '.join(regs)}")
 
     # the real R8 doc-word hybrid layout
     t0 = time.perf_counter()
@@ -650,14 +698,17 @@ def main() -> int:
     log("data", f"R8 doc-word: {h.n_nodes} nodes, {h.n_edges} edges; tiles "
         f"{bsr.nnzb} ({bsr.n_edges} edges, {h.dense_fraction:.4f}), "
         f"{bsr.n_block_rows} block-rows, max {int(per_row.max())} tiles in a "
-        f"block-row; residual {rest.n_edges} edges; "
+        f"block-row; residual {rest.n_edges} edges, longest row "
+        f"{int(torch.diff(rest.row_ptr).max())}, K2 S = {SEGMENT_EDGES} "
+        f"({'no' if rest.split is None else rest.split.n_long} rows split); "
         f"{time.perf_counter() - t0:.1f} s on the host")
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
     n_pad = bsr.n_block_rows * bsr.bm
-    # kernel name -> [(max abs err, ms, plain ms), ...]; the first entry is
-    # the one the JSON record reports times from (F=200, the forward CSR);
-    # yard: kernel name -> (bound ms, bound by, library ms or None) for it
+    # kernel name -> [(max abs err, ms, device ms, plain ms), ...]; the first
+    # entry is the one the JSON record reports times from (F=200, the
+    # forward CSR); yard: kernel name -> (bound ms, bound by, library ms,
+    # library device ms; None where there is none) for it
     records, yard = {}, {}
 
     # 3. K1 vs plain
@@ -668,30 +719,33 @@ def main() -> int:
         args = (bsr.blocks, bsr.tile_ptr, bsr.block_cols, xp)
         got, want = bsr_spmm(*args), bsr_spmm_plain(*args)
         err, rel = compare(got, want, K1_TOL)
-        ms = cuda_ms(lambda: bsr_spmm(*args))
+        ms, dev_ms = both_ms(lambda: bsr_spmm(*args))
         plain_ms = cuda_ms(lambda: bsr_spmm_plain(*args))
         log("K1 bsr_spmm", f"F={f} (F'={fp}): max abs err {err:.3e}, rel "
             f"{rel:.3e}, tol {K1_TOL}*(1+|ref|) (same bf16 products, f32 sums "
-            f"in another order); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-        records.setdefault("bsr_spmm", []).append((err, ms, plain_ms))
+            f"in another order); kernel {ms:.4f} ms a call ({dev_ms:.4f} "
+            f"device), plain {plain_ms:.4f} ms")
+        records.setdefault("bsr_spmm", []).append((err, ms, dev_ms, plain_ms))
         if f == 200:
             yard["bsr_spmm"] = k1_yardsticks(bsr, xp, n_pad)
 
         # 4. K2 vs plain on the real residual leg, onto K1's output and from 0
         rargs = (rest.row_ptr, rest.col, rest.val, xp)
         err_b, _ = compare(
-            row_reduce(*rargs, base=got.clone()),
+            row_reduce(*rargs, base=got.clone(), split=rest.split),
             row_reduce_plain(*rargs, base=got.clone()), K2_TOL,
         )
-        err_z, rel_z = compare(row_reduce(*rargs), row_reduce_plain(*rargs), K2_TOL)
+        err_z, rel_z = compare(
+            row_reduce(*rargs, split=rest.split), row_reduce_plain(*rargs), K2_TOL
+        )
         base = got.clone()
-        ms = cuda_ms(lambda: row_reduce(*rargs, base=base))
+        ms, dev_ms = both_ms(lambda: row_reduce(*rargs, base=base, split=rest.split))
         plain_ms = cuda_ms(lambda: row_reduce_plain(*rargs, base=base))
         log("K2 row_reduce", f"F={f}: max abs err {err_b:.3e} with base, "
             f"{err_z:.3e} (rel {rel_z:.3e}) from zero, tol {K2_TOL}*(1+|ref|) "
-            f"(f32 sums of a few products per row); kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms (with base)")
-        records.setdefault("row_reduce", []).append((max(err_b, err_z), ms, plain_ms))
+            f"(f32 sums of a few products per row); kernel {ms:.4f} ms a call "
+            f"({dev_ms:.4f} device), plain {plain_ms:.4f} ms (with base)")
+        records.setdefault("row_reduce", []).append((max(err_b, err_z), ms, dev_ms, plain_ms))
         if f == 200:
             yard["row_reduce"] = k2_yardsticks(rest.row_ptr, rest.col, rest.val, xp, base)
 
@@ -754,38 +808,43 @@ def main() -> int:
     pre_att = apply_attention_format(pre, degree_sort=True)
     ag = pre_att.graph
     deg = torch.diff(ag.row_ptr)
+    sp_t = ag.split_t
     log("gat data", f"R8 doc-word attention graph (degree-sorted): "
         f"{ag.n_nodes} rows, {ag.n_edges} edges; hub row {ag.max_degree} "
         f"edges, median row {int(deg.median())}, {int((deg >= 1024).sum())} "
-        f"rows >= 1024 edges; {time.perf_counter() - t0:.1f} s on the host")
+        f"rows >= 1024 edges; K2 S = {SEGMENT_EDGES}: the transpose CSR's "
+        f"{0 if sp_t is None else sp_t.n_long} rows longer than S cut into "
+        f"{0 if sp_t is None else sp_t.n_seg} segments; "
+        f"{time.perf_counter() - t0:.1f} s on the host")
     n = ag.n_nodes
     es = torch.randn(n, generator=gen, device=dev)
     ed = torch.randn(n, generator=gen, device=dev)
     s_args = (ag.row_ptr, ag.col, ag.logval, es, ed, SLOPE)
     got, want = att.stats_logits(*s_args), att.stats_logits_plain(*s_args)
     err = max(compare(a, b, ATT_TOL)[0] for a, b in zip(got, want))
-    ms = cuda_ms(lambda: att.stats_logits(*s_args))
+    ms, dev_ms = both_ms(lambda: att.stats_logits(*s_args))
     plain_ms = cuda_ms(lambda: att.stats_logits_plain(*s_args))
     logits, mx, sm = want
     err6 = max(
         compare(a, b, ATT_TOL)[0]
         for a, b in zip(att.softmax_stats(ag.row_ptr, logits), (mx, sm))
     )
-    ms6 = cuda_ms(lambda: att.softmax_stats(ag.row_ptr, logits))
+    ms6, dev6 = both_ms(lambda: att.softmax_stats(ag.row_ptr, logits))
     plain6 = cuda_ms(lambda: att.softmax_stats_plain(ag.row_ptr, logits))
-    records["attn_stats"] = [(err, ms, plain_ms), (err6, ms6, plain6)]
+    records["attn_stats"] = [(err, ms, dev_ms, plain_ms), (err6, ms6, dev6, plain6)]
     e, n_rows = ag.n_edges, ag.n_nodes
     # B5 per edge: gather-add, leaky relu (compare, multiply), add log(val),
     # subtract the max, exp, add: ~7 f32 operations, and one max; it writes
     # the logits and two statistics per row. B6 reads the logits instead.
     yard["attn_stats"] = (*bound(
         nbytes(ag.row_ptr, ag.col, ag.logval, es, ed) + 4 * e + 8 * n_rows, 8 * e, PEAK_F32,
-    ), None)
+    ), None, None)
     bound6 = bound(nbytes(ag.row_ptr, logits) + 8 * n_rows, 4 * e, PEAK_F32)
     log("B5/B6 attn_stats", f"logits+stats: max abs err {err:.3e}, kernel "
-        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {yard['attn_stats'][0]:.4f} ms "
-        f"by {yard['attn_stats'][1]}; stats of given logits: max abs err "
-        f"{err6:.3e}, kernel {ms6:.4f} ms, plain {plain6:.4f} ms, bound "
+        f"{ms:.4f} ms a call ({dev_ms:.4f} device), plain {plain_ms:.4f} ms, bound "
+        f"{yard['attn_stats'][0]:.4f} ms by {yard['attn_stats'][1]}; stats of "
+        f"given logits: max abs err {err6:.3e}, kernel {ms6:.4f} ms a call "
+        f"({dev6:.4f} device), plain {plain6:.4f} ms, bound "
         f"{bound6[0]:.4f} ms by {bound6[1]}; no one PyTorch call computes either; "
         f"tol {ATT_TOL}*(1+|ref|) (same f32 logits, exp-sums in another order)")
     # the backward's softmax weights, moved to the transpose CSR (dx's val)
@@ -795,61 +854,75 @@ def main() -> int:
         g16 = torch.randn((n, f), generator=gen, device=dev).to(torch.bfloat16)
         a_args = (ag.row_ptr, ag.col, logits, mx, sm, x16)
         err, _ = compare(att.attn_agg(*a_args), att.attn_agg_plain(*a_args), ATT_TOL)
-        ms = cuda_ms(lambda: att.attn_agg(*a_args))
+        ms, dev_ms = both_ms(lambda: att.attn_agg(*a_args))
         plain_ms = cuda_ms(lambda: att.attn_agg_plain(*a_args))
-        records.setdefault("attn_agg", []).append((err, ms, plain_ms))
+        records.setdefault("attn_agg", []).append((err, ms, dev_ms, plain_ms))
         if f == 200:
             yard["attn_agg"] = (*bound(
                 nbytes(ag.row_ptr, ag.col, logits, mx, sm) + rows_read(ag.col, f, 2)
                 + 4 * n * f, (2 * f + 3) * ag.n_edges, PEAK_F32,
-            ), None)
-        d_args = (ag.row_ptr, ag.col, g16, x16)
-        err_d, _ = compare(att.sddmm(*d_args), att.sddmm_plain(*d_args), ATT_TOL)
-        ms_d = cuda_ms(lambda: att.sddmm(*d_args))
+            ), None, None)
+        d_args = (ag.row_ptr, ag.col, g16, x16, ag.row)
+        u1 = att.sddmm(*d_args)
+        if not torch.equal(u1, att.sddmm(*d_args)):
+            raise AssertionError(f"two sddmm launches differ at F={f}")
+        err_d, _ = compare(u1, att.sddmm_plain(*d_args), ATT_TOL)
+        ms_d, dev_d = both_ms(lambda: att.sddmm(*d_args))
         plain_d = cuda_ms(lambda: att.sddmm_plain(*d_args))
-        records.setdefault("sddmm", []).append((err_d, ms_d, plain_d))
+        records.setdefault("sddmm", []).append((err_d, ms_d, dev_d, plain_d))
+        lib_d = ""
         if f == 200:
             pattern = csr(ag.row_ptr, ag.col, torch.zeros(ag.n_edges, device=dev), (n, n))
             gf, xt = g16.float(), x16.float().t().contiguous()
-            lib = cuda_ms(lambda: torch.sparse.sampled_addmm(pattern, gf, xt, beta=0.0))
+            libs = both_ms(lambda: torch.sparse.sampled_addmm(pattern, gf, xt, beta=0.0))
             yard["sddmm"] = (*bound(
                 nbytes(ag.row_ptr, ag.col) + rows_read(ag.row, f, 2) + rows_read(ag.col, f, 2)
                 + 4 * ag.n_edges, 2 * f * ag.n_edges, PEAK_F32,
-            ), lib)
+            ), *libs)
+            lib_d = (f", torch.sparse.sampled_addmm {libs[0]:.4f} ms a call "
+                     f"({libs[1]:.4f} device)")
             del pattern, gf, xt
         log("B7/B8 attn_agg, sddmm", f"F={f}: attn_agg max abs err {err:.3e}, "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; sddmm max abs err "
-            f"{err_d:.3e}, kernel {ms_d:.4f} ms, plain {plain_d:.4f} ms; tol "
-            f"{ATT_TOL}*(1+|ref|) (f32 weights, exact bf16 products, f32 sums "
-            f"in another order)")
+            f"kernel {ms:.4f} ms a call ({dev_ms:.4f} device), plain {plain_ms:.4f} "
+            f"ms; sddmm max abs err {err_d:.3e}, two launches bit-equal, kernel "
+            f"{ms_d:.4f} ms a call ({dev_d:.4f} device), plain {plain_d:.4f} ms"
+            f"{lib_d}; tol {ATT_TOL}*(1+|ref|) (f32 weights, exact bf16 "
+            f"products, f32 sums in another order)")
         # K2 in B3's role: dx = (weighted A)ᵀ @ g over the transpose CSR
         k_args = (ag.row_ptr_t, ag.col_t, w_t, g16)
-        err_k, _ = compare(row_reduce(*k_args), row_reduce_plain(*k_args), ATT_TOL)
-        ms_k = cuda_ms(lambda: row_reduce(*k_args))
+        dx = row_reduce(*k_args, split=sp_t)
+        if not torch.equal(dx, row_reduce(*k_args, split=sp_t)):
+            raise AssertionError(f"two launches of K2 as dx differ at F={f}")
+        err_k, _ = compare(dx, row_reduce_plain(*k_args), ATT_TOL)
+        ms_k, dev_k = both_ms(lambda: row_reduce(*k_args, split=sp_t))
         plain_k = cuda_ms(lambda: row_reduce_plain(*k_args))
-        records["row_reduce"].append((err_k, ms_k, plain_k))
-        bnd_k, by_k, lib_k = k2_yardsticks(*k_args)
+        records.setdefault("row_reduce_dx", []).append((err_k, ms_k, dev_k, plain_k))
+        yard_k = k2_yardsticks(*k_args)
+        if f == 200:
+            yard["row_reduce_dx"] = yard_k
+        del dx, u1
         log("K2 row_reduce as dx", f"F={f}, transpose CSR with the softmax "
-            f"weights: max abs err {err_k:.3e}, kernel {ms_k:.4f} ms, plain "
-            f"{plain_k:.4f} ms, bound {bnd_k:.4f} ms by {by_k}, torch.sparse.mm "
-            f"{lib_k:.4f} ms; tol {ATT_TOL}*(1+|ref|) (f32 sums in another "
-            f"order)")
+            f"weights, S = {SEGMENT_EDGES}: max abs err {err_k:.3e}, two launches "
+            f"bit-equal, kernel {ms_k:.4f} ms a call ({dev_k:.4f} device), plain "
+            f"{plain_k:.4f} ms, bound {yard_k[0]:.4f} ms by {yard_k[1]}, "
+            f"torch.sparse.mm {yard_k[2]:.4f} ms a call ({yard_k[3]:.4f} device); "
+            f"tol {ATT_TOL}*(1+|ref|) (f32 sums in another order)")
     v = torch.randn(ag.n_edges, generator=gen, device=dev)
     v_t = v.index_select(0, ag.perm_t)
     for ptr, vals, csr_name in (
         (ag.row_ptr, v, "forward"), (ag.row_ptr_t, v_t, "transpose"),
     ):
         err, _ = compare(att.rowsum(ptr, vals), att.rowsum_plain(ptr, vals), ATT_TOL)
-        ms = cuda_ms(lambda: att.rowsum(ptr, vals))
+        ms, dev_ms = both_ms(lambda: att.rowsum(ptr, vals))
         plain_ms = cuda_ms(lambda: att.rowsum_plain(ptr, vals))
-        records.setdefault("rowsum", []).append((err, ms, plain_ms))
+        records.setdefault("rowsum", []).append((err, ms, dev_ms, plain_ms))
         if csr_name == "forward":
             lengths = torch.diff(ptr.long())
             lib = cuda_ms(lambda: torch.segment_reduce(vals, "sum", lengths=lengths))
-            yard["rowsum"] = (*bound(nbytes(ptr, vals) + 4 * n, ag.n_edges, PEAK_F32), lib)
+            yard["rowsum"] = (*bound(nbytes(ptr, vals) + 4 * n, ag.n_edges, PEAK_F32), lib, None)
         log("B9 rowsum", f"{csr_name} CSR: max abs err {err:.3e}, kernel "
-            f"{ms:.4f} ms, plain {plain_ms:.4f} ms; tol {ATT_TOL}*(1+|ref|) "
-            f"(f32 sums in another order)")
+            f"{ms:.4f} ms a call ({dev_ms:.4f} device), plain {plain_ms:.4f} ms; "
+            f"tol {ATT_TOL}*(1+|ref|) (f32 sums in another order)")
     del x16, g16, v, v_t, w_t, logits, mx, sm, got, want
 
     # 8. one GAT layer, forward and backward, on the kernels vs the segment
@@ -901,6 +974,8 @@ def main() -> int:
                      "textgcn_tpu/ops/pallas_spmm.py:143"),
         "row_reduce": ("textgcn_tpu_torch/csrc/row_reduce.cu",
                        "textgcn_tpu/ops/pallas_onehot.py:232"),
+        "row_reduce_dx": ("textgcn_tpu_torch/csrc/row_reduce.cu",
+                          "textgcn_tpu/ops/pallas_onehot.py:214"),
         "attn_stats": ("textgcn_tpu_torch/csrc/attn_stats.cu",
                        "textgcn_tpu/ops/pallas_attention.py:94"),
         "attn_agg": ("textgcn_tpu_torch/csrc/attn_agg.cu",
@@ -915,17 +990,21 @@ def main() -> int:
                     "textgcn_tpu/parallel/mesh_kernels.py:641"),
     }
     total = {k: launches[k] + gat_launches[k] + shard1[k] + shard4[k] for k in launches}
+    # K2's one counter: the GAT run's launches are dx (B3), the others B2
+    total["row_reduce_dx"] = gat_launches["row_reduce"]
+    total["row_reduce"] -= gat_launches["row_reduce"]
     total["sorted_chunk_add"] = stream_launches
     kernels = []
     for name, (src, replaces) in sources.items():
-        _, ms, plain_ms = records[name][0]
-        bound_ms, bound_by, library_ms = yard[name]
+        _, ms, device_ms, plain_ms = records[name][0]
+        bound_ms, bound_by, library_ms, library_device_ms = yard[name]
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": total[name],
             "max_abs_err": max(r[0] for r in records[name]),
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms,
+            "library_ms": library_ms, "device_ms": device_ms,
+            "library_device_ms": library_device_ms,
         })
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -184,6 +184,7 @@ def test_sddmm_matches_jax(f):
     u_t = tatt.sddmm(
         tg.row_ptr, tg.col,
         tatt.features_bf16(torch.from_numpy(g)), tatt.features_bf16(torch.from_numpy(x)),
+        tg.row,
     )
     u_j = jatt.sddmm_slots(jg.fwd, jnp.asarray(g), jnp.asarray(x), True)
     # both round g and x to bf16; their products are exact in f32, summed in
@@ -297,7 +298,7 @@ def test_wrappers_raise_off_cpu_and_cuda():
         lambda: tatt.stats_logits(i, i[:2], v, v, v, SLOPE),
         lambda: tatt.softmax_stats(i, v),
         lambda: tatt.attn_agg(i, i[:2], v, v, v, x),
-        lambda: tatt.sddmm(i, i[:2], x, x),
+        lambda: tatt.sddmm(i, i[:2], x, x, i[:2]),
         lambda: tatt.rowsum(i, v),
     ):
         with pytest.raises(ValueError, match="no kernel"):

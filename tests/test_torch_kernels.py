@@ -23,7 +23,10 @@ from textgcn_tpu_torch.parallel.mesh_kernels import (
     shard_hybrid_pass,
     shard_hybrid_pass_plain,
 )
-from textgcn_tpu_torch.ops.row_reduce import row_reduce, row_reduce_plain
+from textgcn_tpu_torch.ops import _build
+from textgcn_tpu_torch.ops.row_reduce import (
+    SEGMENT_EDGES, row_reduce, row_reduce_plain, row_split,
+)
 
 CPU = torch.device("cpu")
 
@@ -173,6 +176,89 @@ def test_row_reduce_kernel_matches_plain(cuda_dev, with_base):
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
     with pytest.raises(TypeError, match="bf16"):
         row_reduce(rest.row_ptr, rest.col, rest.val, xp.float())
+    # the kernel walks at most the S that the split tables are built for
+    assert _build.load().textgcn_row_reduce_segment_edges() == SEGMENT_EDGES
+
+
+def _long_rows(dev, f, seed=0):
+    """A row-sorted CSR whose rows hold 0, 1, S-1, S, S+1, 3S+5 and 10,000
+    edges among short rows (the hub is row 7), weights uniform in [0, 1)
+    over the square root of their row's degree (as a normalized adjacency:
+    the row sums and their partial sums stay O(1)), and bf16 features
+    [2000, f]."""
+    s = SEGMENT_EDGES
+    degs = [3, 0, 1, s - 1, s, s + 1, 3 * s + 5, 10_000, 0, 7, 50, 2]
+    rng = np.random.RandomState(seed)
+    rp = np.concatenate([[0], np.cumsum(degs)])
+    col = rng.randint(0, 2000, rp[-1])
+    val = rng.rand(rp[-1]) / np.sqrt(np.repeat(degs, degs))
+    x = rng.randn(2000, f)
+
+    def t(a, dtype):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dtype).to(dev)
+
+    return (t(rp, torch.int32), t(col, torch.int32), t(val, torch.float32),
+            t(x, torch.float32).to(torch.bfloat16), rng)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_base", [True, False])
+@pytest.mark.parametrize("f", [8, 16, 200, 264, 18])
+def test_row_reduce_kernel_splits_long_rows(cuda_dev, f, with_base):
+    """K2 over rows up to 10,000 edges through its split table (F=18 takes
+    the 4-byte path): against the plain version, two launches bit-equal,
+    the hub row bit-equal alone and inside the CSR, and without a table."""
+    rp, col, val, x, rng = _long_rows(cuda_dev, f)
+    n_rows = rp.numel() - 1
+    split = row_split(rp)
+    assert split.n_long == 3
+    base = torch.from_numpy(rng.randn(n_rows, f).astype(np.float32)).to(cuda_dev)
+
+    def run(*args, b=base, sp=split):
+        return row_reduce(*args, base=b.clone() if with_base else None, split=sp)
+
+    n0 = row_reduce.launches
+    got = run(rp, col, val, x)
+    again = run(rp, col, val, x)
+    torch.cuda.synchronize()
+    assert row_reduce.launches == n0 + 2
+    assert torch.equal(got, again)
+    want = row_reduce_plain(rp, col, val, x, base.clone() if with_base else None)
+    # f32 sums of up to 10,000 products in another order (the smoke's K2 tolerance
+    # for GAT's hub rows, ATT_TOL)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    e0, e1 = int(rp[7]), int(rp[8])
+    one_ptr = torch.tensor([0, e1 - e0], dtype=torch.int32, device=cuda_dev)
+    alone = run(one_ptr, col[e0:e1].contiguous(), val[e0:e1].contiguous(), x,
+                b=base[7:8], sp=row_split(one_ptr))
+    assert torch.equal(alone[0], got[7])
+    # without a table every row is walked whole by one warp: right, unbalanced
+    torch.testing.assert_close(run(rp, col, val, x, sp=None), want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [8, 16, 200, 264])
+def test_sddmm_kernel_on_long_rows(cuda_dev, f):
+    """The edge-parallel sddmm over the same rows: against the plain version,
+    two launches bit-equal, and the hub row's products the same bits in a
+    CSR of its own."""
+    rp, col, _, x, rng = _long_rows(cuda_dev, f, seed=1)
+    n_rows = rp.numel() - 1
+    g = torch.from_numpy(rng.randn(n_rows, f).astype(np.float32)).to(cuda_dev).bfloat16()
+    row = torch.repeat_interleave(torch.arange(n_rows, dtype=torch.int32, device=cuda_dev),
+                                  torch.diff(rp))
+    n0 = att.sddmm.launches
+    u = att.sddmm(rp, col, g, x, row)
+    assert torch.equal(u, att.sddmm(rp, col, g, x, row))
+    assert att.sddmm.launches == n0 + 2
+    # exact bf16 products summed in f32 in another order
+    torch.testing.assert_close(u, att.sddmm_plain(rp, col, g, x), rtol=1e-5, atol=1e-4)
+    e0, e1 = int(rp[7]), int(rp[8])
+    one_ptr = torch.tensor([0, e1 - e0], dtype=torch.int32, device=cuda_dev)
+    alone = att.sddmm(one_ptr, col[e0:e1].contiguous(), g[7:8], x, torch.zeros_like(row[e0:e1]))
+    assert torch.equal(alone, u[e0:e1])
+    with pytest.raises(ValueError, match="entries"):
+        att.sddmm(rp, col, g, x, row[1:])
 
 
 @pytest.mark.cuda
@@ -222,7 +308,7 @@ def test_attention_plain_versions_match_numpy():
         else:
             assert mx[r].item() == np.float32(-1e30) and sm[r].item() == 0
     np.testing.assert_allclose(out.numpy(), want, rtol=1e-5, atol=1e-6)
-    u = att.sddmm(ag.row_ptr, ag.col, torch.from_numpy(x), torch.from_numpy(x))
+    u = att.sddmm(ag.row_ptr, ag.col, torch.from_numpy(x), torch.from_numpy(x), ag.row)
     np.testing.assert_allclose(u.numpy(), np.sum(x[rows] * x[col], axis=1), rtol=1e-5, atol=1e-5)
     v = rng.randn(ag.n_edges).astype(np.float32)
     np.testing.assert_allclose(
@@ -266,7 +352,7 @@ def test_attn_agg_and_sddmm_kernels_match_plain(cuda_dev, f):
     g = torch.randn((n, f), device=cuda_dev).to(torch.bfloat16)
     n0, n1 = att.attn_agg.launches, att.sddmm.launches
     out = att.attn_agg(ag.row_ptr, ag.col, lg, mx, sm, x)
-    u = att.sddmm(ag.row_ptr, ag.col, g, x)
+    u = att.sddmm(ag.row_ptr, ag.col, g, x, ag.row)
     torch.cuda.synchronize()
     assert (att.attn_agg.launches, att.sddmm.launches) == (n0 + 1, n1 + 1)
     # f32 weights times bf16 features, and exact bf16 products, summed in
@@ -276,7 +362,7 @@ def test_attn_agg_and_sddmm_kernels_match_plain(cuda_dev, f):
     )
     torch.testing.assert_close(u, att.sddmm_plain(ag.row_ptr, ag.col, g, x), rtol=1e-5, atol=1e-4)
     with pytest.raises(ValueError, match="multiple of"):
-        att.sddmm(ag.row_ptr, ag.col, g[:, :6].contiguous(), x[:, :6].contiguous())
+        att.sddmm(ag.row_ptr, ag.col, g[:, :6].contiguous(), x[:, :6].contiguous(), ag.row)
     with pytest.raises(TypeError, match="bfloat16"):
         att.attn_agg(ag.row_ptr, ag.col, lg, mx, sm, x.float())
 

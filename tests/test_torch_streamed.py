@@ -352,9 +352,10 @@ def _train_inputs(f, c, dtype, seed=8):
     return xj, jnp.asarray(y), jnp.asarray(mask), xt, torch.from_numpy(y).long(), torch.from_numpy(mask)
 
 
-def _jax_rounding_reduce(row_ptr, col, val, x, base):
+def _jax_rounding_reduce(row_ptr, col, val, x, base, split=None):
     """The plain reduce with the JAX sorted stream's roundings: each edge
-    weight cast to x's dtype and each product rounded to it, then f32 sums."""
+    weight cast to x's dtype and each product rounded to it, then f32 sums
+    (``split``, K2's row split, is ignored)."""
     rows = torch.repeat_interleave(torch.arange(row_ptr.numel() - 1), torch.diff(row_ptr.long()))
     return base.index_add_(0, rows, (x[col.long()] * val.to(x.dtype)[:, None]).float())
 

@@ -23,7 +23,7 @@ import torch
 
 from textgcn_tpu_torch.graph.structs import BlockSparseGraph
 from textgcn_tpu_torch.ops.bsr_spmm import F_ALIGN, TILE, bsr_spmm
-from textgcn_tpu_torch.ops.row_reduce import row_reduce
+from textgcn_tpu_torch.ops.row_reduce import RowSplit, row_reduce, row_split
 
 
 def degree_sort_permutation(
@@ -82,13 +82,16 @@ def tile_fill_threshold_split(
 class ResidualCSR:
     """The residual edges as a row-sorted CSR for the K2 kernel.
 
-    ``row_ptr`` [n_nodes + 1] int32, ``col`` [E] int32, ``val`` [E] f32.
+    ``row_ptr`` [n_nodes + 1] int32, ``col`` [E] int32, ``val`` [E] f32;
+    ``split`` the segments of its rows longer than K2's S (None when it has
+    none), built once here.
     """
 
     row_ptr: torch.Tensor
     col: torch.Tensor
     val: torch.Tensor
     n_edges: int
+    split: Optional[RowSplit] = None
 
     @staticmethod
     def from_coo(row, col, val, n_nodes: int, *, device) -> "ResidualCSR":
@@ -100,6 +103,7 @@ class ResidualCSR:
             col=torch.from_numpy(np.asarray(col)[order].astype(np.int32)).to(device),
             val=torch.from_numpy(np.asarray(val)[order].astype(np.float32)).to(device),
             n_edges=int(len(row)),
+            split=row_split(row_ptr, device=device),
         )
 
 
@@ -204,7 +208,7 @@ def tile_and_residual(bsr: BlockSparseGraph, rest, xp: torch.Tensor, tile=bsr_sp
     out = tile(bsr.blocks, bsr.tile_ptr, bsr.block_cols, xp)
     if rest is not None:
         xq = xp if xp.dtype == torch.bfloat16 else xp.to(torch.bfloat16)
-        reduce(rest.row_ptr, rest.col, rest.val, xq, base=out)
+        reduce(rest.row_ptr, rest.col, rest.val, xq, base=out, split=rest.split)
     return out
 
 

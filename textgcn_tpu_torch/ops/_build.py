@@ -9,7 +9,10 @@ plain C interface (no PyTorch headers, so the build takes seconds), which
 PyTorch's current stream. The build runs at the first CUDA launch, into
 ``textgcn_tpu_torch/_build/`` (listed in ``.gitignore``). The library's file
 name carries a hash of the sources and flags, so an edited kernel is rebuilt
-and a stale library is never loaded.
+and a stale library is never loaded. ``build(defines, srcs)`` builds a
+variant beside it (``scripts/sweep_kernels.py`` sets a kernel's constants
+with ``-D``), which :func:`open_library` loads; the port itself loads only
+the default library.
 """
 from __future__ import annotations
 
@@ -34,7 +37,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points: (pointers..., scalars..., stream) -> cudaError_t as int
 _SIGNATURES = {
     "textgcn_bsr_spmm": [_P, _P, _P, _P, _P, _I, _I, _P],
-    "textgcn_row_reduce": [_P, _P, _P, _P, _P, _I, _I, _P],
+    "textgcn_row_reduce": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "textgcn_row_reduce_segment_edges": [],
     "textgcn_attn_stats": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _F, _I, _P],
     "textgcn_attn_agg": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
     "textgcn_sddmm": [_P, _P, _P, _P, _P, _I, _I, _P],
@@ -67,23 +71,24 @@ def sources() -> list:
     return sorted(CSRC.glob("*.cu"))
 
 
-def library_path() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+def library_path(defines=(), srcs=None) -> Path:
+    h = hashlib.sha256(" ".join((*NVCC_FLAGS, *defines)).encode())
+    for src in srcs or sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libtextgcn_kernels_{h.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile ``csrc/*.cu`` unless the library for these sources exists.
+def build(defines=(), srcs=None) -> Path:
+    """Compile ``csrc/*.cu`` (or the paths ``srcs``) with the macros
+    ``defines`` (``"NAME=VALUE"``) unless that library exists.
 
     Each source compiles to an object in its own ``nvcc`` process, all in
     parallel, and one ``nvcc -shared`` links them. The library is written
     to a temporary name and renamed, so a concurrent or interrupted build
     never leaves a half-written library under the final name.
     """
-    path = library_path()
+    path = library_path(defines, srcs)
     if path.exists():
         return path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -91,9 +96,9 @@ def build() -> Path:
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
         objs, procs = [], []
-        for src in sources():
+        for src in srcs or sources():
             obj = os.path.join(work, src.stem + ".o")
-            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+            cmd = [nvcc, *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-c", "-o", obj, str(src)]
             objs.append(obj)
             procs.append((cmd, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
@@ -120,15 +125,21 @@ def build() -> Path:
     return path
 
 
+def open_library(path) -> ctypes.CDLL:
+    """Load a built library and declare the C entry points it has."""
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name, None)
+        if fn is not None:
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+    return lib
+
+
 def load() -> ctypes.CDLL:
     """The kernels' library, built on first use and loaded once per process."""
     if _Loaded.lib is None:
-        lib = ctypes.CDLL(str(build()))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _Loaded.lib = lib
+        _Loaded.lib = open_library(build())
     return _Loaded.lib
 
 

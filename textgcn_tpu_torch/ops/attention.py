@@ -17,8 +17,9 @@ wrapper             kernel                       replaces (Pallas)
 Each source carries its note (what bounds it on the card, what its design
 does about that). ``dx`` of both ops goes through K2
 (:func:`textgcn_tpu_torch.ops.row_reduce.row_reduce`) over the transpose
-CSR, as the JAX package sends it through the one-hot kernel
-(``_onehot_kernel``) over the transpose plan.
+CSR, with the transpose CSR's split table (``split_t``), as the JAX package
+sends it through the one-hot kernel (``_onehot_kernel``) over the transpose
+plan.
 
 Layout. The TPU's ``OneHotPlan`` (windows, k-chunks, superchunks, phantom
 slots, 128-lane replicated stats) is not carried over. An
@@ -36,12 +37,13 @@ adds one to its ``.launches`` where it launches. ``edge_logit_base`` and
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
 
 from textgcn_tpu_torch.ops import _build
-from textgcn_tpu_torch.ops.row_reduce import row_reduce
+from textgcn_tpu_torch.ops.row_reduce import RowSplit, row_reduce, row_split
 
 _NEG = -1e30  # finite -inf stand-in: keeps max/exp arithmetic NaN-free
 VEC = 8  # bf16 columns per 16-byte load: feature widths are multiples of it
@@ -87,6 +89,8 @@ class AttentionGraph:
       perm_t:    [E] forward position of each transpose edge.
       edge_pos:  [E] forward position of each input edge, in input order
                  (the counterpart of ``fwd_dst``).
+      split_t:   the transpose CSR's :class:`RowSplit` (the segments of its
+                 rows longer than K2's S), or None when it has none.
     ``n_nodes`` is the row space (softmax rows, outputs, es) and ``n_cols``
     the column space (x, ed); they are equal for a square graph.
     """
@@ -102,6 +106,7 @@ class AttentionGraph:
     n_nodes: int
     n_edges: int
     n_cols: int
+    split_t: Optional[RowSplit] = None
 
     @staticmethod
     def from_coo(row, col, val, n_nodes: int, n_cols: int = None, *, device):
@@ -124,18 +129,20 @@ class AttentionGraph:
         # -inf logit, which drops the edge from the softmax
         with np.errstate(divide="ignore"):
             logval = np.log(val[order].astype(np.float32))
+        row_ptr_t = np.searchsorted(c[perm_t], np.arange(n_cols + 1))
         return AttentionGraph(
             row_ptr=t(np.searchsorted(r, np.arange(n_nodes + 1))),
             col=t(c),
             logval=torch.from_numpy(logval).to(device),
             row=t(r),
-            row_ptr_t=t(np.searchsorted(c[perm_t], np.arange(n_cols + 1))),
+            row_ptr_t=t(row_ptr_t),
             col_t=t(r[perm_t]),
             perm_t=t(perm_t),
             edge_pos=t(edge_pos),
             n_nodes=int(n_nodes),
             n_edges=int(len(row)),
             n_cols=n_cols,
+            split_t=row_split(row_ptr_t, device=device),
         )
 
     @staticmethod
@@ -147,7 +154,7 @@ class AttentionGraph:
 
     @property
     def max_degree(self) -> int:
-        """Edges of the longest forward row (the hub row one warp walks)."""
+        """Edges of the longest forward row (the hub row)."""
         return int(torch.diff(self.row_ptr).max()) if self.n_nodes else 0
 
 
@@ -198,8 +205,9 @@ def attn_agg_plain(row_ptr, col, logits, mx, sm, x):
     return out.index_add_(0, rows, w[:, None] * x[col.long()].float())
 
 
-def sddmm_plain(row_ptr, col, g, x):
-    """Plain PyTorch version of :func:`sddmm` (any float ``g`` and ``x``)."""
+def sddmm_plain(row_ptr, col, g, x, row=None):
+    """Plain PyTorch version of :func:`sddmm` (any float ``g`` and ``x``;
+    ``row`` is accepted and ignored)."""
     return (g[_rows(row_ptr)].float() * x[col.long()].float()).sum(dim=1)
 
 
@@ -326,29 +334,33 @@ def attn_agg(row_ptr, col, logits, mx, sm, x):
     return out
 
 
-def sddmm(row_ptr, col, g, x):
+def sddmm(row_ptr, col, g, x, row):
     """``u[e] = g[row_e] . x[col_e]`` for every edge of the forward CSR, in
     forward-CSR order. ``g`` [>= n_rows, F] and ``x`` [N, F] are bf16 with F
-    a multiple of 8; returns [E] f32. On CPU tensors this runs
-    :func:`sddmm_plain`; on CUDA tensors it launches ``csrc/sddmm.cu`` or
-    raises.
+    a multiple of 8; returns [E] f32. ``row`` [E] int32 is each edge's row,
+    ``row_ptr`` expanded (``AttentionGraph.row``), which the edge-parallel
+    kernel reads (it does not check that the two agree). On CPU tensors this
+    runs :func:`sddmm_plain`; on CUDA tensors it launches ``csrc/sddmm.cu``
+    or raises.
     """
     if x.device.type == "cpu":
         return sddmm_plain(row_ptr, col, g, x)
     i32, bf16 = torch.int32, torch.bfloat16
-    _on_cuda("sddmm", x, row_ptr=(row_ptr, i32), col=(col, i32), g=(g, bf16),
-             x=(x, bf16))
-    n_rows = row_ptr.numel() - 1
+    _on_cuda("sddmm", x, row_ptr=(row_ptr, i32), col=(col, i32), row=(row, i32),
+             g=(g, bf16), x=(x, bf16))
+    n_rows, n_edges = row_ptr.numel() - 1, col.numel()
     _features("sddmm", g, n_rows)
     _features("sddmm", x)
     if g.shape[1] != x.shape[1]:
         raise ValueError(f"sddmm: g is {tuple(g.shape)} and x {tuple(x.shape)}")
-    u = torch.empty(col.numel(), dtype=torch.float32, device=x.device)
+    if row.numel() != n_edges:
+        raise ValueError(f"sddmm: row has {row.numel()} entries for {n_edges} edges")
+    u = torch.empty(n_edges, dtype=torch.float32, device=x.device)
     lib = _build.load()
     with torch.cuda.device(x.device):
         err = lib.textgcn_sddmm(
-            row_ptr.data_ptr(), col.data_ptr(), g.data_ptr(), x.data_ptr(),
-            u.data_ptr(), n_rows, x.shape[1] // VEC, _stream(),
+            row.data_ptr(), col.data_ptr(), g.data_ptr(), x.data_ptr(),
+            u.data_ptr(), n_edges, x.shape[1] // VEC, _stream(),
         )
     sddmm.launches += 1
     _build.check_launch("sddmm", err)
@@ -411,10 +423,12 @@ def _softmax_backward(ag: AttentionGraph, wt, g16, x16):
     """``dlogits = wt * (u - S_row)`` with ``u = g[row] . x[col]`` (SDDMM)
     and ``S_row = sum_row wt * u`` (rowsum), and ``dx = Aᵀ_wt @ g`` (K2 over
     the transpose CSR with the weights moved there)."""
-    u = sddmm(ag.row_ptr, ag.col, g16, x16)
+    u = sddmm(ag.row_ptr, ag.col, g16, x16, ag.row)
     s_row = rowsum(ag.row_ptr, wt * u)
     dlog = wt * (u - s_row.index_select(0, ag.row))
-    dx = row_reduce(ag.row_ptr_t, ag.col_t, wt.index_select(0, ag.perm_t), g16)
+    dx = row_reduce(
+        ag.row_ptr_t, ag.col_t, wt.index_select(0, ag.perm_t), g16, split=ag.split_t
+    )
     return dlog, dx
 
 

@@ -1,5 +1,5 @@
-"""K2: row-sorted residual edges reduced onto output rows (the hybrid
-format's residual leg).
+"""K2: row-sorted edges reduced onto output rows (the hybrid format's
+residual leg, GAT's dx over the transpose CSR, the streamed chunk add).
 
 Ports ``textgcn_tpu/ops/pallas_onehot.py``. The kernel is
 ``csrc/row_reduce.cu``, a hand-written CUDA kernel for Hopper (``sm_90a``).
@@ -13,26 +13,120 @@ Source note:
   fast scatter; the port keeps the edges as a CSR and sums each row directly.
   The ``OneHotPlan`` padding (k-chunks, windows, superchunks, phantom slots)
   is a TPU layout and is not carried over.
-- Bound on the card: the random reads of feature rows, one bf16 row of F
-  values per edge; the sum itself is a few FMAs per byte.
-- Design against that bound: the gather of ``x`` and the scale by ``val``
-  happen inside the kernel, in registers (the TPU version has XLA write the
-  [E, F] bf16 product stream to memory first), one warp reads each feature
-  row with coalesced 4-byte loads, and each output row is read and written
-  once.
+- Bound on the card: the gathers of feature rows, one bf16 row of F values
+  per edge; the sum itself is a few FMAs per byte. At R8's sizes the table
+  sits in L2 and the L2 gather rate bounds the pass; at the streamed sizes
+  the random reads from HBM do.
+- The hub rows: no warp walks more than :data:`SEGMENT_EDGES` (S) edges. A
+  row longer than S is cut into row-local segments (boundaries at multiples
+  of S from its first edge) listed in a :class:`RowSplit`, which
+  :func:`row_split` builds once where the CSR is built
+  (``ResidualCSR.from_coo``, ``AttentionGraph.from_coo``, ``csr_stream``)
+  and which the CSR's container keeps. Each segment's warp writes an f32
+  partial row; a second small launch adds a long row's partials onto its
+  base in segment order. A CSR with no row longer than S has no table
+  (``split=None``) and costs one launch, as before. Sums take a fixed order
+  and no atomics: two launches give the same bits, and a row the same bits
+  in any CSR that holds it. Without a table every row is walked by one warp
+  whatever its length (right, but not balanced).
+- One walk over the edges for F <= 256: each lane keeps its columns in f32
+  registers and reads 16-byte bf16 vectors (F % 8 == 0, F > 16 and 16-byte
+  aligned ``x`` and ``base``; 4-byte vectors of 2 columns otherwise: the
+  kernel chooses), with several gathers in flight; narrow rows (F = 8, 16:
+  F/2 lanes an edge) give a warp's 32/(F/2) lane groups different edges and
+  sum the groups with shuffles in a fixed order. The gather of ``x`` and the
+  scale by ``val`` happen in registers (the TPU version has XLA write the
+  [E, F] bf16 product stream to memory first), and each output row is read
+  and written once.
 - ``base`` is updated IN PLACE and returned. JAX never aliases; the port
   does, so that on the hybrid path the tile leg's output is the residual
   leg's accumulator and the two legs' sum costs no extra pass.
 """
 from __future__ import annotations
 
+import dataclasses
+from typing import Optional
+
+import numpy as np
 import torch
 
 from textgcn_tpu_torch.ops import _build
 
+# S: the most edges one warp walks; the kernel's compile-time constant
+# (csrc/row_reduce.cu kSegEdges), which a RowSplit table must be built for
+SEGMENT_EDGES = 512
 
-def row_reduce_plain(row_ptr, col, val, x, base=None):
-    """Plain PyTorch version of :func:`row_reduce` (any float ``x``)."""
+
+@dataclasses.dataclass(frozen=True)
+class RowSplit:
+    """The segments of a CSR's rows longer than :data:`SEGMENT_EDGES` (S).
+
+    ``table`` is one int32 tensor holding, back to back, ``seg_row``
+    [n_seg] (each segment's row), ``seg_e0`` [n_seg] (its first edge; it
+    ends S edges later or at its row's end) and ``long_ptr`` [n_long + 1]
+    (long row i owns segments ``long_ptr[i] .. long_ptr[i+1] - 1``, in
+    order). Segments run in row order, a row's in edge order. ``n_rows``
+    and ``n_edges`` are those of the CSR it was built from, which
+    :func:`row_reduce` checks against the CSR it is given.
+    """
+
+    table: torch.Tensor
+    n_seg: int
+    n_long: int
+    n_rows: int
+    n_edges: int
+
+    @property
+    def seg_row(self) -> torch.Tensor:
+        return self.table[: self.n_seg]
+
+    @property
+    def seg_e0(self) -> torch.Tensor:
+        return self.table[self.n_seg : 2 * self.n_seg]
+
+    @property
+    def long_ptr(self) -> torch.Tensor:
+        return self.table[2 * self.n_seg :]
+
+    @property
+    def nbytes(self) -> int:
+        return self.table.numel() * self.table.element_size()
+
+    def to(self, device, non_blocking: bool = False) -> "RowSplit":
+        return dataclasses.replace(self, table=self.table.to(device, non_blocking=non_blocking))
+
+    def pin_memory(self) -> "RowSplit":
+        return dataclasses.replace(self, table=self.table.pin_memory())
+
+
+def row_split(row_ptr, device=None) -> Optional[RowSplit]:
+    """The :class:`RowSplit` of a CSR's ``row_ptr`` (numpy or tensor; a
+    device tensor is copied to the host once), on ``device`` (row_ptr's by
+    default), or None when no row has more than S edges. Build it once with
+    the CSR, never per launch."""
+    if isinstance(row_ptr, torch.Tensor):
+        device = row_ptr.device if device is None else device
+        row_ptr = row_ptr.cpu().numpy()
+    rp = np.asarray(row_ptr, dtype=np.int64)
+    deg = np.diff(rp)
+    long_rows = np.flatnonzero(deg > SEGMENT_EDGES)
+    if len(long_rows) == 0:
+        return None
+    n_segs = -(-deg[long_rows] // SEGMENT_EDGES)
+    long_ptr = np.concatenate([[0], np.cumsum(n_segs)])
+    seg_row = np.repeat(long_rows, n_segs)
+    k = np.arange(long_ptr[-1]) - np.repeat(long_ptr[:-1], n_segs)
+    seg_e0 = rp[seg_row] + k * SEGMENT_EDGES
+    table = np.concatenate([seg_row, seg_e0, long_ptr]).astype(np.int32)
+    return RowSplit(
+        torch.from_numpy(table).to("cpu" if device is None else device),
+        int(long_ptr[-1]), int(len(long_rows)), len(rp) - 1, int(rp[-1]),
+    )
+
+
+def row_reduce_plain(row_ptr, col, val, x, base=None, split=None):
+    """Plain PyTorch version of :func:`row_reduce` (any float ``x``;
+    ``split`` is accepted and ignored)."""
     n_rows = row_ptr.numel() - 1
     out = base
     if out is None:
@@ -43,9 +137,24 @@ def row_reduce_plain(row_ptr, col, val, x, base=None):
     return out.index_add_(0, rows, val.float()[:, None] * x[col.long()].float())
 
 
-def _check(row_ptr, col, val, x, out):
+def _check_split(row_ptr, col, split):
+    """Refuse a table built from another CSR (host integers; no sync)."""
+    if split is not None and (
+        split.n_rows != row_ptr.numel() - 1 or split.n_edges != col.numel()
+    ):
+        raise ValueError(
+            f"row_reduce: the split table is of a CSR of {split.n_rows} rows and "
+            f"{split.n_edges} edges, given {row_ptr.numel() - 1} rows and "
+            f"{col.numel()} edges"
+        )
+
+
+def _check(row_ptr, col, val, x, out, split):
     dev = x.device
-    for name, t in (("row_ptr", row_ptr), ("col", col), ("val", val), ("out", out)):
+    tensors = [("row_ptr", row_ptr), ("col", col), ("val", val), ("out", out)]
+    if split is not None:
+        tensors.append(("split", split.table))
+    for name, t in tensors:
         if t.device != dev:
             raise ValueError(f"row_reduce: {name} is on {t.device}, x on {dev}")
         if not t.is_contiguous():
@@ -58,6 +167,8 @@ def _check(row_ptr, col, val, x, out):
         raise TypeError(f"row_reduce: the CUDA kernel gathers bf16 x, got {x.dtype}")
     if x.dim() != 2 or not x.is_contiguous() or x.shape[1] % 2:
         raise ValueError("row_reduce: x must be contiguous [N, F] with F even")
+    if x.data_ptr() % 4 or out.data_ptr() % 8:
+        raise ValueError("row_reduce: x must be 4-byte and base 8-byte aligned")
     if col.numel() != val.numel():
         raise ValueError("row_reduce: col and val must have one entry per edge")
     if out.dim() != 2 or out.shape[1] != x.shape[1] or out.shape[0] < row_ptr.numel() - 1:
@@ -67,32 +178,41 @@ def _check(row_ptr, col, val, x, out):
         )
 
 
-def row_reduce(row_ptr, col, val, x, base=None):
+def row_reduce(row_ptr, col, val, x, base=None, split=None):
     """``out[r] = base[r] + sum_{e in row r} val[e] * x[col[e]]`` over a
     row-sorted CSR (``row_ptr`` [n_rows + 1], ``col`` and ``val`` [E]).
 
     With ``base`` ([>= n_rows, F] f32) the sum is added onto it in place and
     ``base`` is returned; without, a new [n_rows, F] f32 tensor is. Every
     ``col`` is a row of ``x`` (``ResidualCSR.from_coo`` builds it so; the
-    kernel does not check).
+    kernel does not check). ``split`` is the CSR's :class:`RowSplit` from
+    :func:`row_split` (None when no row is longer than S); a table whose
+    row or edge count differs from this CSR's is refused.
 
     On CPU tensors this runs :func:`row_reduce_plain`; on CUDA tensors it
     launches the kernel (building it on first use) or raises.
     """
+    _check_split(row_ptr, col, split)
     if x.device.type == "cpu":
         return row_reduce_plain(row_ptr, col, val, x, base)
     if x.device.type != "cuda":
         raise ValueError(f"row_reduce: no kernel for device {x.device}")
-    n_rows = row_ptr.numel() - 1
-    out = base
-    if out is None:
-        out = torch.zeros(n_rows, x.shape[1], dtype=torch.float32, device=x.device)
-    _check(row_ptr, col, val, x, out)
+    n_rows, f = row_ptr.numel() - 1, x.shape[1]
+    has_base = base is not None
+    out = base if has_base else torch.empty(n_rows, f, dtype=torch.float32, device=x.device)
+    _check(row_ptr, col, val, x, out, split)
+    if split is None:
+        table, partial, n_seg, n_long = None, None, 0, 0
+    else:
+        table, n_seg, n_long = split.table, split.n_seg, split.n_long
+        partial = torch.empty(n_seg, f, dtype=torch.float32, device=x.device)
     lib = _build.load()
     with torch.cuda.device(x.device):
         err = lib.textgcn_row_reduce(
             row_ptr.data_ptr(), col.data_ptr(), val.data_ptr(), x.data_ptr(),
-            out.data_ptr(), n_rows, x.shape[1],
+            out.data_ptr(), None if table is None else table.data_ptr(),
+            None if partial is None else partial.data_ptr(), n_rows, f,
+            int(has_base), n_seg, n_long,
             torch.cuda.current_stream().cuda_stream,
         )
     row_reduce.launches += 1

@@ -7,7 +7,8 @@ added onto the chunk's row range of a resident f32 accumulator in place.
 
 Chunk layout: a row-sorted CSR over one contiguous row range,
 :class:`SortedChunk` ``(row_ptr [rows+1] int32, col [E_c] int32, val [E_c]
-f32, r0)``; row ``i`` of the chunk is output row ``r0 + i``. The JAX
+f32, r0, split)``; row ``i`` of the chunk is output row ``r0 + i``, and
+``split`` is K2's table of the chunk's rows longer than S (or None). The JAX
 package's chunk is one ``OneHotPlan`` superchunk (``k``-edge grid steps,
 ``w``-row windows, phantom slots, a window base): a TPU layout for the
 one-hot matmul reduce, which the port does not carry (K2 sums a CSR row
@@ -42,12 +43,12 @@ from __future__ import annotations
 import dataclasses
 import os
 from functools import partial
-from typing import Callable, Iterable, Tuple
+from typing import Callable, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
 
-from textgcn_tpu_torch.ops.row_reduce import row_reduce
+from textgcn_tpu_torch.ops.row_reduce import RowSplit, row_reduce, row_split
 
 # Edges per chunk cut from a real graph: one chunk of the lattice at the
 # baseline scale config (32 x 32 cells of 800 edges; 6.6 MB as a CSR).
@@ -56,12 +57,16 @@ CHUNK_EDGES = 819_200
 
 @dataclasses.dataclass(frozen=True)
 class SortedChunk:
-    """Edges of output rows ``[r0, r0 + rows)`` as a row-sorted CSR."""
+    """Edges of output rows ``[r0, r0 + rows)`` as a row-sorted CSR, with
+    the segments of its rows longer than K2's S (``split``: None when it has
+    none, and for the lattice's generated chunks, whose rows hold ~50 edges
+    and which K2 walks one warp per row)."""
 
     row_ptr: torch.Tensor  # [rows + 1] int32, local: row_ptr[0] == 0
     col: torch.Tensor  # [E_c] int32, rows of x
     val: torch.Tensor  # [E_c] f32
     r0: int
+    split: Optional[RowSplit] = None
 
     @property
     def rows(self) -> int:
@@ -77,17 +82,20 @@ class SortedChunk:
 
     @property
     def nbytes(self) -> int:
-        return sum(t.numel() * t.element_size() for t in (self.row_ptr, self.col, self.val))
+        split = 0 if self.split is None else self.split.nbytes
+        return split + sum(t.numel() * t.element_size() for t in (self.row_ptr, self.col, self.val))
 
     def to(self, device, non_blocking: bool = False) -> "SortedChunk":
         return SortedChunk(
             *(t.to(device, non_blocking=non_blocking) for t in (self.row_ptr, self.col, self.val)),
             self.r0,
+            None if self.split is None else self.split.to(device, non_blocking),
         )
 
     def pin_memory(self) -> "SortedChunk":
         return SortedChunk(
-            *(t.pin_memory() for t in (self.row_ptr, self.col, self.val)), self.r0
+            *(t.pin_memory() for t in (self.row_ptr, self.col, self.val)), self.r0,
+            None if self.split is None else self.split.pin_memory(),
         )
 
 
@@ -106,7 +114,7 @@ def sorted_chunk_add(acc, chunk: SortedChunk, x, reduce=row_reduce):
             f"sorted_chunk_add: rows [{r0}, {r0 + rows}) outside the accumulator's "
             f"{acc.shape[0]} rows"
         )
-    reduce(chunk.row_ptr, chunk.col, chunk.val, x, base=acc[r0 : r0 + rows])
+    reduce(chunk.row_ptr, chunk.col, chunk.val, x, base=acc[r0 : r0 + rows], split=chunk.split)
     return acc
 
 
@@ -209,6 +217,8 @@ def _lookahead(chunks: Iterable[SortedChunk], dev):
             compute.wait_event(done)
             for t in (cur.row_ptr, cur.col, cur.val):
                 t.record_stream(compute)
+            if cur.split is not None:
+                cur.split.table.record_stream(compute)
         yield cur
 
 
@@ -398,7 +408,10 @@ def csr_stream(row_ptr, col, val, max_chunk_edges: int = CHUNK_EDGES):
         r1 = int(np.searchsorted(rp_np, e0 + max_chunk_edges, side="right")) - 1
         r1 = min(n, max(r1, r0 + 1))
         e1 = int(rp_np[r1])
-        out.append(SortedChunk((rp[r0 : r1 + 1] - e0).to(torch.int32), col[e0:e1], val[e0:e1], r0))
+        out.append(SortedChunk(
+            (rp[r0 : r1 + 1] - e0).to(torch.int32), col[e0:e1], val[e0:e1], r0,
+            row_split(rp_np[r0 : r1 + 1] - e0, device=row_ptr.device),
+        ))
         r0 = r1
     return out
 
@@ -516,7 +529,7 @@ def chunk_loader_from_dir(path: str) -> Callable[[int], SortedChunk]:
         with np.load(os.path.join(path, f"chunk_{i:06d}.npz")) as z:
             return SortedChunk(
                 torch.from_numpy(z["row_ptr"]), torch.from_numpy(z["col"]),
-                torch.from_numpy(z["val"]), int(z["r0"]),
+                torch.from_numpy(z["val"]), int(z["r0"]), row_split(z["row_ptr"]),
             )
 
     return load
