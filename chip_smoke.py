@@ -7,14 +7,16 @@ Run from the root of a checkout on a machine with one NVIDIA Hopper GPU and
 ``nvcc``. It builds the CUDA kernels from ``textgcn_tpu_torch/csrc`` and
 drives the port's two main paths on R8 doc-word:
 
-- GCN: holds K1 and K2 against their plain PyTorch versions at the hybrid
-  path's shapes, the whole hybrid pass (and its backward) against the
+- GCN: holds K1 (through the tile stack's split table; two launches must
+  give the same bits) and K2 against their plain PyTorch versions at the
+  hybrid path's shapes, the whole hybrid pass (and its backward) against the
   segment-sum oracle, then trains ``train --dataset R8 --graph docword
   --spmm hybrid`` once through the CLI; both kernels must run there and test
   accuracy must reach 0.95.
 - GAT: holds the four attention kernels and K2 as dx against their plain
-  versions on the degree-sorted attention graph (two launches of K2 as dx
-  and of ``sddmm`` must give the same bits), one GAT layer forward and
+  versions on the degree-sorted attention graph (``attn_agg`` through the
+  forward CSR's split table, K2 through the transpose CSR's; two launches
+  of ``attn_agg``, K2 as dx and ``sddmm`` must give the same bits), one GAT layer forward and
   backward on the kernels against the plain segment layer under autograd,
   then trains
   ``train --model gat --spmm hybrid`` once through the CLI; the attention
@@ -29,9 +31,11 @@ drives the port's two main paths on R8 doc-word:
   rest stream in from pinned host memory on every pass), and streams the
   R8 doc-word graph from pinned host chunks.
 - Sharded GCN (B10): at 4 shards of R8 doc-word, in this process, holds each
-  rank's tile leg (K1 on its rectangular block, as ``bsr_leg``) and its
+  rank's tile leg (K1 on its rectangular block with the block's split
+  table, as ``bsr_leg``; two launches must give the same bits) and its
   whole pass (K1, then K2 in place) against the plain versions, and the
-  four shards put together against the single-device hybrid pass; trains
+  four shards put together must give the single-device hybrid pass's bits;
+  trains
   ``train --spmm hybrid --shards 1 --partition allgather`` once through the
   CLI (an NCCL group of one), and 4 ranks on this one card through the
   library (gloo, which carries CUDA tensors; NCCL refuses two ranks on one
@@ -522,8 +526,11 @@ def shard_phase(dev, gen, records, yard, h, row, col, val):
         for m in shards:
             b = m.bsr
             args = (b.blocks, b.tile_ptr, b.block_cols, xp)
-            err, _ = compare(bsr_leg(*args), bsr_spmm_plain(*args), K1_TOL)
-            ms, dev_ms = both_ms(lambda: bsr_leg(*args))
+            leg = bsr_leg(*args, split=b.split)
+            if not torch.equal(leg, bsr_leg(*args, split=b.split)):
+                raise AssertionError(f"two bsr_leg launches differ on rank {m.shard} at F={f}")
+            err, _ = compare(leg, bsr_spmm_plain(*args), K1_TOL)
+            ms, dev_ms = both_ms(lambda: bsr_leg(*args, split=b.split))
             plain_ms = cuda_ms(lambda: bsr_spmm_plain(*args))
             yard_m = k1_yardsticks(b, xp, m0.n_pad)
             bound_ms, bound_by, lib_ms = yard_m[:3]
@@ -533,21 +540,24 @@ def shard_phase(dev, gen, records, yard, h, row, col, val):
             outs.append(out)
             records.setdefault("bsr_leg", []).append((max(err, perr), ms, dev_ms, plain_ms))
             yard.setdefault("bsr_leg", yard_m)
-            cells.append(f"rank {m.shard}: {b.nnzb} tiles, K1 {ms:.4f} ms a call "
+            cells.append(f"rank {m.shard}: {b.nnzb} tiles ("
+                         f"{0 if b.split is None else b.split.n_seg} segments), two "
+                         f"launches bit-equal, K1 {ms:.4f} ms a call "
                          f"({dev_ms:.4f} device; plain "
                          f"{plain_ms:.4f}, bound {bound_ms:.4f} by {bound_by}, "
                          f"torch.sparse.mm {lib_ms:.4f}), pass {pass_ms:.4f} ms, "
                          f"err K1 {err:.3e} pass {perr:.3e}")
         whole = torch.cat(outs)
         want = hybrid_pass(h, x[:n])
-        same = torch.equal(whole[:n], want)
-        err, _ = compare(whole[:n], want, K1_TOL)
+        if not torch.equal(whole[:n], want):
+            err, _ = compare(whole[:n], want, K1_TOL)
+            raise AssertionError(f"the {SHARDS} shards put together differ from the "
+                                 f"single-device hybrid pass at F={f} (max abs err {err:.3e})")
         if whole[n:].any():
             raise AssertionError("shard rows past the last node are not zero")
         log("B10 shard legs", f"F={f}: {'; '.join(cells)}; tol {K1_TOL}*(1+|ref|) "
             f"(same bf16 products, f32 sums in another order); the {SHARDS} shards "
-            f"put together vs the single-device hybrid pass: "
-            f"{'bit-equal' if same else f'max abs err {err:.3e}'}")
+            f"put together vs the single-device hybrid pass: bit-equal")
     del shards, outs, whole, want, x, xp
     log("B10 shard legs", f"phase {time.perf_counter() - t_phase:.1f} s")
 
@@ -651,7 +661,7 @@ def main() -> int:
     from textgcn_tpu_torch.ops import _build
     from textgcn_tpu_torch.ops import attention as att
     from textgcn_tpu_torch.ops.bsr_spmm import (
-        F_ALIGN, bsr_leg, bsr_spmm, bsr_spmm_plain,
+        F_ALIGN, SEGMENT_TILES, bsr_leg, bsr_spmm, bsr_spmm_plain,
     )
     from textgcn_tpu_torch.ops.row_reduce import (
         SEGMENT_EDGES, row_reduce, row_reduce_plain,
@@ -685,8 +695,12 @@ def main() -> int:
     seg_edges = lib.textgcn_row_reduce_segment_edges()
     if seg_edges != SEGMENT_EDGES:
         raise AssertionError(f"K2 built for S = {seg_edges}, its tables for {SEGMENT_EDGES}")
+    seg_tiles = lib.textgcn_bsr_spmm_segment_tiles()
+    if seg_tiles != SEGMENT_TILES:
+        raise AssertionError(f"K1 built for T = {seg_tiles}, its tables for {SEGMENT_TILES}")
     log("build", f"nvcc built {_build.library_path().name} in "
-        f"{time.perf_counter() - t0:.1f} s; K2's S = {seg_edges} edges a warp; "
+        f"{time.perf_counter() - t0:.1f} s; K2's and attn_agg's S = {seg_edges} "
+        f"edges a warp, K1's T = {seg_tiles} tiles a block; "
         f"ptxas: {' | '.join(regs)}")
 
     # the real R8 doc-word hybrid layout
@@ -695,10 +709,13 @@ def main() -> int:
     h, perm = convert_graph(pre.graph, "hybrid")
     bsr, rest = h.bsr, h.rest
     per_row = torch.diff(bsr.tile_ptr.long())
+    ksp = bsr.split
     log("data", f"R8 doc-word: {h.n_nodes} nodes, {h.n_edges} edges; tiles "
         f"{bsr.nnzb} ({bsr.n_edges} edges, {h.dense_fraction:.4f}), "
         f"{bsr.n_block_rows} block-rows, max {int(per_row.max())} tiles in a "
-        f"block-row; residual {rest.n_edges} edges, longest row "
+        f"block-row, K1 T = {SEGMENT_TILES}: "
+        f"{0 if ksp is None else ksp.n_long} block-rows longer than T cut into "
+        f"{0 if ksp is None else ksp.n_seg} segments; residual {rest.n_edges} edges, longest row "
         f"{int(torch.diff(rest.row_ptr).max())}, K2 S = {SEGMENT_EDGES} "
         f"({'no' if rest.split is None else rest.split.n_long} rows split); "
         f"{time.perf_counter() - t0:.1f} s on the host")
@@ -717,17 +734,24 @@ def main() -> int:
         xp = torch.zeros((n_pad, fp), dtype=torch.bfloat16, device=dev)
         xp[: h.n_nodes, :f] = torch.randn((h.n_nodes, f), generator=gen, device=dev)
         args = (bsr.blocks, bsr.tile_ptr, bsr.block_cols, xp)
-        got, want = bsr_spmm(*args), bsr_spmm_plain(*args)
+        got, want = bsr_spmm(*args, split=ksp), bsr_spmm_plain(*args)
+        if not torch.equal(got, bsr_spmm(*args, split=ksp)):
+            raise AssertionError(f"two K1 launches differ at F={f}")
         err, rel = compare(got, want, K1_TOL)
-        ms, dev_ms = both_ms(lambda: bsr_spmm(*args))
+        ms, dev_ms = both_ms(lambda: bsr_spmm(*args, split=ksp))
         plain_ms = cuda_ms(lambda: bsr_spmm_plain(*args))
-        log("K1 bsr_spmm", f"F={f} (F'={fp}): max abs err {err:.3e}, rel "
-            f"{rel:.3e}, tol {K1_TOL}*(1+|ref|) (same bf16 products, f32 sums "
-            f"in another order); kernel {ms:.4f} ms a call ({dev_ms:.4f} "
-            f"device), plain {plain_ms:.4f} ms")
-        records.setdefault("bsr_spmm", []).append((err, ms, dev_ms, plain_ms))
+        lib_k1 = ""
         if f == 200:
             yard["bsr_spmm"] = k1_yardsticks(bsr, xp, n_pad)
+            lib_k1 = (f", bound {yard['bsr_spmm'][0]:.4f} ms by {yard['bsr_spmm'][1]}, "
+                      f"torch.sparse.mm {yard['bsr_spmm'][2]:.4f} ms a call "
+                      f"({yard['bsr_spmm'][3]:.4f} device)")
+        log("K1 bsr_spmm", f"F={f} (F'={fp}), split at T = {SEGMENT_TILES}: max abs "
+            f"err {err:.3e}, rel {rel:.3e}, tol {K1_TOL}*(1+|ref|) (same bf16 "
+            f"products, f32 sums in another order); two launches bit-equal; "
+            f"kernel {ms:.4f} ms a call ({dev_ms:.4f} device), plain "
+            f"{plain_ms:.4f} ms{lib_k1}")
+        records.setdefault("bsr_spmm", []).append((err, ms, dev_ms, plain_ms))
 
         # 4. K2 vs plain on the real residual leg, onto K1's output and from 0
         rargs = (rest.row_ptr, rest.col, rest.val, xp)
@@ -808,13 +832,15 @@ def main() -> int:
     pre_att = apply_attention_format(pre, degree_sort=True)
     ag = pre_att.graph
     deg = torch.diff(ag.row_ptr)
-    sp_t = ag.split_t
+    sp, sp_t = ag.split, ag.split_t
     log("gat data", f"R8 doc-word attention graph (degree-sorted): "
         f"{ag.n_nodes} rows, {ag.n_edges} edges; hub row {ag.max_degree} "
         f"edges, median row {int(deg.median())}, {int((deg >= 1024).sum())} "
-        f"rows >= 1024 edges; K2 S = {SEGMENT_EDGES}: the transpose CSR's "
-        f"{0 if sp_t is None else sp_t.n_long} rows longer than S cut into "
-        f"{0 if sp_t is None else sp_t.n_seg} segments; "
+        f"rows >= 1024 edges; S = {SEGMENT_EDGES}: the forward CSR's "
+        f"{0 if sp is None else sp.n_long} rows longer than S cut into "
+        f"{0 if sp is None else sp.n_seg} segments (attn_agg), the transpose CSR's "
+        f"{0 if sp_t is None else sp_t.n_long} into "
+        f"{0 if sp_t is None else sp_t.n_seg} (K2 as dx); "
         f"{time.perf_counter() - t0:.1f} s on the host")
     n = ag.n_nodes
     es = torch.randn(n, generator=gen, device=dev)
@@ -853,8 +879,12 @@ def main() -> int:
         x16 = torch.randn((n, f), generator=gen, device=dev).to(torch.bfloat16)
         g16 = torch.randn((n, f), generator=gen, device=dev).to(torch.bfloat16)
         a_args = (ag.row_ptr, ag.col, logits, mx, sm, x16)
-        err, _ = compare(att.attn_agg(*a_args), att.attn_agg_plain(*a_args), ATT_TOL)
-        ms, dev_ms = both_ms(lambda: att.attn_agg(*a_args))
+        agg = att.attn_agg(*a_args, split=sp)
+        if not torch.equal(agg, att.attn_agg(*a_args, split=sp)):
+            raise AssertionError(f"two attn_agg launches differ at F={f}")
+        err, _ = compare(agg, att.attn_agg_plain(*a_args), ATT_TOL)
+        del agg
+        ms, dev_ms = both_ms(lambda: att.attn_agg(*a_args, split=sp))
         plain_ms = cuda_ms(lambda: att.attn_agg_plain(*a_args))
         records.setdefault("attn_agg", []).append((err, ms, dev_ms, plain_ms))
         if f == 200:
@@ -883,8 +913,8 @@ def main() -> int:
                      f"({libs[1]:.4f} device)")
             del pattern, gf, xt
         log("B7/B8 attn_agg, sddmm", f"F={f}: attn_agg max abs err {err:.3e}, "
-            f"kernel {ms:.4f} ms a call ({dev_ms:.4f} device), plain {plain_ms:.4f} "
-            f"ms; sddmm max abs err {err_d:.3e}, two launches bit-equal, kernel "
+            f"two launches bit-equal, kernel {ms:.4f} ms a call ({dev_ms:.4f} device), "
+            f"plain {plain_ms:.4f} ms; sddmm max abs err {err_d:.3e}, two launches bit-equal, kernel "
             f"{ms_d:.4f} ms a call ({dev_d:.4f} device), plain {plain_d:.4f} ms"
             f"{lib_d}; tol {ATT_TOL}*(1+|ref|) (f32 weights, exact bf16 "
             f"products, f32 sums in another order)")

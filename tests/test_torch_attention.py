@@ -211,6 +211,68 @@ def test_attn_agg_matches_jax(f):
     assert np.all(got[np.diff(tg.row_ptr.numpy()) == 0].numpy() == 0)
 
 
+def _hub_graph(n=1300, seed=0):
+    """Coalesced COO with two hub rows longer than K2's S (row 0: 1,200
+    edges, row 7: 600) among power-law rows, and val in [0.1, 1)."""
+    row, col, _, _ = _graph(n=n, e=4000, seed=seed)
+    rng = np.random.RandomState(seed + 100)
+    row = np.r_[row, np.zeros(1200, np.int64), np.full(600, 7)]
+    col = np.r_[col, rng.permutation(n)[:1200], rng.permutation(n)[:600]]
+    key = np.unique(row * n + col)
+    row, col = key // n, key % n
+    return row, col, rng.rand(len(row)) * 0.9 + 0.1, n
+
+
+def _split_attn_sum(tg, logits, mx, sm, x):
+    """The split kernel's order of sums, emulated in f32: a row of at most
+    S edges sums its weighted features; a longer row adds its segments'
+    partial sums in segment order (pass 2, from zero)."""
+    rp, col = tg.row_ptr.numpy(), tg.col.numpy()
+    rows = np.repeat(np.arange(len(rp) - 1), np.diff(rp))
+    shift = np.where(mx > -0.5e30, mx, 0.0)[rows]
+    w = (np.exp(logits - shift) / np.maximum(sm, 1e-30)[rows]).astype(np.float32)
+    prod = w[:, None] * x[col]
+    out = np.zeros((len(rp) - 1, x.shape[1]), np.float32)
+    s = tatt.SEGMENT_EDGES
+    for r in np.flatnonzero(np.diff(rp) <= s):
+        out[r] = prod[rp[r] : rp[r + 1]].sum(0)
+    sp = tg.split
+    seg_row, seg_e0, long_ptr = (t.numpy() for t in (sp.seg_row, sp.seg_e0, sp.long_ptr))
+    for i in range(sp.n_long):
+        r = seg_row[long_ptr[i]]
+        acc = np.zeros(x.shape[1], np.float32)
+        for k in range(long_ptr[i], long_ptr[i + 1]):
+            acc = acc + prod[seg_e0[k] : min(seg_e0[k] + s, rp[r + 1])].sum(0)
+        out[r] = acc
+    return out
+
+
+@pytest.mark.parametrize("f", [8, 24])
+def test_split_attn_agg_matches_plain_and_jax(f):
+    """The forward split table (``AttentionGraph.split``) on hub rows of
+    1,200 and 600 edges: a numpy emulation of the split sum against
+    ``attn_agg_plain`` (f32 sums in another order, 1e-5 relative to the
+    largest output) and against JAX ``_attn_agg`` in interpret mode (which
+    rounds the weights to bf16: 2e-2)."""
+    row, col, val, n = _hub_graph(seed=f)
+    tg, jg = _both(row, col, val, n)
+    sp = tg.split
+    assert (sp.n_long, sp.n_seg) == (2, 5) and sp.n_rows == n and sp.n_edges == len(row)
+    rng = np.random.RandomState(f)
+    es, ed = rng.randn(n).astype(np.float32), rng.randn(n).astype(np.float32)
+    x = torch.from_numpy(rng.randn(n, f).astype(np.float32)).bfloat16().float()
+    lg, mx, sm = tatt.stats_logits(
+        tg.row_ptr, tg.col, tg.logval, torch.from_numpy(es), torch.from_numpy(ed), SLOPE
+    )
+    want = _split_attn_sum(tg, lg.numpy(), mx.numpy(), sm.numpy(), x.numpy())
+    scale = np.abs(want).max()
+    # on the CPU the wrapper checks the table and runs attn_agg_plain
+    got = tatt.attn_agg(tg.row_ptr, tg.col, lg, mx, sm, tatt.features_bf16(x), split=sp)
+    np.testing.assert_allclose(got[:, :f].numpy(), want, rtol=0, atol=1e-5 * scale)
+    jax_out = jatt._attn_agg(jg.fwd, *_jax_stats_logits(jg, es, ed), jnp.asarray(x.numpy()), True)
+    np.testing.assert_allclose(np.asarray(jax_out), want, rtol=2e-2, atol=2e-2)
+
+
 def test_gat_attention_forward_and_grads_match_jax_vjp():
     row, col, val, n = _graph(seed=12, symmetric=True)
     tg, jg = _both(row, col, val, n)

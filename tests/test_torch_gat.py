@@ -294,8 +294,8 @@ def test_model_and_format_checks(tmp_path, monkeypatch):
         trun.apply_gat_format(pt, "auto")
     cfg = ttrainer.TrainConfig(n_hidden=8, max_epoch=2, model="gat", spmm="onehot")
     summary = trun.run_experiment(
-        "toy", output_dir=str(tmp_path), config=cfg, pre_data=pt, verbose=False,
-        device="cpu",
+        "toy", graph_family="docword", output_dir=str(tmp_path), config=cfg,
+        pre_data=pt, verbose=False, device="cpu",
     )
     assert summary["hyperparameters"] == dataclasses.asdict(cfg)
     assert (tmp_path / "toy_docword_training_results.txt").read_text().startswith(
@@ -313,4 +313,4 @@ def test_cli_model_and_onehot():
         cli.build_parser().parse_args(["train", "--dataset", "R8", "--model", "sage"])
     # GCN through --spmm onehot is not ported: it raises before any GPU check
     with pytest.raises(NotImplementedError, match="A.4"):
-        cli.main(["train", "--dataset", "R8", "--spmm", "onehot"])
+        cli.main(["train", "--dataset", "R8", "--graph", "docword", "--spmm", "onehot"])

@@ -74,4 +74,4 @@ def test_cli_train_refuses_to_run_without_a_gpu(monkeypatch):
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
-        cli.main(["train", "--dataset", "R8", "--spmm", "hybrid"])
+        cli.main(["train", "--dataset", "R8", "--graph", "docword", "--spmm", "hybrid"])

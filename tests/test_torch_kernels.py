@@ -17,7 +17,9 @@ from textgcn_tpu_torch.graph import reorder
 from textgcn_tpu_torch.graph.normalize import max_symmetrize_coo, sym_normalize_coo
 from textgcn_tpu_torch.ops import attention as att
 from textgcn_tpu_torch.graph.structs import BlockSparseGraph
-from textgcn_tpu_torch.ops.bsr_spmm import bsr_leg, bsr_spmm, bsr_spmm_plain
+from textgcn_tpu_torch.ops.bsr_spmm import (
+    SEGMENT_TILES, bsr_leg, bsr_spmm, bsr_spmm_plain, tile_split,
+)
 from textgcn_tpu_torch.parallel.mesh_kernels import (
     MeshHybridAllGather,
     shard_hybrid_pass,
@@ -160,6 +162,84 @@ def test_bsr_leg_kernel_on_a_rectangular_block_matches_plain(cuda_dev, shard, f)
         bsr_leg(b.blocks, b.tile_ptr, b.block_cols, x[:-8].contiguous())
 
 
+def _long_block_rows(dev, f, n_block_cols=128, seed=0):
+    """A tile stack whose block-rows hold 3, 0, 1, T-1, T, T+1, 2T+3, 120, 0
+    and 7 tiles (block-row 7 is the hub), random block-columns among
+    ``n_block_cols``, tile values uniform in [0, 1) over 128 * sqrt(the
+    block-row's tile count) (the row sums stay O(1), as in a normalized
+    adjacency), and a bf16 feature table [n_block_cols * 128, f]."""
+    t = SEGMENT_TILES
+    counts = [3, 0, 1, t - 1, t, t + 1, 2 * t + 3, 120, 0, 7]
+    rng = np.random.RandomState(seed)
+    tp = np.concatenate([[0], np.cumsum(counts)])
+    scale = np.repeat(1.0 / (128 * np.sqrt(np.maximum(counts, 1))), counts)
+    tiles = rng.rand(tp[-1], 128, 128) * scale[:, None, None]
+    cols = np.concatenate([rng.choice(n_block_cols, k, replace=False) for k in counts])
+
+    def d(a, dtype):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dtype).to(dev)
+
+    x = d(rng.randn(n_block_cols * 128, f), torch.float32).to(torch.bfloat16)
+    return (d(tiles, torch.float32).to(torch.bfloat16), d(tp, torch.int32),
+            d(cols, torch.int32), x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wrapper", [bsr_spmm, bsr_leg], ids=["bsr_spmm", "bsr_leg"])
+@pytest.mark.parametrize("f", [16, 48, 208, 256])
+def test_bsr_spmm_kernel_splits_long_block_rows(cuda_dev, wrapper, f):
+    """K1 (and as B10's ``bsr_leg``, on a rectangular block: 10 block-rows
+    against 128 block-columns) over block-rows of up to 120 tiles through
+    its split table: against the plain version, two launches bit-equal, the
+    hub block-row bit-equal alone and inside the stack, and without a
+    table."""
+    tiles, tp, cols, x = _long_block_rows(cuda_dev, f)
+    split = tile_split(tp)
+    assert (split.n_long, split.n_seg) == (3, 13)
+    n0 = wrapper.launches
+    got = wrapper(tiles, tp, cols, x, split=split)
+    again = wrapper(tiles, tp, cols, x, split=split)
+    torch.cuda.synchronize()
+    assert wrapper.launches == n0 + 2
+    assert torch.equal(got, again)
+    want = bsr_spmm_plain(tiles, tp, cols, x)
+    # the same bf16 products summed in f32 in another order
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    t0, t1 = int(tp[7]), int(tp[8])
+    one_ptr = torch.tensor([0, t1 - t0], dtype=torch.int32, device=cuda_dev)
+    alone = wrapper(tiles[t0:t1], one_ptr, cols[t0:t1].contiguous(), x,
+                    split=tile_split(one_ptr))
+    assert torch.equal(alone, got[7 * 128 : 8 * 128])
+    # without a table every block-row is walked whole by one block
+    torch.testing.assert_close(wrapper(tiles, tp, cols, x), want, rtol=1e-4, atol=1e-4)
+    assert _build.load().textgcn_bsr_spmm_segment_tiles() == SEGMENT_TILES
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [16, 208])
+def test_shard_legs_with_long_block_rows_equal_the_single_device_pass(cuda_dev, f):
+    """A degree-sorted power-law graph of 4,600 nodes whose hub block-rows
+    hold more than T tiles: each shard's pass (K1 as ``bsr_leg`` with the
+    shard's split table, then K2) at 2 and 3 shards, put together, gives
+    the single-device hybrid pass's bits."""
+    r, c, v, n = _graph(n=4600, e=600_000, seed=7)
+    perm = reorder.degree_sort_permutation(r, c, n)
+    r, c = perm[r], perm[c]
+    h = reorder.HybridGraph.from_coo(r, c, v, n, symmetric=True, device=cuda_dev)
+    assert h.bsr.split is not None
+    gen = torch.Generator(device=cuda_dev).manual_seed(f)
+    x = torch.randn((n, f), generator=gen, device=cuda_dev)
+    want = reorder.hybrid_pass(h, x)
+    for n_shards in (2, 3):
+        outs = []
+        for p in range(n_shards):
+            mh = MeshHybridAllGather.from_coo(r, c, v, n, n_shards, p, device=cuda_dev)
+            x_full = torch.zeros((mh.n_pad, f), device=cuda_dev)
+            x_full[:n] = x
+            outs.append(shard_hybrid_pass(mh, x_full))
+        assert torch.equal(torch.cat(outs)[:n], want)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("with_base", [True, False])
 def test_row_reduce_kernel_matches_plain(cuda_dev, with_base):
@@ -234,6 +314,37 @@ def test_row_reduce_kernel_splits_long_rows(cuda_dev, f, with_base):
     assert torch.equal(alone[0], got[7])
     # without a table every row is walked whole by one warp: right, unbalanced
     torch.testing.assert_close(run(rp, col, val, x, sp=None), want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [8, 200, 264])
+def test_attn_agg_kernel_splits_long_rows(cuda_dev, f):
+    """``attn_agg`` over rows up to 10,000 edges through the forward CSR's
+    split table, with some logits -inf: against the plain version, two
+    launches bit-equal, the hub row bit-equal alone and inside the CSR,
+    and without a table."""
+    rp, col, _, x, rng = _long_rows(cuda_dev, f, seed=2)
+    lg = torch.from_numpy(rng.randn(col.numel()).astype(np.float32)).to(cuda_dev)
+    lg[::41] = -float("inf")
+    mx, sm = att.softmax_stats_plain(rp, lg)
+    split = row_split(rp)
+    assert split.n_long == 3
+    n0 = att.attn_agg.launches
+    got = att.attn_agg(rp, col, lg, mx, sm, x, split=split)
+    again = att.attn_agg(rp, col, lg, mx, sm, x, split=split)
+    torch.cuda.synchronize()
+    assert att.attn_agg.launches == n0 + 2
+    assert torch.equal(got, again)
+    want = att.attn_agg_plain(rp, col, lg, mx, sm, x)
+    # f32 weights times bf16 features summed in f32 in another order, over
+    # up to 10,000 edges whose weights sum to 1
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    e0, e1 = int(rp[7]), int(rp[8])
+    one_ptr = torch.tensor([0, e1 - e0], dtype=torch.int32, device=cuda_dev)
+    alone = att.attn_agg(one_ptr, col[e0:e1].contiguous(), lg[e0:e1].contiguous(),
+                         mx[7:8], sm[7:8], x, split=row_split(one_ptr))
+    assert torch.equal(alone[0], got[7])
+    torch.testing.assert_close(att.attn_agg(rp, col, lg, mx, sm, x), want, rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.cuda

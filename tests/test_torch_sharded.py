@@ -300,8 +300,8 @@ def test_sharded_trainer_matches_the_single_device_trainer(tmp_path):
     pt, _ = _prepared()
     cfg = ttrainer.TrainConfig(n_hidden=16, max_epoch=10, early_stopping=100, spmm="hybrid")
     summary = run_experiment(
-        "toy", config=cfg, seeds=[7], pre_data=pt, verbose=False, n_shards=4,
-        partition="allgather", output_dir=str(tmp_path), device="cpu",
+        "toy", graph_family="docword", config=cfg, seeds=[7], pre_data=pt, verbose=False,
+        n_shards=4, partition="allgather", output_dir=str(tmp_path), device="cpu",
     )
     assert summary["sharding"] == {"n_shards": 4, "partition": "allgather", "kernel": "hybrid"}
     ph = tprepare.apply_spmm_format(pt, "hybrid")
@@ -388,7 +388,7 @@ def test_distributed_config_from_env():
 
 
 def test_cli_refuses_unported_sharding_and_too_few_gpus(monkeypatch):
-    base = ["train", "--dataset", "R8", "--shards", "4"]
+    base = ["train", "--dataset", "R8", "--graph", "docword", "--shards", "4"]
     for flags in (
         ["--partition", "halo", "--spmm", "hybrid"],
         ["--partition", "allgather", "--spmm", "segment"],

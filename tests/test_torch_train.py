@@ -125,8 +125,8 @@ def test_run_experiment_writes_reports_with_the_jax_schema(tmp_path):
     pt, _ = _prepared(seed=1)
     cfg = ttrainer.TrainConfig(n_hidden=8, max_epoch=4, spmm="hybrid")
     summary = run_experiment(
-        "toy", times=2, output_dir=str(tmp_path), config=cfg, pre_data=pt,
-        verbose=False, device="cpu",
+        "toy", times=2, graph_family="docword", output_dir=str(tmp_path), config=cfg,
+        pre_data=pt, verbose=False, device="cpu",
     )
     with open("results/R8_docword_training_results.json", encoding="utf-8") as f:
         ref = json.load(f)  # written by the JAX package

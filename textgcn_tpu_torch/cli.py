@@ -1,7 +1,9 @@
 """Command-line entry point: ``python -m textgcn_tpu_torch.cli train ...``.
 
 Port of the ``train`` subcommand of ``textgcn_tpu/cli.py`` (GCN and GAT on
-the doc-word graph; the GCN also sharded over ``--shards N`` GPUs). It trains
+the doc-word graph, ``--graph docword``; the GCN also sharded over
+``--shards N`` GPUs). ``--graph`` defaults to ``topic`` as in the JAX
+package, and that graph is not ported yet: it raises. It trains
 on CUDA devices and raises when there are too few: the port never falls
 back to the CPU.
 """
@@ -15,7 +17,9 @@ import torch
 from textgcn_tpu_torch.graph.format import DENSE_MAX_NODES, SPMM_FORMATS
 from textgcn_tpu_torch.models import MODELS
 from textgcn_tpu_torch.parallel.trainer import check_sharded
-from textgcn_tpu_torch.train.run import check_model_format, generate_seeds, run_experiment
+from textgcn_tpu_torch.train.run import (
+    check_graph_family, check_model_format, generate_seeds, run_experiment,
+)
 from textgcn_tpu_torch.train.trainer import TrainConfig
 
 
@@ -29,6 +33,7 @@ def cmd_train(args) -> int:
                 "ROADMAP A.11 has the one-hot mesh kernel)"
             )
     check_model_format(args.model, args.spmm)
+    check_graph_family(args.graph)
     if not torch.cuda.is_available():
         raise RuntimeError(
             "textgcn_tpu_torch trains on a CUDA device and none is available"
@@ -76,8 +81,10 @@ def build_parser() -> argparse.ArgumentParser:
     p = sub.add_parser("train", help="train a GCN or GAT on a built graph (CUDA)")
     p.add_argument("--dataset", required=True)
     p.add_argument(
-        "--graph", default="docword", choices=["docword"],
-        help="graph family: docword (classic TextGCN doc-word graph)",
+        "--graph", default="topic", choices=["topic", "docword"],
+        help="graph family: topic (TopicGCN; the JAX package's default, not "
+        "ported yet: raises, ROADMAP A.1) or docword (classic TextGCN "
+        "doc-word graph)",
     )
     p.add_argument("--times", type=int, default=1)
     p.add_argument("--data_root", default="data")

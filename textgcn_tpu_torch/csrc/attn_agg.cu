@@ -16,25 +16,42 @@
 // features are summed in f32), so it is at least as exact.
 //
 // Bound on the card: the random reads of feature rows, 2*f bytes per edge
-// (x itself, ~6 MB at R8 doc-word width, stays in L2); on a degree-sorted
-// graph also the serial walk of the hub rows, one warp each.
-// Design: one warp per row, the softmax weight formed in registers from the
-// row's (mx, sm) and the edge's logit (nothing per edge is written back, as
-// with K2 `row_reduce.cu`). Each lane loads 8 bf16 columns as one 16-byte
-// vector; `lanes` lanes (a power of two, enough to cover f/8 vectors, at
-// most 32) share an edge, so a warp works on 32/lanes edges at once and
-// narrow rows (the 8-class layer) keep every lane busy. The lanes stage the
-// column and weight of 32 edges with one coalesced load each and hand them
-// round with shuffles. The edge groups' partial rows are summed with
-// shuffles at the end and written once. No atomics: deterministic.
+// (x itself, ~6 MB at R8 doc-word width, stays in L2), as for K2 as dx over
+// the transpose CSR. A degree-sorted graph has hub rows of thousands of
+// edges (R8's: 9,589), which one warp would walk alone while the rest of the
+// card idles.
+//
+// Design: the hub rows are split as K2 splits them (`row_reduce.cu`, with
+// the same S = kSegEdges and the same kind of table: the forward CSR's
+// `RowSplit`, `AttentionGraph.split`). Pass 1 gives one warp each segment of
+// at most S edges of a long row and each row of at most S edges; the warp
+// forms the softmax weights in registers from the row's (mx, sm) and each
+// edge's logit (nothing per edge is written back). A short row's warp writes
+// its output row once; a segment's warp writes an f32 partial row. Pass 2
+// (`row_split.cuh`, K2's code) writes each long row as the sum of its
+// partials in segment order. No atomics: two launches give the same bits,
+// and a row the same bits in any CSR that holds it.
+//
+// Inside a warp: each lane loads 8 bf16 columns as one 16-byte vector;
+// `lanes` lanes (a power of two, enough to cover f/8 vectors, at most 32)
+// share an edge, so a warp works on 32/lanes edges at once and narrow rows
+// (the 8-class layer) keep every lane busy. The lanes stage the column and
+// weight of 32 edges with one coalesced load each and hand them round with
+// shuffles; each lane keeps kUnroll gathers in flight. The edge groups'
+// partial rows are summed with shuffles at the end in a fixed order.
 #include <cuda_runtime.h>
+
+#include <climits>
+
+#include "row_split.cuh"  // S (TEXTGCN_K2_S) and pass 2
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kRowsPerBlock = kThreads / 32;
+constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr float kNeg = -1e30f;
+constexpr int kUnroll = 4;  // gathers a lane keeps in flight
 
 // acc[0..7] += w * (the 8 bf16 values of q); bf16 -> f32 is a 16-bit shift.
 __device__ __forceinline__ void fma8(float (&acc)[8], float w, uint4 q) {
@@ -46,6 +63,9 @@ __device__ __forceinline__ void fma8(float (&acc)[8], float w, uint4 q) {
   }
 }
 
+// Pass 1. Warps [0, n_seg) take the split table's segments and write their
+// partial rows; warps [n_seg, n_seg + n_rows) take the rows, and with a
+// table a row of more than S edges is left to its segments.
 __global__ void __launch_bounds__(kThreads)
 attn_agg_kernel(const int* __restrict__ row_ptr,
                 const int* __restrict__ col,
@@ -54,38 +74,62 @@ attn_agg_kernel(const int* __restrict__ row_ptr,
                 const float* __restrict__ sm,
                 const uint4* __restrict__ x,
                 float* __restrict__ out,
-                int n_rows, int nv, int lanes) {
-  const int row = blockIdx.x * kRowsPerBlock + threadIdx.x / 32;
-  if (row >= n_rows) return;
+                const int* __restrict__ seg_row,
+                const int* __restrict__ seg_e0,
+                float* __restrict__ partial,
+                int n_rows, int n_seg, int nv, int lanes) {
+  const int w = blockIdx.x * kWarps + threadIdx.x / 32;
+  if (w >= n_seg + n_rows) return;
   const int lane = threadIdx.x % 32;
   const int sub = lane % lanes;   // which vector of the column tile
   const int grp = lane / lanes;   // which edge of each group of 32/lanes
   const int n_grp = 32 / lanes;
-  const int e0 = row_ptr[row], e1 = row_ptr[row + 1];
+  int row, e0, e1;
+  float* dst;
+  if (w < n_seg) {
+    row = seg_row[w];
+    e0 = seg_e0[w];
+    e1 = min(e0 + kSegEdges, row_ptr[row + 1]);
+    dst = partial + (size_t)w * nv * 8;
+  } else {
+    row = w - n_seg;
+    e0 = row_ptr[row];
+    e1 = row_ptr[row + 1];
+    if (e1 - e0 > (n_seg ? kSegEdges : INT_MAX)) return;  // a long row: pass 2
+    dst = out + (size_t)row * nv * 8;
+  }
   const float m = mx[row];
   const float shift = m > 0.5f * kNeg ? m : 0.f;
   const float inv = 1.f / fmaxf(sm[row], 1e-30f);
-  float4* o = reinterpret_cast<float4*>(out + (size_t)row * nv * 8);
+  float4* o = reinterpret_cast<float4*>(dst);
   for (int v0 = 0; v0 < nv; v0 += lanes) {
     const int v = v0 + sub;
     const bool active = v < nv;
     float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
     for (int base = e0; base < e1; base += 32) {
-      const int e = base + lane;
+      const int n_in = min(32, e1 - base);
       int c_l = 0;
       float w_l = 0.f;
-      if (e < e1) {
-        c_l = col[e];
-        w_l = expf(logits[e] - shift) * inv;
+      if (lane < n_in) {
+        c_l = col[base + lane];
+        w_l = expf(logits[base + lane] - shift) * inv;
       }
-      const int n_in = min(32, e1 - base);
-      // every lane runs the same `lanes` iterations, so the shuffles are
-      // convergent
-#pragma unroll 4
-      for (int t = grp; t < 32; t += n_grp) {
-        const int c = __shfl_sync(kFull, c_l, t);
-        const float w = __shfl_sync(kFull, w_l, t);
-        if (t < n_in && active) fma8(acc, w, x[(size_t)c * nv + v]);
+      const int steps = (n_in + n_grp - 1) / n_grp;  // the same for every lane
+      for (int k = 0; k < steps; k += kUnroll) {
+        uint4 q[kUnroll];
+        float wt[kUnroll];
+        bool ok[kUnroll];
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          const int t = (k + u) * n_grp + grp;
+          const int c = __shfl_sync(kFull, c_l, t & 31);
+          wt[u] = __shfl_sync(kFull, w_l, t & 31);
+          ok[u] = active && t < n_in;
+          if (ok[u]) q[u] = x[(size_t)c * nv + v];
+        }
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u)
+          if (ok[u]) fma8(acc, wt[u], q[u]);
       }
     }
     // lanes with the same `sub` hold the same columns for other edges
@@ -102,20 +146,31 @@ attn_agg_kernel(const int* __restrict__ row_ptr,
 
 }  // namespace
 
-// Launches on `stream`; returns cudaGetLastError() after the launch.
-// nv = f / 8, the 16-byte vectors in a row of x and of out.
+// Launches on `stream`; returns cudaGetLastError() after the launches.
+// nv = f / 8, the 16-byte vectors in a row of x and of out. `table` is the
+// forward CSR's split table (seg_row [n_seg], seg_e0 [n_seg], long_ptr
+// [n_long + 1], int32 back to back; null when n_seg == 0), `partial` an
+// [n_seg, f] f32 scratch.
 extern "C" int textgcn_attn_agg(const void* row_ptr, const void* col,
                                 const void* logits, const void* mx,
                                 const void* sm, const void* x, void* out,
-                                int n_rows, int nv, void* stream) {
-  const int blocks = (n_rows + kRowsPerBlock - 1) / kRowsPerBlock;
+                                const void* table, void* partial, int n_rows,
+                                int nv, int n_seg, int n_long, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int blocks = (n_seg + n_rows + kWarps - 1) / kWarps;
   if (blocks == 0) return static_cast<int>(cudaGetLastError());
+  const int* seg_row = static_cast<const int*>(table);
+  const int* seg_e0 = n_seg ? seg_row + n_seg : nullptr;
+  const int* long_ptr = n_seg ? seg_row + 2 * n_seg : nullptr;
   int lanes = 1;
   while (lanes < nv && lanes < 32) lanes <<= 1;
-  attn_agg_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  attn_agg_kernel<<<blocks, kThreads, 0, s>>>(
       static_cast<const int*>(row_ptr), static_cast<const int*>(col),
       static_cast<const float*>(logits), static_cast<const float*>(mx),
       static_cast<const float*>(sm), static_cast<const uint4*>(x),
-      static_cast<float*>(out), n_rows, nv, lanes);
+      static_cast<float*>(out), seg_row, seg_e0, static_cast<float*>(partial),
+      n_rows, n_seg, nv, lanes);
+  launch_split_sum(seg_row, long_ptr, static_cast<const float*>(partial),
+                   static_cast<float*>(out), n_long, nv * 8, 0, s);
   return static_cast<int>(cudaGetLastError());
 }

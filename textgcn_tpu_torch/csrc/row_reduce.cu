@@ -26,8 +26,9 @@
 // split table that the wrapper's caller builds once with the CSR. Pass 1
 // gives each segment a warp that writes an f32 partial row, and each row of
 // at most S edges a warp that reads base, adds its sum and writes once.
-// Pass 2 (a second small launch, only when there are long rows) gives each
-// long row a warp that adds its partials onto the base in segment order. A
+// Pass 2 (a second small launch, only when there are long rows; the code is
+// `row_split.cuh`, shared with attn_agg and K1) adds each long row's
+// partials onto its base in segment order. A
 // second launch was chosen over one block per long row because a hub of R8
 // (9,589 edges) has more segments than a block has warps at any S worth
 // having, and over a last-warp-done counter because it needs no counters to
@@ -50,16 +51,14 @@
 #include <climits>
 #include <cstdint>
 
-#ifndef TEXTGCN_K2_S
-#define TEXTGCN_K2_S 512
-#endif
+#include "row_split.cuh"  // S (TEXTGCN_K2_S) and pass 2
+
 #ifndef TEXTGCN_K2_NARROW_F
 #define TEXTGCN_K2_NARROW_F 16
 #endif
 
 namespace {
 
-constexpr int kSegEdges = TEXTGCN_K2_S;  // S: the most edges a warp walks
 constexpr int kNarrowF = TEXTGCN_K2_NARROW_F;  // widest f read in 4-byte loads
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
@@ -220,30 +219,6 @@ row_reduce_kernel(const int* __restrict__ row_ptr,
   }
 }
 
-// Pass 2: long row i (segments long_ptr[i] .. long_ptr[i+1]-1) gets
-// base + p_0 + p_1 + ..., in segment order; two columns per lane.
-__global__ void __launch_bounds__(kThreads)
-row_reduce_long_kernel(const int* __restrict__ seg_row,
-                       const int* __restrict__ long_ptr,
-                       const float* __restrict__ partial,
-                       float* __restrict__ out,
-                       int n_long, int f, int has_base) {
-  const int i = blockIdx.x * kWarps + threadIdx.x / 32;
-  if (i >= n_long) return;
-  const int lane = threadIdx.x % 32;
-  const int k0 = long_ptr[i], k1 = long_ptr[i + 1];
-  float* o = out + (size_t)seg_row[k0] * f;
-  for (int c = 2 * lane; c < f; c += 64) {
-    float2 a = has_base ? *reinterpret_cast<const float2*>(o + c) : make_float2(0.f, 0.f);
-    for (int k = k0; k < k1; ++k) {
-      const float2 p = *reinterpret_cast<const float2*>(partial + (size_t)k * f + c);
-      a.x += p.x;
-      a.y += p.y;
-    }
-    *reinterpret_cast<float2*>(o + c) = a;
-  }
-}
-
 template <int V>
 void launch_pass1(const void* row_ptr, const void* col, const void* val,
                   const void* x, void* out, const int* seg_row,
@@ -288,10 +263,7 @@ extern "C" int textgcn_row_reduce(const void* row_ptr, const void* col,
   else
     launch_pass1<2>(row_ptr, col, val, x, out, seg_row, seg_e0, partial, n_rows,
                     n_seg, f, has_base, s);
-  if (n_long > 0) {
-    row_reduce_long_kernel<<<(n_long + kWarps - 1) / kWarps, kThreads, 0, s>>>(
-        seg_row, long_ptr, static_cast<const float*>(partial),
-        static_cast<float*>(out), n_long, f, has_base);
-  }
+  launch_split_sum(seg_row, long_ptr, static_cast<const float*>(partial),
+                   static_cast<float*>(out), n_long, f, has_base, s);
   return static_cast<int>(cudaGetLastError());
 }

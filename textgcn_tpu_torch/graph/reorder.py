@@ -24,6 +24,7 @@ import torch
 from textgcn_tpu_torch.graph.structs import BlockSparseGraph
 from textgcn_tpu_torch.ops.bsr_spmm import F_ALIGN, TILE, bsr_spmm
 from textgcn_tpu_torch.ops.row_reduce import RowSplit, row_reduce, row_split
+from textgcn_tpu_torch.ops.split import record
 
 
 def degree_sort_permutation(
@@ -98,12 +99,13 @@ class ResidualCSR:
         row = np.asarray(row, dtype=np.int64)
         order = np.lexsort((np.asarray(col), row))
         row_ptr = np.searchsorted(row[order], np.arange(n_nodes + 1)).astype(np.int32)
+        split = row_split(row_ptr, device=device)
         return ResidualCSR(
-            row_ptr=torch.from_numpy(row_ptr).to(device),
+            row_ptr=record(torch.from_numpy(row_ptr).to(device), split),
             col=torch.from_numpy(np.asarray(col)[order].astype(np.int32)).to(device),
             val=torch.from_numpy(np.asarray(val)[order].astype(np.float32)).to(device),
             n_edges=int(len(row)),
-            split=row_split(row_ptr, device=device),
+            split=split,
         )
 
 
@@ -202,10 +204,11 @@ def feature_table(x: torch.Tensor, n_rows: int, dtype: torch.dtype) -> torch.Ten
 
 def tile_and_residual(bsr: BlockSparseGraph, rest, xp: torch.Tensor, tile=bsr_spmm,
                       reduce=row_reduce) -> torch.Tensor:
-    """The two legs on one padded table: ``tile`` (K1) into a fresh f32
-    output, then ``reduce`` (K2) adds the residual onto that output in place.
-    The residual leg always reads bf16 features."""
-    out = tile(bsr.blocks, bsr.tile_ptr, bsr.block_cols, xp)
+    """The two legs on one padded table: ``tile`` (K1, with the tiles'
+    split table) into a fresh f32 output, then ``reduce`` (K2) adds the
+    residual onto that output in place. The residual leg always reads bf16
+    features."""
+    out = tile(bsr.blocks, bsr.tile_ptr, bsr.block_cols, xp, split=bsr.split)
     if rest is not None:
         xq = xp if xp.dtype == torch.bfloat16 else xp.to(torch.bfloat16)
         reduce(rest.row_ptr, rest.col, rest.val, xq, base=out, split=rest.split)

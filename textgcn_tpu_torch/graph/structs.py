@@ -14,14 +14,19 @@ construction is the JAX module's numpy code, so the layouts are equal.
   block-row holds at least one tile: an empty one gets an explicit zero
   tile, as in the JAX container. A rectangular block (one shard's rows
   against all columns) gets none: the kernel writes zeros for a block-row
-  without tiles.
+  without tiles. ``split`` is the tile kernel's split table of the
+  block-rows longer than its T tiles, built here once.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
+
+from textgcn_tpu_torch.ops.bsr_spmm import tile_split
+from textgcn_tpu_torch.ops.split import TileSplit, record
 
 
 def _round_up(x: int, m: int) -> int:
@@ -123,6 +128,10 @@ class BlockSparseGraph:
       bm, bn:       tile shape.
       n_block_rows: number of block-rows (padded node count / bm).
       symmetric:    the caller asserts Âᵀ = Â (values too).
+      split:        the :class:`~textgcn_tpu_torch.ops.split.TileSplit` of
+                    the block-rows longer than the tile kernel's T tiles
+                    (None when there are none), whose fingerprint is
+                    recorded on ``tile_ptr``.
     """
 
     blocks: torch.Tensor
@@ -135,6 +144,7 @@ class BlockSparseGraph:
     bn: int
     n_block_rows: int
     symmetric: bool = False
+    split: Optional[TileSplit] = None
 
     @property
     def nnzb(self) -> int:
@@ -216,15 +226,17 @@ class BlockSparseGraph:
         tile_ptr = np.searchsorted(
             block_rows, np.arange(n_block_rows + 1), side="left"
         ).astype(np.int32)
+        split = tile_split(tile_ptr, device=device)
         return BlockSparseGraph(
             blocks=torch.from_numpy(blocks).to(device=device, dtype=dtype),
             block_rows=torch.from_numpy(block_rows).to(device),
             block_cols=torch.from_numpy(block_cols).to(device),
-            tile_ptr=torch.from_numpy(tile_ptr).to(device),
+            tile_ptr=record(torch.from_numpy(tile_ptr).to(device), split),
             n_nodes=int(n_nodes),
             n_edges=int(len(row)),
             bm=int(bm),
             bn=int(bn),
             n_block_rows=int(n_block_rows),
             symmetric=bool(symmetric),
+            split=split,
         )

@@ -3,7 +3,8 @@
 No JAX counterpart: the JAX package's Pallas kernels are compiled by XLA.
 
 ``nvcc`` compiles every source in ``csrc/`` (one process per source, all
-started together) and links the objects into one shared library with a
+started together; the shared headers ``csrc/*.cuh`` are included, and
+hashed with every library) and links the objects into one shared library with a
 plain C interface (no PyTorch headers, so the build takes seconds), which
 ``ctypes`` loads. Tensors cross as raw device pointers and the launch goes on
 PyTorch's current stream. The build runs at the first CUDA launch, into
@@ -36,11 +37,12 @@ NVCC_FLAGS = (
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points: (pointers..., scalars..., stream) -> cudaError_t as int
 _SIGNATURES = {
-    "textgcn_bsr_spmm": [_P, _P, _P, _P, _P, _I, _I, _P],
+    "textgcn_bsr_spmm": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "textgcn_bsr_spmm_segment_tiles": [],
     "textgcn_row_reduce": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "textgcn_row_reduce_segment_edges": [],
     "textgcn_attn_stats": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _F, _I, _P],
-    "textgcn_attn_agg": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+    "textgcn_attn_agg": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "textgcn_sddmm": [_P, _P, _P, _P, _P, _I, _I, _P],
     "textgcn_rowsum": [_P, _P, _P, _I, _P],
 }
@@ -73,7 +75,8 @@ def sources() -> list:
 
 def library_path(defines=(), srcs=None) -> Path:
     h = hashlib.sha256(" ".join((*NVCC_FLAGS, *defines)).encode())
-    for src in srcs or sources():
+    # the shared headers (csrc/*.cuh) are part of every source
+    for src in [*(srcs or sources()), *sorted(CSRC.glob("*.cuh"))]:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libtextgcn_kernels_{h.hexdigest()[:16]}.so"

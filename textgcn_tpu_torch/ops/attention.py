@@ -15,11 +15,14 @@ wrapper             kernel                       replaces (Pallas)
 ==================  ===========================  ==============================
 
 Each source carries its note (what bounds it on the card, what its design
-does about that). ``dx`` of both ops goes through K2
-(:func:`textgcn_tpu_torch.ops.row_reduce.row_reduce`) over the transpose
-CSR, with the transpose CSR's split table (``split_t``), as the JAX package
-sends it through the one-hot kernel (``_onehot_kernel``) over the transpose
-plan.
+does about that). ``attn_agg`` splits the forward CSR's rows longer than
+K2's S with the forward split table (``split``), as K2 does. ``dx`` of both
+ops goes through K2 (:func:`textgcn_tpu_torch.ops.row_reduce.row_reduce`)
+over the transpose CSR, with the transpose CSR's split table (``split_t``),
+as the JAX package sends it through the one-hot kernel (``_onehot_kernel``)
+over the transpose plan. Each table's fingerprint is recorded on its
+``row_ptr`` (:mod:`~textgcn_tpu_torch.ops.split`), so the two, whose
+counts are equal for a square graph, cannot be swapped.
 
 Layout. The TPU's ``OneHotPlan`` (windows, k-chunks, superchunks, phantom
 slots, 128-lane replicated stats) is not carried over. An
@@ -43,7 +46,8 @@ import numpy as np
 import torch
 
 from textgcn_tpu_torch.ops import _build
-from textgcn_tpu_torch.ops.row_reduce import RowSplit, row_reduce, row_split
+from textgcn_tpu_torch.ops.row_reduce import SEGMENT_EDGES, RowSplit, row_reduce, row_split
+from textgcn_tpu_torch.ops.split import check_split, record
 
 _NEG = -1e30  # finite -inf stand-in: keeps max/exp arithmetic NaN-free
 VEC = 8  # bf16 columns per 16-byte load: feature widths are multiples of it
@@ -89,10 +93,13 @@ class AttentionGraph:
       perm_t:    [E] forward position of each transpose edge.
       edge_pos:  [E] forward position of each input edge, in input order
                  (the counterpart of ``fwd_dst``).
-      split_t:   the transpose CSR's :class:`RowSplit` (the segments of its
-                 rows longer than K2's S), or None when it has none.
+      split:     the forward CSR's :class:`RowSplit` (the segments of its
+                 rows longer than K2's S, for ``attn_agg``), or None.
+      split_t:   the transpose CSR's :class:`RowSplit` (for K2 as dx), or
+                 None when it has none.
     ``n_nodes`` is the row space (softmax rows, outputs, es) and ``n_cols``
-    the column space (x, ed); they are equal for a square graph.
+    the column space (x, ed); they are equal for a square graph. Each
+    table's fingerprint is recorded on its ``row_ptr`` / ``row_ptr_t``.
     """
 
     row_ptr: torch.Tensor
@@ -106,6 +113,7 @@ class AttentionGraph:
     n_nodes: int
     n_edges: int
     n_cols: int
+    split: Optional[RowSplit] = None
     split_t: Optional[RowSplit] = None
 
     @staticmethod
@@ -129,20 +137,24 @@ class AttentionGraph:
         # -inf logit, which drops the edge from the softmax
         with np.errstate(divide="ignore"):
             logval = np.log(val[order].astype(np.float32))
+        row_ptr = np.searchsorted(r, np.arange(n_nodes + 1))
         row_ptr_t = np.searchsorted(c[perm_t], np.arange(n_cols + 1))
+        split = row_split(row_ptr, device=device)
+        split_t = row_split(row_ptr_t, device=device)
         return AttentionGraph(
-            row_ptr=t(np.searchsorted(r, np.arange(n_nodes + 1))),
+            row_ptr=record(t(row_ptr), split),
             col=t(c),
             logval=torch.from_numpy(logval).to(device),
             row=t(r),
-            row_ptr_t=t(row_ptr_t),
+            row_ptr_t=record(t(row_ptr_t), split_t),
             col_t=t(r[perm_t]),
             perm_t=t(perm_t),
             edge_pos=t(edge_pos),
             n_nodes=int(n_nodes),
             n_edges=int(len(row)),
             n_cols=n_cols,
-            split_t=row_split(row_ptr_t, device=device),
+            split=split,
+            split_t=split_t,
         )
 
     @staticmethod
@@ -151,6 +163,21 @@ class AttentionGraph:
         on its device (its padding dropped)."""
         row, col, val = g.coo_numpy()
         return AttentionGraph.from_coo(row, col, val, g.n_nodes, device=g.val.device)
+
+    def to(self, device) -> "AttentionGraph":
+        """This graph on ``device``: every tensor and both split tables
+        moved, and each table's fingerprint recorded on its moved
+        ``row_ptr``."""
+        split = None if self.split is None else self.split.to(device)
+        split_t = None if self.split_t is None else self.split_t.to(device)
+        moved = {
+            f.name: getattr(self, f.name).to(device)
+            for f in dataclasses.fields(self)
+            if isinstance(getattr(self, f.name), torch.Tensor)
+        }
+        moved["row_ptr"] = record(moved["row_ptr"], split)
+        moved["row_ptr_t"] = record(moved["row_ptr_t"], split_t)
+        return dataclasses.replace(self, **moved, split=split, split_t=split_t)
 
     @property
     def max_degree(self) -> int:
@@ -194,8 +221,9 @@ def stats_logits_plain(row_ptr, col, logval, es, ed, slope):
     return (logits, *softmax_stats_plain(row_ptr, logits))
 
 
-def attn_agg_plain(row_ptr, col, logits, mx, sm, x):
-    """Plain PyTorch version of :func:`attn_agg` (any float ``x``)."""
+def attn_agg_plain(row_ptr, col, logits, mx, sm, x, split=None):
+    """Plain PyTorch version of :func:`attn_agg` (any float ``x``; ``split``
+    is accepted and ignored)."""
     rows = _rows(row_ptr)
     inv = 1.0 / torch.clamp(sm, min=1e-30)
     w = det_exp(logits - _shift(mx)[rows]) * inv[rows]
@@ -305,14 +333,19 @@ def softmax_stats(row_ptr, logits):
     return mx, sm
 
 
-def attn_agg(row_ptr, col, logits, mx, sm, x):
+def attn_agg(row_ptr, col, logits, mx, sm, x, split=None):
     """``out[r] = sum_e exp(logits[e] - shift_r) / max(sm[r], 1e-30) *
     x[col[e]]`` over the forward CSR (``shift_r`` = ``mx[r]``, or 0 at the
     sentinel). ``x`` is [N, F] bf16 with F a multiple of 8; returns a new
     [n_rows, F] f32 tensor. The weights stay f32 (the TPU rounds them to
-    bf16). On CPU tensors this runs :func:`attn_agg_plain`; on CUDA tensors
-    it launches ``csrc/attn_agg.cu`` or raises.
+    bf16). ``split`` is the forward CSR's :class:`RowSplit`
+    (``AttentionGraph.split``; None when no row is longer than S); a table
+    of another CSR (other counts, or another ``row_ptr`` fingerprint, such
+    as the transpose CSR's ``split_t``) is refused, with no device sync. On
+    CPU tensors this runs :func:`attn_agg_plain`; on CUDA tensors it
+    launches ``csrc/attn_agg.cu`` or raises.
     """
+    check_split("attn_agg", row_ptr, col.numel(), split, RowSplit, SEGMENT_EDGES)
     if x.device.type == "cpu":
         return attn_agg_plain(row_ptr, col, logits, mx, sm, x)
     i32, f32 = torch.int32, torch.float32
@@ -320,14 +353,22 @@ def attn_agg(row_ptr, col, logits, mx, sm, x):
              logits=(logits, f32), mx=(mx, f32), sm=(sm, f32),
              x=(x, torch.bfloat16))
     _features("attn_agg", x)
-    n_rows = row_ptr.numel() - 1
-    out = torch.empty(n_rows, x.shape[1], dtype=f32, device=x.device)
+    n_rows, f = row_ptr.numel() - 1, x.shape[1]
+    out = torch.empty(n_rows, f, dtype=f32, device=x.device)
+    if split is None:
+        table, partial, n_seg, n_long = None, None, 0, 0
+    else:
+        _on_cuda("attn_agg", x, split=(split.table, i32))
+        table, n_seg, n_long = split.table, split.n_seg, split.n_long
+        partial = torch.empty(n_seg, f, dtype=f32, device=x.device)
     lib = _build.load()
     with torch.cuda.device(x.device):
         err = lib.textgcn_attn_agg(
             row_ptr.data_ptr(), col.data_ptr(), logits.data_ptr(), mx.data_ptr(),
-            sm.data_ptr(), x.data_ptr(), out.data_ptr(), n_rows,
-            x.shape[1] // VEC, _stream(),
+            sm.data_ptr(), x.data_ptr(), out.data_ptr(),
+            None if table is None else table.data_ptr(),
+            None if partial is None else partial.data_ptr(), n_rows, f // VEC,
+            n_seg, n_long, _stream(),
         )
     attn_agg.launches += 1
     _build.check_launch("attn_agg", err)
@@ -439,7 +480,7 @@ class _GatAttention(torch.autograd.Function):
             ag.row_ptr, ag.col, ag.logval, es.contiguous(), ed.contiguous(), slope
         )
         x16 = features_bf16(x)
-        out = attn_agg(ag.row_ptr, ag.col, logits, mx, sm, x16)
+        out = attn_agg(ag.row_ptr, ag.col, logits, mx, sm, x16, split=ag.split)
         ctx.ag, ctx.slope = ag, slope
         ctx.save_for_backward(logits, mx, sm, x16)
         return out[:, : x.shape[1]]
@@ -484,7 +525,7 @@ class _AttentionSpmm(torch.autograd.Function):
         logits = logits.contiguous()
         mx, sm = softmax_stats(ag.row_ptr, logits)
         x16 = features_bf16(x)
-        out = attn_agg(ag.row_ptr, ag.col, logits, mx, sm, x16)
+        out = attn_agg(ag.row_ptr, ag.col, logits, mx, sm, x16, split=ag.split)
         ctx.ag = ag
         ctx.save_for_backward(logits, mx, sm, x16)
         return out[:, : x.shape[1]]

@@ -13,34 +13,62 @@ Source note:
   :func:`bsr_leg` the same kernel also replaces ``_bsr_leg_apply`` of
   ``textgcn_tpu/parallel/mesh_kernels.py`` (B10): one shard's block-rows
   against all block-columns, a rectangular matrix.
-- Bound on the card: at F=8 the tile bytes (on R8 doc-word ~6k tiles,
-  194 MB per pass) and the serial walk over the hub block-rows; at F=200
-  each 32 KiB tile carries 2*128*128*208 flops, about 208 flops per byte,
-  near the card's bf16 ridge (~295), so the tensor cores and the bytes moved
-  into the SMs both count.
-- Design against that bound: one block per (half block-row, 64-column
-  feature chunk) owns its output rows and loops over its block-row's tiles
-  (no atomics, one write of the output); a tile's loads go out together as
-  16-byte vectors and the next tile's are in flight during the current
-  tile's MMAs (WMMA fragments, f32 accumulation). Up to 8 blocks share a
-  block-row, so the hub block-rows of a degree-sorted graph (several times
-  the mean tile count) spread over several SMs; the chunks of a block-row
-  are grid neighbours and read each tile close together, mostly from L2.
-  Splitting long block-rows with a deterministic second-pass reduction is
-  left to a later change (see PERF.md).
+- Bound on the card: the bytes. A 32 KiB tile carries 2*128*128*F'
+  flops, about 208 a byte at F'=208, below the bf16 ridge (~295): each tile
+  read once (R8 doc-word: 5,925 tiles, 194 MB a pass) and its 128-row slab
+  of features brought into the SM once. At F'=16 the tile bytes are nearly
+  the whole cost. The degree sort makes the block-rows uneven (R8: up to
+  120 tiles, mean 49), so a block that walks a whole block-row sets the
+  pace of the call.
+- Design against that bound: no block walks more than :data:`SEGMENT_TILES`
+  (T) tiles. A block-row of more than T tiles is cut into block-row-local
+  segments (boundaries at multiples of T from its first tile) listed in a
+  :class:`~textgcn_tpu_torch.ops.split.TileSplit`, which :func:`tile_split`
+  builds once where the tile stack is built (``BlockSparseGraph.from_coo``,
+  so also the hybrid's and each shard's tiles) and which the container keeps
+  (``BlockSparseGraph.split``). Each segment's block writes an f32 partial;
+  a second small launch adds a long block-row's partials in segment order.
+  No atomics and a fixed order: two launches give the same bits, and a
+  block-row the same bits in any stack that holds it (the shards' legs put
+  together equal the single-device pass). One block covers all 128 rows and
+  all F' columns of its block-row, so each tile and each feature slab is
+  read once; ``cp.async`` streams them into a ring of stages in shared
+  memory while the tensor cores (``mma.sync``, bf16 in, f32 accumulate)
+  work on the stage before. A table records the fingerprint of the
+  ``tile_ptr`` it was built from, and the wrapper refuses it with another
+  stack, even one with the same counts.
+- What bounds it now: at F'=208 a block's tile costs ~3.8 us (the MMA and
+  ``ldmatrix`` issue of 8 warps an SM), so the call is ~3.5x its byte
+  bound; ``wgmma`` from shared memory is the next step (PERF.md, ROADMAP).
 """
 from __future__ import annotations
 
 import torch
 
+from typing import Optional
+
 from textgcn_tpu_torch.ops import _build
+from textgcn_tpu_torch.ops.split import TileSplit, build_split, check_split
 
 TILE = 128
 F_ALIGN = 16  # the kernel's feature width must be a multiple of this
+F_MAX = 256  # the widest feature table the kernel holds in registers
+# T: the most tiles one block walks; the kernel's compile-time constant
+# (csrc/bsr_spmm.cu kSegTiles), which a TileSplit table must be built for
+SEGMENT_TILES = 16
 
 
-def bsr_spmm_plain(tiles, tile_ptr, tile_col, x):
-    """Plain PyTorch version of :func:`bsr_spmm` (any tile shape or dtype).
+def tile_split(tile_ptr, device=None) -> Optional[TileSplit]:
+    """The :class:`~textgcn_tpu_torch.ops.split.TileSplit` of a tile stack's
+    ``tile_ptr`` (numpy or tensor) at T, on ``device`` (tile_ptr's by
+    default), or None when no block-row has more than T tiles. Build it once
+    with the tile stack, never per launch."""
+    return build_split(tile_ptr, SEGMENT_TILES, TileSplit, device)
+
+
+def bsr_spmm_plain(tiles, tile_ptr, tile_col, x, split=None):
+    """Plain PyTorch version of :func:`bsr_spmm` (any tile shape or dtype;
+    ``split`` is accepted and ignored).
 
     Multiplies each tile with its feature rows in f32 (bf16 inputs are exact
     in f32) and sums the products into their block-rows. The matrix may be
@@ -80,54 +108,67 @@ def _check(name, tiles, tile_ptr, tile_col, x):
         raise ValueError(f"{name}: tile_col must have one entry per tile")
     if x.dim() != 2 or not x.is_contiguous():
         raise ValueError(f"{name}: x must be a contiguous 2-D tensor")
-    if x.shape[0] % TILE or x.shape[1] % F_ALIGN:
+    if x.shape[0] % TILE or x.shape[1] % F_ALIGN or x.shape[1] > F_MAX:
         raise ValueError(
-            f"{name}: x must be [multiple of {TILE}, multiple of {F_ALIGN}], "
-            f"got {tuple(x.shape)}"
+            f"{name}: x must be [multiple of {TILE}, multiple of {F_ALIGN} up "
+            f"to {F_MAX}], got {tuple(x.shape)}"
         )
+    if x.data_ptr() % 16 or tiles.data_ptr() % 16:
+        raise ValueError(f"{name}: tiles and x must be 16-byte aligned")
 
 
-def _run(wrapper, tiles, tile_ptr, tile_col, x):
-    """The plain version for a CPU ``x``; else K1's launch, counted on
+def _run(wrapper, tiles, tile_ptr, tile_col, x, split):
+    """The plain version for a CPU ``x``; else K1's launches, counted on
     ``wrapper``."""
     name = wrapper.__name__
+    check_split(name, tile_ptr, tile_col.numel(), split, TileSplit, SEGMENT_TILES)
     if x.device.type == "cpu":
         return bsr_spmm_plain(tiles, tile_ptr, tile_col, x)
     if x.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {x.device}")
     _check(name, tiles, tile_ptr, tile_col, x)
-    n_block_rows = tile_ptr.numel() - 1
-    out = torch.empty(
-        (n_block_rows * TILE, x.shape[1]), dtype=torch.float32, device=x.device
-    )
+    n_block_rows, f = tile_ptr.numel() - 1, x.shape[1]
+    out = torch.empty((n_block_rows * TILE, f), dtype=torch.float32, device=x.device)
+    if split is None:
+        table, partial, n_seg, n_long = None, None, 0, 0
+    else:
+        if split.table.device != x.device:
+            raise ValueError(f"{name}: split is on {split.table.device}, x on {x.device}")
+        table, n_seg, n_long = split.table, split.n_seg, split.n_long
+        partial = torch.empty((n_seg, TILE, f), dtype=torch.float32, device=x.device)
     lib = _build.load()
     with torch.cuda.device(x.device):
         err = lib.textgcn_bsr_spmm(
             tiles.data_ptr(), tile_ptr.data_ptr(), tile_col.data_ptr(),
-            x.data_ptr(), out.data_ptr(), n_block_rows, x.shape[1],
-            torch.cuda.current_stream().cuda_stream,
+            x.data_ptr(), out.data_ptr(), None if table is None else table.data_ptr(),
+            None if partial is None else partial.data_ptr(), n_block_rows, f,
+            n_seg, n_long, torch.cuda.current_stream().cuda_stream,
         )
     wrapper.launches += 1
     _build.check_launch(name, err)
     return out
 
 
-def bsr_spmm(tiles, tile_ptr, tile_col, x):
+def bsr_spmm(tiles, tile_ptr, tile_col, x, split=None):
     """``out[br*128 + i] = sum_t tiles[t, i, :] @ x[tile_col[t]*128 : +128]``
     over the tiles ``t`` of block-row ``br`` (``tile_ptr`` is a CSR over the
     block-row-sorted tiles). Returns a new [n_block_rows*128, F] f32 tensor,
     zero in a block-row without tiles. The matrix may be rectangular: ``x``
     has as many rows as the matrix has columns, and every ``tile_col`` is
     below ``x.shape[0] / 128`` (``BlockSparseGraph.from_coo`` checks that
-    when it builds the tiles; the kernel does not).
+    when it builds the tiles; the kernel does not). ``split`` is the stack's
+    :class:`~textgcn_tpu_torch.ops.split.TileSplit` (``BlockSparseGraph.split``,
+    None when no block-row is longer than T); a table of another tile stack
+    (other counts, or another ``tile_ptr`` fingerprint) is refused, with no
+    device sync.
 
     On CPU tensors this runs :func:`bsr_spmm_plain`; on CUDA tensors it
     launches the kernel (building it on first use) or raises.
     """
-    return _run(bsr_spmm, tiles, tile_ptr, tile_col, x)
+    return _run(bsr_spmm, tiles, tile_ptr, tile_col, x, split)
 
 
-def bsr_leg(tiles, tile_ptr, tile_col, x):
+def bsr_leg(tiles, tile_ptr, tile_col, x, split=None):
     """:func:`bsr_spmm` as the tile leg of one shard of the sharded hybrid
     (B10, ``textgcn_tpu/parallel/mesh_kernels.py`` ``_bsr_leg_apply``): the
     shard's block-rows against the all-gathered feature table, so the matrix
@@ -135,7 +176,7 @@ def bsr_leg(tiles, tile_ptr, tile_col, x):
     here, apart from :func:`bsr_spmm`'s, so a run can show that the sharded
     path went through it.
     """
-    return _run(bsr_leg, tiles, tile_ptr, tile_col, x)
+    return _run(bsr_leg, tiles, tile_ptr, tile_col, x, split)
 
 
 bsr_spmm.launches = 0

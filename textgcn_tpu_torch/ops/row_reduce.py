@@ -25,9 +25,12 @@ Source note:
   and which the CSR's container keeps. Each segment's warp writes an f32
   partial row; a second small launch adds a long row's partials onto its
   base in segment order. A CSR with no row longer than S has no table
-  (``split=None``) and costs one launch, as before. Sums take a fixed order
-  and no atomics: two launches give the same bits, and a row the same bits
-  in any CSR that holds it. Without a table every row is walked by one warp
+  (``split=None``) and costs one launch. A table records the fingerprint
+  of the ``row_ptr`` it was built from, and the wrapper refuses it with
+  another CSR, even one with the same counts
+  (:mod:`~textgcn_tpu_torch.ops.split`). Sums take a fixed order and no
+  atomics: two launches give the same bits, and a row the same bits in any
+  CSR that holds it. Without a table every row is walked by one warp
   whatever its length (right, but not balanced).
 - One walk over the edges for F <= 256: each lane keeps its columns in f32
   registers and reads 16-byte bf16 vectors (F % 8 == 0, F > 16 and 16-byte
@@ -44,84 +47,26 @@ Source note:
 """
 from __future__ import annotations
 
-import dataclasses
 from typing import Optional
 
-import numpy as np
 import torch
 
 from textgcn_tpu_torch.ops import _build
+from textgcn_tpu_torch.ops.split import RowSplit, build_split, check_split
 
 # S: the most edges one warp walks; the kernel's compile-time constant
 # (csrc/row_reduce.cu kSegEdges), which a RowSplit table must be built for
 SEGMENT_EDGES = 512
 
 
-@dataclasses.dataclass(frozen=True)
-class RowSplit:
-    """The segments of a CSR's rows longer than :data:`SEGMENT_EDGES` (S).
-
-    ``table`` is one int32 tensor holding, back to back, ``seg_row``
-    [n_seg] (each segment's row), ``seg_e0`` [n_seg] (its first edge; it
-    ends S edges later or at its row's end) and ``long_ptr`` [n_long + 1]
-    (long row i owns segments ``long_ptr[i] .. long_ptr[i+1] - 1``, in
-    order). Segments run in row order, a row's in edge order. ``n_rows``
-    and ``n_edges`` are those of the CSR it was built from, which
-    :func:`row_reduce` checks against the CSR it is given.
-    """
-
-    table: torch.Tensor
-    n_seg: int
-    n_long: int
-    n_rows: int
-    n_edges: int
-
-    @property
-    def seg_row(self) -> torch.Tensor:
-        return self.table[: self.n_seg]
-
-    @property
-    def seg_e0(self) -> torch.Tensor:
-        return self.table[self.n_seg : 2 * self.n_seg]
-
-    @property
-    def long_ptr(self) -> torch.Tensor:
-        return self.table[2 * self.n_seg :]
-
-    @property
-    def nbytes(self) -> int:
-        return self.table.numel() * self.table.element_size()
-
-    def to(self, device, non_blocking: bool = False) -> "RowSplit":
-        return dataclasses.replace(self, table=self.table.to(device, non_blocking=non_blocking))
-
-    def pin_memory(self) -> "RowSplit":
-        return dataclasses.replace(self, table=self.table.pin_memory())
-
-
 def row_split(row_ptr, device=None) -> Optional[RowSplit]:
     """The :class:`RowSplit` of a CSR's ``row_ptr`` (numpy or tensor; a
-    device tensor is copied to the host once), on ``device`` (row_ptr's by
-    default), or None when no row has more than S edges. Build it once with
-    the CSR, never per launch."""
-    if isinstance(row_ptr, torch.Tensor):
-        device = row_ptr.device if device is None else device
-        row_ptr = row_ptr.cpu().numpy()
-    rp = np.asarray(row_ptr, dtype=np.int64)
-    deg = np.diff(rp)
-    long_rows = np.flatnonzero(deg > SEGMENT_EDGES)
-    if len(long_rows) == 0:
-        return None
-    n_segs = -(-deg[long_rows] // SEGMENT_EDGES)
-    long_ptr = np.concatenate([[0], np.cumsum(n_segs)])
-    seg_row = np.repeat(long_rows, n_segs)
-    k = np.arange(long_ptr[-1]) - np.repeat(long_ptr[:-1], n_segs)
-    seg_e0 = rp[seg_row] + k * SEGMENT_EDGES
-    table = np.concatenate([seg_row, seg_e0, long_ptr]).astype(np.int32)
-    return RowSplit(
-        torch.from_numpy(table).to("cpu" if device is None else device),
-        int(long_ptr[-1]), int(len(long_rows)), len(rp) - 1, int(rp[-1]),
-    )
+    device tensor is copied to the host once) at S, on ``device`` (row_ptr's
+    by default), or None when no row has more than S edges. Build it once
+    with the CSR, never per launch, and :func:`~textgcn_tpu_torch.ops.split.record`
+    its fingerprint on the CSR's ``row_ptr`` tensor (done here when
+    ``row_ptr`` is one)."""
+    return build_split(row_ptr, SEGMENT_EDGES, RowSplit, device)
 
 
 def row_reduce_plain(row_ptr, col, val, x, base=None, split=None):
@@ -135,18 +80,6 @@ def row_reduce_plain(row_ptr, col, val, x, base=None, split=None):
         torch.arange(n_rows, device=x.device), torch.diff(row_ptr.long())
     )
     return out.index_add_(0, rows, val.float()[:, None] * x[col.long()].float())
-
-
-def _check_split(row_ptr, col, split):
-    """Refuse a table built from another CSR (host integers; no sync)."""
-    if split is not None and (
-        split.n_rows != row_ptr.numel() - 1 or split.n_edges != col.numel()
-    ):
-        raise ValueError(
-            f"row_reduce: the split table is of a CSR of {split.n_rows} rows and "
-            f"{split.n_edges} edges, given {row_ptr.numel() - 1} rows and "
-            f"{col.numel()} edges"
-        )
 
 
 def _check(row_ptr, col, val, x, out, split):
@@ -187,12 +120,13 @@ def row_reduce(row_ptr, col, val, x, base=None, split=None):
     ``col`` is a row of ``x`` (``ResidualCSR.from_coo`` builds it so; the
     kernel does not check). ``split`` is the CSR's :class:`RowSplit` from
     :func:`row_split` (None when no row is longer than S); a table whose
-    row or edge count differs from this CSR's is refused.
+    row or edge count, or whose ``row_ptr`` fingerprint, differs from this
+    CSR's is refused (host integers, no device sync).
 
     On CPU tensors this runs :func:`row_reduce_plain`; on CUDA tensors it
     launches the kernel (building it on first use) or raises.
     """
-    _check_split(row_ptr, col, split)
+    check_split("row_reduce", row_ptr, col.numel(), split, RowSplit, SEGMENT_EDGES)
     if x.device.type == "cpu":
         return row_reduce_plain(row_ptr, col, val, x, base)
     if x.device.type != "cuda":

@@ -49,6 +49,7 @@ import numpy as np
 import torch
 
 from textgcn_tpu_torch.ops.row_reduce import RowSplit, row_reduce, row_split
+from textgcn_tpu_torch.ops.split import record
 
 # Edges per chunk cut from a real graph: one chunk of the lattice at the
 # baseline scale config (32 x 32 cells of 800 edges; 6.6 MB as a CSR).
@@ -85,18 +86,21 @@ class SortedChunk:
         split = 0 if self.split is None else self.split.nbytes
         return split + sum(t.numel() * t.element_size() for t in (self.row_ptr, self.col, self.val))
 
-    def to(self, device, non_blocking: bool = False) -> "SortedChunk":
+    def _moved(self, move) -> "SortedChunk":
+        """The chunk with ``move`` applied to each tensor; the split's
+        fingerprint is recorded on the new ``row_ptr``."""
+        split = None if self.split is None else dataclasses.replace(
+            self.split, table=move(self.split.table)
+        )
         return SortedChunk(
-            *(t.to(device, non_blocking=non_blocking) for t in (self.row_ptr, self.col, self.val)),
-            self.r0,
-            None if self.split is None else self.split.to(device, non_blocking),
+            record(move(self.row_ptr), split), move(self.col), move(self.val), self.r0, split,
         )
 
+    def to(self, device, non_blocking: bool = False) -> "SortedChunk":
+        return self._moved(lambda t: t.to(device, non_blocking=non_blocking))
+
     def pin_memory(self) -> "SortedChunk":
-        return SortedChunk(
-            *(t.pin_memory() for t in (self.row_ptr, self.col, self.val)), self.r0,
-            None if self.split is None else self.split.pin_memory(),
-        )
+        return self._moved(lambda t: t.pin_memory())
 
 
 def sorted_chunk_add(acc, chunk: SortedChunk, x, reduce=row_reduce):
@@ -408,9 +412,10 @@ def csr_stream(row_ptr, col, val, max_chunk_edges: int = CHUNK_EDGES):
         r1 = int(np.searchsorted(rp_np, e0 + max_chunk_edges, side="right")) - 1
         r1 = min(n, max(r1, r0 + 1))
         e1 = int(rp_np[r1])
+        split = row_split(rp_np[r0 : r1 + 1] - e0, device=row_ptr.device)
         out.append(SortedChunk(
-            (rp[r0 : r1 + 1] - e0).to(torch.int32), col[e0:e1], val[e0:e1], r0,
-            row_split(rp_np[r0 : r1 + 1] - e0, device=row_ptr.device),
+            record((rp[r0 : r1 + 1] - e0).to(torch.int32), split), col[e0:e1], val[e0:e1],
+            r0, split,
         ))
         r0 = r1
     return out
@@ -527,9 +532,10 @@ def chunk_loader_from_dir(path: str) -> Callable[[int], SortedChunk]:
 
     def load(i: int) -> SortedChunk:
         with np.load(os.path.join(path, f"chunk_{i:06d}.npz")) as z:
+            row_ptr = torch.from_numpy(z["row_ptr"])
             return SortedChunk(
-                torch.from_numpy(z["row_ptr"]), torch.from_numpy(z["col"]),
-                torch.from_numpy(z["val"]), int(z["r0"]), row_split(z["row_ptr"]),
+                row_ptr, torch.from_numpy(z["col"]), torch.from_numpy(z["val"]),
+                int(z["r0"]), row_split(row_ptr),
             )
 
     return load

@@ -95,6 +95,20 @@ def device_memory(device: torch.device) -> Dict[str, Dict[str, float]]:
     }
 
 
+def check_graph_family(graph_family: str) -> None:
+    """Raise unless the port has ``graph_family``'s data path. The default
+    is ``topic``, as in the JAX package, whose path is not ported yet: a
+    command that names no graph must not train another graph than JAX's."""
+    if graph_family == "topic":
+        raise NotImplementedError(
+            "graph family 'topic' (the default, as in the JAX package): the "
+            "port has no topic-graph data path yet (ROADMAP A.1); pass "
+            "--graph docword (graph_family='docword') for the doc-word graph"
+        )
+    if graph_family != "docword":
+        raise ValueError(f"unknown graph family {graph_family!r}: topic or docword")
+
+
 def device_name(device: torch.device) -> str:
     return torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
 
@@ -102,7 +116,7 @@ def device_name(device: torch.device) -> str:
 def run_experiment(
     dataset: str,
     times: int = 1,
-    graph_family: str = "docword",
+    graph_family: str = "topic",
     data_root: str = "data",
     output_dir: str = "results",
     config: TrainConfig = TrainConfig(),
@@ -127,11 +141,7 @@ def run_experiment(
     if n_shards is not None:
         check_sharded(config.model, config.spmm, partition)
     check_model_format(config.model, config.spmm)
-    if graph_family != "docword":
-        raise NotImplementedError(
-            f"graph family {graph_family!r}: the port has the doc-word graph "
-            "so far (ROADMAP A: the R8 topic graph comes next)"
-        )
+    check_graph_family(graph_family)
     if n_shards is not None:
         # the host prepares the data once; each rank builds its own shard
         if pre_data is None:
