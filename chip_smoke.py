@@ -13,12 +13,16 @@ drives the port's two main paths on R8 doc-word:
   segment-sum oracle, then trains ``train --dataset R8 --graph docword
   --spmm hybrid`` once through the CLI; both kernels must run there and test
   accuracy must reach 0.95.
-- GAT: holds the four attention kernels and K2 as dx against their plain
-  versions on the degree-sorted attention graph (``attn_agg`` through the
-  forward CSR's split table, K2 through the transpose CSR's; two launches
-  of ``attn_agg``, K2 as dx and ``sddmm`` must give the same bits), one GAT layer forward and
-  backward on the kernels against the plain segment layer under autograd,
-  then trains
+- GAT: holds the four attention kernels (``attn_stats`` in both modes) and
+  K2 as dx against their plain versions on the degree-sorted attention
+  graph (``attn_stats``, ``attn_agg`` and ``rowsum`` over the forward CSR
+  through its split table, K2 and ``rowsum`` over the transpose CSR through
+  the transpose's, each also timed without a table; two launches of each
+  must give the same bits), one GAT layer forward and backward on the
+  kernels against the plain segment layer under autograd, drives the
+  ``attention_spmm`` op (given logits: ``attn_stats`` in B6 mode, the
+  ``softmax_stats`` record) forward and backward against an autograd
+  oracle with its launches counted, then trains
   ``train --model gat --spmm hybrid`` once through the CLI; the attention
   kernels and K2 must run there and test accuracy must reach 0.88.
 - Streaming (beyond memory), at the JAX package's baseline scale config
@@ -47,12 +51,13 @@ bytes over the memory rate and its operations over the peak rate, from this
 run's inputs) and the time of one PyTorch call that computes the same
 function, where there is one. K2's record is split by role: ``row_reduce``
 (the residual leg, B2) and ``row_reduce_dx`` (GAT's dx, B3); B11 is
-``sorted_chunk_add``. ``ms``, ``plain_ms`` and ``library_ms`` are CUDA
-events around 20 back-to-back calls (the host's cost of a call included
-where it exceeds the kernel, as in K2's short roles); ``device_ms`` and
-``library_device_ms`` are the same calls captured in a CUDA graph and
-replayed, device time only (null for ``torch.segment_reduce``, which cannot
-be captured).
+``sorted_chunk_add``; ``attn_stats`` is B5 and ``softmax_stats`` B6 (one
+kernel, two modes, each with its own count). ``ms``, ``plain_ms`` and
+``library_ms`` are CUDA events around 20 back-to-back calls (the host's
+cost of a call included where it exceeds the kernel, as in K2's short
+roles); ``device_ms`` and ``library_device_ms`` are the same calls
+captured in a CUDA graph and replayed, device time only (null for
+``torch.segment_reduce``, which cannot be captured).
 
 Each phase prints one line; any failure raises and exits non-zero. The last
 lines are the kernels' JSON record, the card's name and power limit, and
@@ -562,6 +567,60 @@ def shard_phase(dev, gen, records, yard, h, row, col, val):
     log("B10 shard legs", f"phase {time.perf_counter() - t_phase:.1f} s")
 
 
+def attention_spmm_path(att, ag, gen, counters, steps=3):
+    """The other attention op's path: ``attention_spmm`` (softmax-weighted
+    aggregation of given logits, the op that takes B6), forward and backward
+    at F=200 on the degree-sorted R8 attention graph, ``steps`` times with
+    every launch count set to 0 just before; the op and its gradients are
+    held against an f32 autograd oracle of plain PyTorch ops. Returns the
+    counts read just after."""
+    dev, n, f = ag.row.device, ag.n_nodes, 200
+    rows, cols = ag.row.long(), ag.col.long()
+    logits = torch.randn(ag.n_edges, generator=gen, device=dev)
+    logits[::50] = -float("inf")  # dropped edges
+    # bf16-representable features and cotangent: the kernels' casts are exact
+    x = torch.randn((n, f), generator=gen, device=dev).bfloat16().float()
+    cot = torch.randn((n, f), generator=gen, device=dev).bfloat16().float()
+
+    def oracle(lg, xx):
+        mx = torch.full((n,), -1e30, device=dev).scatter_reduce(0, rows, lg.detach(), "amax")
+        w = torch.exp(lg - mx[rows])
+        s = torch.zeros(n, device=dev).index_add(0, rows, w)
+        w = w / s.clamp_min(1e-30)[rows]
+        return torch.zeros((n, f), device=dev).index_add(0, rows, w[:, None] * xx[cols])
+
+    res = []
+    for fn in (att.attention_spmm, None):
+        lg, xx = logits.clone().requires_grad_(True), x.clone().requires_grad_(True)
+        if fn is None:
+            out = oracle(lg, xx)
+            out.backward(cot)
+            res.append((out.detach(), lg.grad, xx.grad))
+            continue
+        for fns in counters.values():
+            for c in fns:
+                c.launches = 0
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            lg.grad = xx.grad = None
+            out = fn(ag, lg, xx)
+            out.backward(cot)
+        torch.cuda.synchronize()
+        step_ms = 1e3 * (time.perf_counter() - t0) / steps
+        launches = {k: sum(c.launches for c in fns) for k, fns in counters.items()}
+        res.append((out.detach(), lg.grad, xx.grad))
+    need = ("softmax_stats", "attn_agg", "sddmm", "rowsum", "row_reduce")
+    if min(launches[k] for k in need) < 1:
+        raise AssertionError(f"a kernel of the attention_spmm path never launched: {launches}")
+    errs = [compare(a, b, GAT_LAYER_TOL)[0] for a, b in zip(*res)]
+    log("attention_spmm", f"F=200 fwd+bwd on the kernels ({steps} steps, "
+        f"{step_ms:.3f} ms a step, host clock) vs an f32 autograd oracle: max abs err "
+        f"out {errs[0]:.3e}, dlogits {errs[1]:.3e}, dx {errs[2]:.3e}; tol "
+        f"{GAT_LAYER_TOL}*(1+|ref|) (bf16-representable x and cotangent, f32 sums in "
+        f"another order); launches {launches}")
+    return launches
+
+
 def train_via_cli(cli, model, flags, acc_min, counters, need):
     """Train R8 doc-word once through the port's CLI with every launch count
     set to 0 just before; check the run and return the counts (summed over
@@ -809,7 +868,7 @@ def main() -> int:
     # 6. the GCN main path, through the CLI
     counters = {
         "bsr_spmm": (bsr_spmm,), "bsr_leg": (bsr_leg,), "row_reduce": (row_reduce,),
-        "attn_stats": (att.stats_logits, att.softmax_stats),
+        "attn_stats": (att.stats_logits,), "softmax_stats": (att.softmax_stats,),
         "attn_agg": (att.attn_agg,), "sddmm": (att.sddmm,),
         "rowsum": (att.rowsum,),
     }
@@ -838,26 +897,32 @@ def main() -> int:
         f"edges, median row {int(deg.median())}, {int((deg >= 1024).sum())} "
         f"rows >= 1024 edges; S = {SEGMENT_EDGES}: the forward CSR's "
         f"{0 if sp is None else sp.n_long} rows longer than S cut into "
-        f"{0 if sp is None else sp.n_seg} segments (attn_agg), the transpose CSR's "
-        f"{0 if sp_t is None else sp_t.n_long} into "
-        f"{0 if sp_t is None else sp_t.n_seg} (K2 as dx); "
+        f"{0 if sp is None else sp.n_seg} segments (attn_stats, attn_agg, rowsum), "
+        f"the transpose CSR's {0 if sp_t is None else sp_t.n_long} into "
+        f"{0 if sp_t is None else sp_t.n_seg} (K2 as dx, rowsum); "
         f"{time.perf_counter() - t0:.1f} s on the host")
     n = ag.n_nodes
     es = torch.randn(n, generator=gen, device=dev)
     ed = torch.randn(n, generator=gen, device=dev)
     s_args = (ag.row_ptr, ag.col, ag.logval, es, ed, SLOPE)
-    got, want = att.stats_logits(*s_args), att.stats_logits_plain(*s_args)
+    got, want = att.stats_logits(*s_args, split=sp), att.stats_logits_plain(*s_args)
+    if not all(map(torch.equal, got, att.stats_logits(*s_args, split=sp))):
+        raise AssertionError("two stats_logits launches differ")
     err = max(compare(a, b, ATT_TOL)[0] for a, b in zip(got, want))
-    ms, dev_ms = both_ms(lambda: att.stats_logits(*s_args))
+    ms, dev_ms = both_ms(lambda: att.stats_logits(*s_args, split=sp))
+    ms_nt, dev_nt = both_ms(lambda: att.stats_logits(*s_args))
     plain_ms = cuda_ms(lambda: att.stats_logits_plain(*s_args))
+    records["attn_stats"] = [(err, ms, dev_ms, plain_ms)]
     logits, mx, sm = want
-    err6 = max(
-        compare(a, b, ATT_TOL)[0]
-        for a, b in zip(att.softmax_stats(ag.row_ptr, logits), (mx, sm))
-    )
-    ms6, dev6 = both_ms(lambda: att.softmax_stats(ag.row_ptr, logits))
+    got6 = att.softmax_stats(ag.row_ptr, logits, split=sp)
+    if not all(map(torch.equal, got6, att.softmax_stats(ag.row_ptr, logits, split=sp))):
+        raise AssertionError("two softmax_stats launches differ")
+    err6 = max(compare(a, b, ATT_TOL)[0] for a, b in zip(got6, (mx, sm)))
+    ms6, dev6 = both_ms(lambda: att.softmax_stats(ag.row_ptr, logits, split=sp))
+    ms6_nt, dev6_nt = both_ms(lambda: att.softmax_stats(ag.row_ptr, logits))
     plain6 = cuda_ms(lambda: att.softmax_stats_plain(ag.row_ptr, logits))
-    records["attn_stats"] = [(err, ms, dev_ms, plain_ms), (err6, ms6, dev6, plain6)]
+    records["softmax_stats"] = [(err6, ms6, dev6, plain6)]
+    del got6
     e, n_rows = ag.n_edges, ag.n_nodes
     # B5 per edge: gather-add, leaky relu (compare, multiply), add log(val),
     # subtract the max, exp, add: ~7 f32 operations, and one max; it writes
@@ -865,14 +930,19 @@ def main() -> int:
     yard["attn_stats"] = (*bound(
         nbytes(ag.row_ptr, ag.col, ag.logval, es, ed) + 4 * e + 8 * n_rows, 8 * e, PEAK_F32,
     ), None, None)
-    bound6 = bound(nbytes(ag.row_ptr, logits) + 8 * n_rows, 4 * e, PEAK_F32)
-    log("B5/B6 attn_stats", f"logits+stats: max abs err {err:.3e}, kernel "
-        f"{ms:.4f} ms a call ({dev_ms:.4f} device), plain {plain_ms:.4f} ms, bound "
-        f"{yard['attn_stats'][0]:.4f} ms by {yard['attn_stats'][1]}; stats of "
-        f"given logits: max abs err {err6:.3e}, kernel {ms6:.4f} ms a call "
-        f"({dev6:.4f} device), plain {plain6:.4f} ms, bound "
-        f"{bound6[0]:.4f} ms by {bound6[1]}; no one PyTorch call computes either; "
-        f"tol {ATT_TOL}*(1+|ref|) (same f32 logits, exp-sums in another order)")
+    yard["softmax_stats"] = (*bound(
+        nbytes(ag.row_ptr, logits) + 8 * n_rows, 4 * e, PEAK_F32,
+    ), None, None)
+    log("B5/B6 attn_stats", f"forward CSR split at S = {SEGMENT_EDGES}; logits+stats "
+        f"(B5): max abs err {err:.3e}, two launches bit-equal, kernel {ms:.4f} ms a "
+        f"call ({dev_ms:.4f} device; without the table {ms_nt:.4f} ({dev_nt:.4f})), "
+        f"plain {plain_ms:.4f} ms, bound {yard['attn_stats'][0]:.4f} ms by "
+        f"{yard['attn_stats'][1]}; stats of given logits (B6, softmax_stats): max "
+        f"abs err {err6:.3e}, two launches bit-equal, kernel {ms6:.4f} ms a call "
+        f"({dev6:.4f} device; without the table {ms6_nt:.4f} ({dev6_nt:.4f})), plain "
+        f"{plain6:.4f} ms, bound {yard['softmax_stats'][0]:.4f} ms by "
+        f"{yard['softmax_stats'][1]}; no one PyTorch call computes either; tol "
+        f"{ATT_TOL}*(1+|ref|) (same f32 logits, exp-sums in another order)")
     # the backward's softmax weights, moved to the transpose CSR (dx's val)
     w_t = att.edge_weights(ag, logits, mx, sm).index_select(0, ag.perm_t)
     for f in (200, 8):
@@ -939,20 +1009,27 @@ def main() -> int:
             f"tol {ATT_TOL}*(1+|ref|) (f32 sums in another order)")
     v = torch.randn(ag.n_edges, generator=gen, device=dev)
     v_t = v.index_select(0, ag.perm_t)
-    for ptr, vals, csr_name in (
-        (ag.row_ptr, v, "forward"), (ag.row_ptr_t, v_t, "transpose"),
+    for ptr, vals, split, csr_name in (
+        (ag.row_ptr, v, sp, "forward"), (ag.row_ptr_t, v_t, sp_t, "transpose"),
     ):
-        err, _ = compare(att.rowsum(ptr, vals), att.rowsum_plain(ptr, vals), ATT_TOL)
-        ms, dev_ms = both_ms(lambda: att.rowsum(ptr, vals))
+        rs = att.rowsum(ptr, vals, split=split)
+        if not torch.equal(rs, att.rowsum(ptr, vals, split=split)):
+            raise AssertionError(f"two rowsum launches differ on the {csr_name} CSR")
+        err, _ = compare(rs, att.rowsum_plain(ptr, vals), ATT_TOL)
+        ms, dev_ms = both_ms(lambda: att.rowsum(ptr, vals, split=split))
+        ms_nt, dev_nt = both_ms(lambda: att.rowsum(ptr, vals))
         plain_ms = cuda_ms(lambda: att.rowsum_plain(ptr, vals))
         records.setdefault("rowsum", []).append((err, ms, dev_ms, plain_ms))
         if csr_name == "forward":
             lengths = torch.diff(ptr.long())
             lib = cuda_ms(lambda: torch.segment_reduce(vals, "sum", lengths=lengths))
             yard["rowsum"] = (*bound(nbytes(ptr, vals) + 4 * n, ag.n_edges, PEAK_F32), lib, None)
-        log("B9 rowsum", f"{csr_name} CSR: max abs err {err:.3e}, kernel "
-            f"{ms:.4f} ms a call ({dev_ms:.4f} device), plain {plain_ms:.4f} ms; "
+        log("B9 rowsum", f"{csr_name} CSR with its split table "
+            f"({0 if split is None else split.n_seg} segments): max abs err {err:.3e}, "
+            f"two launches bit-equal, kernel {ms:.4f} ms a call ({dev_ms:.4f} device; "
+            f"without the table {ms_nt:.4f} ({dev_nt:.4f})), plain {plain_ms:.4f} ms; "
             f"tol {ATT_TOL}*(1+|ref|) (f32 sums in another order)")
+        del rs
     del x16, g16, v, v_t, w_t, logits, mx, sm, got, want
 
     # 8. one GAT layer, forward and backward, on the kernels vs the segment
@@ -987,8 +1064,12 @@ def main() -> int:
         f"(bf16-representable weights and cotangent: exact casts, f32 sums in "
         f"another order); forward+backward {ms:.4f} ms on the kernels, "
         f"{seg_ms:.4f} ms segment")
+    del seg, p, cot, res
+
+    # 8b. the attention_spmm path (B6), fwd+bwd, its launches counted
+    spmm_launches = attention_spmm_path(att, ag, gen, counters)
     r8_graph = pre.graph
-    del seg, p, cot, res, ag, pre, pre_att
+    del ag, pre, pre_att
 
     # 9. the GAT main path, through the CLI
     gat_launches, _ = train_via_cli(
@@ -1008,6 +1089,8 @@ def main() -> int:
                           "textgcn_tpu/ops/pallas_onehot.py:214"),
         "attn_stats": ("textgcn_tpu_torch/csrc/attn_stats.cu",
                        "textgcn_tpu/ops/pallas_attention.py:94"),
+        "softmax_stats": ("textgcn_tpu_torch/csrc/attn_stats.cu",
+                          "textgcn_tpu/ops/pallas_attention.py:64"),
         "attn_agg": ("textgcn_tpu_torch/csrc/attn_agg.cu",
                      "textgcn_tpu/ops/pallas_attention.py:160"),
         "sddmm": ("textgcn_tpu_torch/csrc/sddmm.cu",
@@ -1019,10 +1102,12 @@ def main() -> int:
         "bsr_leg": ("textgcn_tpu_torch/csrc/bsr_spmm.cu",
                     "textgcn_tpu/parallel/mesh_kernels.py:641"),
     }
-    total = {k: launches[k] + gat_launches[k] + shard1[k] + shard4[k] for k in launches}
-    # K2's one counter: the GAT run's launches are dx (B3), the others B2
-    total["row_reduce_dx"] = gat_launches["row_reduce"]
-    total["row_reduce"] -= gat_launches["row_reduce"]
+    paths = (launches, gat_launches, spmm_launches, shard1, shard4)
+    total = {k: sum(p[k] for p in paths) for k in launches}
+    # K2's one counter: the attention paths' launches are dx (B3), the
+    # others B2
+    total["row_reduce_dx"] = gat_launches["row_reduce"] + spmm_launches["row_reduce"]
+    total["row_reduce"] -= total["row_reduce_dx"]
     total["sorted_chunk_add"] = stream_launches
     kernels = []
     for name, (src, replaces) in sources.items():

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Sweep the compile-time constants of K1, K2, ``attn_agg`` and ``sddmm``
-on one GPU.
+"""Sweep the compile-time constants of K1, K2, ``attn_agg``, ``sddmm``,
+``attn_stats`` and ``rowsum`` on one GPU.
 
-    python scripts/sweep_kernels.py [--only k1,attn_agg,k2,sddmm]
+    python scripts/sweep_kernels.py [--only k1,attn_agg,k2,sddmm,attn_stats,rowsum]
 
 Runs on one CUDA GPU (it fails without one). Builds variants of
 ``textgcn_tpu_torch/csrc/bsr_spmm.cu`` (K1), ``csrc/attn_agg.cu``,
@@ -21,6 +21,11 @@ with a split table built here for the variant's segment length:
   (softmax weights from random logits, F=200 and 8): S, the most edges a
   warp walks (``TEXTGCN_K2_S``: 256, 512, 1024; the same constant as
   K2's);
+- ``attn_stats`` over the forward CSR in B5 mode (logits built from random
+  es and ed) and B6 mode (given logits), and ``rowsum`` over the forward
+  and the transpose CSR (random values): S (``TEXTGCN_K2_S``: 256, 512,
+  1024), each with a table built at that S, and at the default S without a
+  table (one warp a row);
 
 and, on the attention graph, in the roles the GAT backward gives them:
 
@@ -38,8 +43,8 @@ and, on the attention graph, in the roles the GAT backward gives them:
 Every variant's output is held against the plain PyTorch version. Each time
 is given two ways, as ``chip_smoke.py`` gives them: CUDA events around 20
 back-to-back calls (a call) and the same calls captured in a CUDA graph
-(device). Prints one line per width and one JSON line; ``--only`` runs a
-subset of the four kernels.
+(device). Prints one line per width (or mode, or CSR) and one JSON line;
+``--only`` runs a subset of the kernels.
 """
 from __future__ import annotations
 
@@ -77,7 +82,7 @@ K1_STAGES = (4, 6)
 K1_WIDTHS = (208, 16)
 AGG_S = (256, 512, 1024)
 AGG_WIDTHS = (200, 8)
-KINDS = ("k1", "attn_agg", "k2", "sddmm")
+KINDS = ("k1", "attn_agg", "k2", "sddmm", "attn_stats", "rowsum")
 K2_S = (128, 256, 512, 1024)
 K2_NARROW_F = (0, 1 << 20)
 SDDMM_LANES = (1, 2, 4, 8, 16, 32)
@@ -179,6 +184,91 @@ def agg_sweep(variants, libs, ag, logits, mx, sm, gen, results):
               + f" ms a call (device); tol {ATT_TOL}*(1+|ref|)")
 
 
+def _s_variants(variants, libs, kind):
+    """(name, S, lib) of each ``kind`` variant, built at S = TEXTGCN_K2_S."""
+    return [(name, int(defines[0].split("=")[1]), lib)
+            for (k, name, defines), lib in zip(variants, libs) if k == kind]
+
+
+def _timed(results, kernel, name, mode, call, want, tol):
+    """Hold ``call()`` against ``want`` (a tensor or a tuple of them), time
+    it, record it and return its line entry."""
+    got = call()
+    got, want = (got, want) if isinstance(want, tuple) else ((got,), (want,))
+    err = max(compare(a, b, tol)[0] for a, b in zip(got, want))
+    rec = {"kernel": kernel, "variant": name, "mode": mode, "max_abs_err": err, **both(call)}
+    results.append(rec)
+    return f"{name} {rec['ms']:.4f} ({rec['device_ms']:.4f})"
+
+
+def stats_sweep(variants, libs, ag, es, ed, results):
+    """attn_stats by S over the forward CSR, in B5 and B6 mode, and at the
+    default S without a table."""
+    rp = ag.row_ptr.cpu().numpy()
+    n, dev = ag.n_nodes, ag.col.device
+    want = att.stats_logits_plain(ag.row_ptr, ag.col, ag.logval, es, ed, SLOPE)
+    given = want[0].clone()
+    logits, mx, sm = torch.empty_like(given), torch.empty(n, device=dev), torch.empty(n, device=dev)
+    runs = []
+    for name, s, lib in _s_variants(variants, libs, "attn_stats"):
+        sp = build_split(rp, s, RowSplit, dev)
+        runs.append((name, lib, sp))
+        if s == SEGMENT_EDGES:
+            runs.append((f"S={s} no table", lib, None))
+    print(f"attn_stats forward CSR segments by S: "
+          f"{', '.join(f'{name} {0 if sp is None else sp.n_seg}' for name, _, sp in runs)}")
+    for mode in ("B5", "B6"):
+        line = []
+        for name, lib, sp in runs:
+            part = None if sp is None else torch.empty((sp.n_seg, 2), device=dev)
+
+            def call(lib=lib, sp=sp, part=part, name=name, build=mode == "B5"):
+                _build.check_launch(name, lib.textgcn_attn_stats(
+                    ag.row_ptr.data_ptr(), ag.col.data_ptr(), ag.logval.data_ptr(),
+                    es.data_ptr(), ed.data_ptr(),
+                    (logits if build else given).data_ptr(), mx.data_ptr(), sm.data_ptr(),
+                    None if sp is None else sp.table.data_ptr(),
+                    None if part is None else part.data_ptr(), n, SLOPE, int(build),
+                    0 if sp is None else sp.n_seg, 0 if sp is None else sp.n_long, _stream()))
+                return (logits, mx, sm) if build else (mx, sm)
+
+            line.append(_timed(results, "attn_stats", name, mode, call,
+                               want if mode == "B5" else want[1:], ATT_TOL))
+        print(f"attn_stats {mode}: " + "; ".join(line)
+              + f" ms a call (device); tol {ATT_TOL}*(1+|ref|)")
+
+
+def rowsum_sweep(variants, libs, ag, gen, results):
+    """rowsum by S over the forward and the transpose CSR, and at the
+    default S without a table."""
+    dev = ag.col.device
+    v = torch.randn(ag.n_edges, generator=gen, device=dev)
+    out = torch.empty(ag.n_nodes, device=dev)
+    for csr, ptr, vals in (("forward", ag.row_ptr, v),
+                           ("transpose", ag.row_ptr_t, v.index_select(0, ag.perm_t))):
+        rp = ptr.cpu().numpy()
+        want = att.rowsum_plain(ptr, vals)
+        line = []
+        for name, s, lib in _s_variants(variants, libs, "rowsum"):
+            sp = build_split(rp, s, RowSplit, dev)
+            for sp_, label in ([(sp, name)] + ([(None, f"S={s} no table")]
+                                              if s == SEGMENT_EDGES else [])):
+                part = None if sp_ is None else torch.empty(sp_.n_seg, device=dev)
+
+                def call(lib=lib, sp=sp_, part=part, name=label):
+                    _build.check_launch(name, lib.textgcn_rowsum(
+                        ptr.data_ptr(), vals.data_ptr(), out.data_ptr(),
+                        None if sp is None else sp.table.data_ptr(),
+                        None if part is None else part.data_ptr(), ag.n_nodes,
+                        0 if sp is None else sp.n_seg, 0 if sp is None else sp.n_long,
+                        _stream()))
+                    return out
+
+                line.append(_timed(results, "rowsum", label, csr, call, want, ATT_TOL))
+        print(f"rowsum {csr} CSR: " + "; ".join(line)
+              + f" ms a call (device); tol {ATT_TOL}*(1+|ref|)")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", default=",".join(KINDS),
@@ -198,12 +288,17 @@ def main(argv=None) -> int:
         + [("k2", f"S={s}", [f"TEXTGCN_K2_S={s}"]) for s in K2_S]
         + [("k2", f"S=512 narrow_f={n}", [f"TEXTGCN_K2_NARROW_F={n}"]) for n in K2_NARROW_F]
         + [("sddmm", f"lanes={n}", [f"TEXTGCN_SDDMM_LANES={n}"]) for n in SDDMM_LANES]
+        + [("attn_stats", f"S={s}", [f"TEXTGCN_K2_S={s}"]) for s in AGG_S]
+        + [("rowsum", f"S={s}", [f"TEXTGCN_K2_S={s}"]) for s in AGG_S]
     )
     variants = [v for v in variants if v[0] in kinds]
-    # attn_agg's entry point lives beside K2's S query only in a full build:
-    # each variant links its source with row_reduce.cu for that query
-    src = {"k1": [csrc / "bsr_spmm.cu"], "attn_agg": [csrc / "attn_agg.cu", csrc / "row_reduce.cu"],
-           "k2": [csrc / "row_reduce.cu"], "sddmm": [csrc / "sddmm.cu"]}
+    # the entry points of attn_agg, attn_stats and rowsum live beside K2's S
+    # query only in a full build: each of their variants links its source
+    # with row_reduce.cu for that query
+    k2 = csrc / "row_reduce.cu"
+    src = {"k1": [csrc / "bsr_spmm.cu"], "attn_agg": [csrc / "attn_agg.cu", k2],
+           "k2": [k2], "sddmm": [csrc / "sddmm.cu"],
+           "attn_stats": [csrc / "attn_stats.cu", k2], "rowsum": [csrc / "rowsum.cu", k2]}
     with ThreadPoolExecutor(len(variants)) as pool:
         paths = list(pool.map(lambda v: _build.build(tuple(v[2]), src[v[0]]), variants))
     libs = [_build.open_library(p) for p in paths]
@@ -211,8 +306,8 @@ def main(argv=None) -> int:
         want = dict(d.split("=") for d in defines)
         if kind == "k1" and lib.textgcn_bsr_spmm_segment_tiles() != int(want["TEXTGCN_K1_T"]):
             raise AssertionError(f"{name}: built for another T")
-        if kind == "attn_agg" and (lib.textgcn_row_reduce_segment_edges()
-                                   != int(want["TEXTGCN_K2_S"])):
+        if kind in ("attn_agg", "attn_stats", "rowsum") and (
+                lib.textgcn_row_reduce_segment_edges() != int(want["TEXTGCN_K2_S"])):
             raise AssertionError(f"{name}: built for another S")
 
     pre = prepare_docword_data("R8", device=dev)
@@ -242,6 +337,10 @@ def main(argv=None) -> int:
           f"by S: {', '.join(f'{s} {tables[s][1]}' for s in K2_S)}")
     if "attn_agg" in kinds:
         agg_sweep(variants, libs, ag, logits, mx, sm, gen, results)
+    if "attn_stats" in kinds:
+        stats_sweep(variants, libs, ag, es, ed, results)
+    if "rowsum" in kinds:
+        rowsum_sweep(variants, libs, ag, gen, results)
     if not kinds & {"k2", "sddmm"}:
         print(json.dumps({"device": smi, "sweep": results}))
         return 0

@@ -211,13 +211,19 @@ def test_attn_agg_matches_jax(f):
     assert np.all(got[np.diff(tg.row_ptr.numpy()) == 0].numpy() == 0)
 
 
-def _hub_graph(n=1300, seed=0):
+def _hub_graph(n=1300, seed=0, hub_cols=False):
     """Coalesced COO with two hub rows longer than K2's S (row 0: 1,200
-    edges, row 7: 600) among power-law rows, and val in [0.1, 1)."""
+    edges, row 7: 600) among power-law rows, and val in [0.1, 1). With
+    ``hub_cols`` also two hub columns (column 3: 1,100 in-edges, column 9:
+    700), so the transpose CSR has a split table too, with the forward
+    table's counts (a square graph) but another row pointer."""
     row, col, _, _ = _graph(n=n, e=4000, seed=seed)
     rng = np.random.RandomState(seed + 100)
     row = np.r_[row, np.zeros(1200, np.int64), np.full(600, 7)]
     col = np.r_[col, rng.permutation(n)[:1200], rng.permutation(n)[:600]]
+    if hub_cols:
+        row = np.r_[row, rng.permutation(n)[:1100], rng.permutation(n)[:700]]
+        col = np.r_[col, np.full(1100, 3), np.full(700, 9)]
     key = np.unique(row * n + col)
     row, col = key // n, key % n
     return row, col, rng.rand(len(row)) * 0.9 + 0.1, n
@@ -271,6 +277,218 @@ def test_split_attn_agg_matches_plain_and_jax(f):
     np.testing.assert_allclose(got[:, :f].numpy(), want, rtol=0, atol=1e-5 * scale)
     jax_out = jatt._attn_agg(jg.fwd, *_jax_stats_logits(jg, es, ed), jnp.asarray(x.numpy()), True)
     np.testing.assert_allclose(np.asarray(jax_out), want, rtol=2e-2, atol=2e-2)
+
+
+def _segments(sp, rp):
+    """Each long row of a split table with its segments' edge ranges, in
+    segment order: ``[(row, [(e0, e1), ...]), ...]``."""
+    s = tatt.SEGMENT_EDGES
+    seg_row, seg_e0, long_ptr = (t.numpy() for t in (sp.seg_row, sp.seg_e0, sp.long_ptr))
+    out = []
+    for i in range(sp.n_long):
+        r = seg_row[long_ptr[i]]
+        ks = range(long_ptr[i], long_ptr[i + 1])
+        out.append((r, [(seg_e0[k], min(seg_e0[k] + s, rp[r + 1])) for k in ks]))
+    return out
+
+
+def _f32(x):
+    return np.float32(x)
+
+
+def _warp_pair(lg):
+    """One warp's softmax pair (max, sum of exp(x - max)) over its edges, in
+    f32, from the sentinel -1e30: -inf logits add exp(-inf) = 0."""
+    m = _f32(max(_f32(-1e30), lg.max())) if len(lg) else _f32(-1e30)
+    return m, np.exp(lg - m, dtype=np.float32).sum(dtype=np.float32)
+
+
+def _split_stats(tg, logits):
+    """The split kernel's softmax statistics, emulated in f32: a row of at
+    most S edges is one warp's pair; a longer row's segments' pairs are
+    merged in segment order from (-1e30, 0) with the online rescale
+    (``row_split.cuh`` softmax_merge)."""
+    rp = tg.row_ptr.numpy()
+    lg = np.asarray(logits, np.float32)
+    pairs = [_warp_pair(lg[rp[r] : rp[r + 1]]) for r in range(len(rp) - 1)]
+    mx, sm = (np.asarray(a, np.float32) for a in zip(*pairs))
+    for r, segs in _segments(tg.split, rp):
+        m, s = _f32(-1e30), _f32(0)
+        for e0, e1 in segs:
+            m_k, s_k = _warp_pair(lg[e0:e1])
+            m_new = max(m, m_k)
+            s = s * np.exp(m - m_new) + s_k * np.exp(m_k - m_new)
+            m = m_new
+        mx[r], sm[r] = m, s
+    return mx, sm
+
+
+def _split_rowsum(rp, sp, v):
+    """The split kernel's row sums, emulated in f32: a row of at most S
+    edges is one warp's sum; a longer row adds its segments' sums in
+    segment order from zero."""
+    v = np.asarray(v, np.float32)
+    out = np.asarray([v[rp[r] : rp[r + 1]].sum(dtype=np.float32) for r in range(len(rp) - 1)],
+                     np.float32)
+    for r, segs in _segments(sp, rp):
+        acc = _f32(0)
+        for e0, e1 in segs:
+            acc = acc + v[e0:e1].sum(dtype=np.float32)
+        out[r] = acc
+    return out
+
+
+@pytest.mark.parametrize("op", ["stats_logits", "softmax_stats"])
+def test_split_softmax_stats_match_plain_and_jax(op):
+    """The forward split table on hub rows of 1,200 and 600 edges: a numpy
+    emulation of the split statistics (per-segment (max, sum) pairs merged
+    in segment order) against the plain version (mx bit-equal: a max does
+    not depend on order; sm f32 exp-sums in another order, 1e-6 relative)
+    and against JAX ``stats_logits`` / ``softmax_stats`` in interpret mode
+    (at ``test_stats_logits_match_jax``'s and
+    ``test_softmax_stats_match_jax``'s tolerances). In ``softmax_stats`` some
+    logits are -inf, among them every edge of the hub row's second segment
+    and of a short row, which keep the sentinel (-1e30, 0)."""
+    row, col, val, n = _hub_graph(seed=31 if op == "stats_logits" else 32)
+    tg, jg = _both(row, col, val, n)
+    sp = tg.split
+    assert (sp.n_long, sp.n_seg) == (2, 5)
+    rng = np.random.RandomState(33)
+    if op == "stats_logits":
+        es, ed = rng.randn(n).astype(np.float32), rng.randn(n).astype(np.float32)
+        args = (tg.row_ptr, tg.col, tg.logval, torch.from_numpy(es), torch.from_numpy(ed), SLOPE)
+        lg, mx, sm = tatt.stats_logits(*args, split=sp)
+        _, mx_p, sm_p = tatt.stats_logits_plain(*args)
+        lg_j, mx_j, sm_j = _jax_stats_logits(jg, es, ed)
+        np.testing.assert_allclose(
+            _port_to_edges(tg, lg), _jax_to_edges(jg, lg_j), rtol=1e-6, atol=1e-6
+        )
+        lg = lg.numpy()
+        # log(val) from numpy here, from XLA in JAX: the last bit of a logit
+        # of magnitude ~1, so near-zero maxima get an absolute 1e-6 too
+        mx_tol = {"rtol": 1e-6, "atol": 1e-6}
+    else:
+        lg = rng.randn(tg.n_edges).astype(np.float32) * 3
+        lg[::50] = -np.inf
+        rp = tg.row_ptr.numpy()
+        (_, segs), = [(r, g) for r, g in _segments(sp, rp) if r == 0]
+        lg[segs[1][0] : segs[1][1]] = -np.inf
+        short = np.flatnonzero(np.diff(rp) == 3)[0]
+        lg[rp[short] : rp[short + 1]] = -np.inf
+        mx, sm = tatt.softmax_stats(tg.row_ptr, torch.from_numpy(lg), split=sp)
+        mx_p, sm_p = tatt.softmax_stats_plain(tg.row_ptr, torch.from_numpy(lg))
+        mx_j, sm_j = jatt.softmax_stats(
+            jg.fwd, _jax_slots(jg, _port_to_edges(tg, lg), -np.inf), True
+        )
+        mx_tol = {"rtol": 0}
+        assert (mx[short].item(), sm[short].item()) == (np.float32(-1e30), 0)
+    want_mx, want_sm = _split_stats(tg, lg)
+    # on the CPU the wrapper checks the table and runs the plain version
+    np.testing.assert_array_equal(mx.numpy(), want_mx)
+    np.testing.assert_array_equal(mx_p.numpy(), want_mx)
+    np.testing.assert_allclose(sm.numpy(), want_sm, rtol=1e-6)
+    np.testing.assert_allclose(sm_p.numpy(), want_sm, rtol=1e-6)
+    np.testing.assert_allclose(np.asarray(mx_j)[:n, 0], want_mx, **mx_tol)
+    # f32 exp-sums in another order (online rescaling on both sides)
+    np.testing.assert_allclose(np.asarray(sm_j)[:n, 0], want_sm, rtol=1e-5)
+
+
+@pytest.mark.parametrize("csr", ["forward", "transpose"])
+def test_split_rowsum_matches_plain_and_jax(csr):
+    """``rowsum`` over each CSR with its own table (hub rows of 1,200 and 600
+    edges, hub columns of 1,100 and 700): a numpy emulation of the split sum
+    (segment sums added in segment order) against ``rowsum_plain`` and
+    against JAX ``rowsum_slots`` in interpret mode over the forward or
+    transpose plan (``test_rowsum_forward_and_transpose_match_jax``'s
+    tolerance). The plain version adds a row's values one after another in
+    f32: each add rounds at 2^-24 of a running sum that reaches ~sqrt(1,100)
+    times a value, so over a hub's ~1,100 adds the two orders differ by up
+    to ~1e-5 of the largest output (1.6e-6 seen)."""
+    row, col, val, n = _hub_graph(seed=34, hub_cols=True)
+    tg, jg = _both(row, col, val, n)
+    assert tg.split.n_long == 2 and tg.split_t.n_long == 2
+    v = np.random.RandomState(35).randn(len(row)).astype(np.float32)
+    vt = _port_edges(tg, v)
+    if csr == "forward":
+        rp, sp, vals, plan, dst = tg.row_ptr, tg.split, vt, jg.fwd, jg.fwd_dst
+    else:
+        rp, sp, vals, plan, dst = tg.row_ptr_t, tg.split_t, vt[tg.perm_t.long()], jg.bwd, jg.bwd_dst
+    want = _split_rowsum(rp.numpy(), sp, vals.numpy())
+    scale = np.abs(want).max()
+    np.testing.assert_allclose(tatt.rowsum(rp, vals, split=sp).numpy(), want, rtol=0,
+                               atol=1e-5 * scale)
+    np.testing.assert_allclose(tatt.rowsum_plain(rp, vals).numpy(), want, rtol=0,
+                               atol=1e-5 * scale)
+    flat = np.zeros(plan.n_sc * plan.c_sc * plan.k, np.float32)
+    flat[np.asarray(dst)] = v
+    want_j = jatt.rowsum_slots(plan, jnp.asarray(flat.reshape(plan.n_sc, -1)), True)
+    np.testing.assert_allclose(np.asarray(want_j)[:n, 0], want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("op", ["gat_attention", "attention_spmm"])
+def test_ops_with_split_tables_match_jax_vjp(op):
+    """Both autograd ops on a graph whose forward and transpose CSRs each
+    have a split table (equal counts, other row pointers): every call that
+    takes a table gets its own CSR's, or the fingerprint check raises; the
+    forward and the gradients match the JAX vjp at the tolerances of
+    ``test_gat_attention_forward_and_grads_match_jax_vjp`` and
+    ``test_attention_spmm_forward_and_grads_match_jax_vjp``, except dx (see
+    below)."""
+    row, col, val, n = _hub_graph(seed=36, hub_cols=True)
+    tg, jg = _both(row, col, val, n)
+    assert tg.split.fingerprint != tg.split_t.fingerprint
+    rng = np.random.RandomState(37)
+    x = rng.randn(n, 16).astype(np.float32)
+    cot = rng.randn(n, 16).astype(np.float32)
+    x_t = torch.from_numpy(x).requires_grad_(True)
+    if op == "gat_attention":
+        es, ed = rng.randn(n).astype(np.float32), rng.randn(n).astype(np.float32)
+        out_j, vjp = jax.vjp(
+            lambda a, b, c: jatt.gat_attention(jg, a, b, c, SLOPE, True),
+            jnp.asarray(es), jnp.asarray(ed), jnp.asarray(x),
+        )
+        des_j, ded_j, dx_j = vjp(jnp.asarray(cot))
+        es_t, ed_t = (torch.from_numpy(a).requires_grad_(True) for a in (es, ed))
+        lg, mx, sm = tatt.stats_logits(tg.row_ptr, tg.col, tg.logval, es_t.detach(),
+                                       ed_t.detach(), SLOPE)
+        out_t = tatt.gat_attention(tg, es_t, ed_t, x_t, SLOPE)
+        out_t.backward(torch.from_numpy(cot))
+        # both take f32 weights from the stats and u from the same bf16 g and
+        # x (exact products); f32 sums in another order
+        np.testing.assert_allclose(es_t.grad.numpy(), np.asarray(des_j), rtol=1e-4, atol=1e-4)
+        np.testing.assert_allclose(ed_t.grad.numpy(), np.asarray(ded_j), rtol=1e-4, atol=1e-4)
+    else:
+        elog = rng.randn(len(row)).astype(np.float32)
+        elog[::50] = -np.inf
+        out_j, vjp = jax.vjp(
+            lambda lg, xx: jatt.attention_spmm(jg, lg, xx, True),
+            _jax_slots(jg, elog, -np.inf), jnp.asarray(x),
+        )
+        dlog_j, dx_j = vjp(jnp.asarray(cot))
+        lg_t = _port_edges(tg, elog).requires_grad_(True)
+        lg = lg_t.detach()
+        mx, sm = tatt.softmax_stats(tg.row_ptr, lg)
+        out_t = tatt.attention_spmm(tg, lg_t, x_t)
+        out_t.backward(torch.from_numpy(cot))
+        np.testing.assert_allclose(
+            _port_to_edges(tg, lg_t.grad), _jax_to_edges(jg, dlog_j), rtol=1e-4, atol=1e-5
+        )
+    # JAX rounds the forward weights to bf16
+    np.testing.assert_allclose(out_t.detach().numpy(), np.asarray(out_j), rtol=2e-2, atol=2e-2)
+    # dx[c] sums w * g over c's in-edges (1,100 at a hub column, with much
+    # cancellation). JAX rounds each weight and each product to bf16, so its
+    # error follows the sum of the terms' magnitudes, not of the terms: the
+    # small graph's 2e-2 is taken relative to that sum. The port's dx (f32
+    # weights times bf16 g, f32 sums) is held against an f64 sum of the
+    # same terms at 1e-4 of it (f32 sums of up to 1,100 terms).
+    w = tatt.edge_weights(tg, lg, mx, sm).numpy().astype(np.float64)
+    g16 = torch.from_numpy(cot).bfloat16().double().numpy()[tg.row.numpy()]
+    want, mag = np.zeros((n, 16)), np.zeros((n, 16))
+    np.add.at(want, tg.col.numpy(), w[:, None] * g16)
+    np.add.at(mag, tg.col.numpy(), np.abs(w[:, None] * g16))
+    dx_t = x_t.grad.numpy()
+    assert np.all(np.abs(dx_t - want) <= 1e-4 * (1 + mag))
+    assert np.all(np.abs(dx_t - np.asarray(dx_j)) <= 2e-2 * (1 + mag))
 
 
 def test_gat_attention_forward_and_grads_match_jax_vjp():

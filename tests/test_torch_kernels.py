@@ -348,6 +348,108 @@ def test_attn_agg_kernel_splits_long_rows(cuda_dev, f):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["stats_logits", "softmax_stats"])
+def test_attn_stats_kernel_splits_long_rows(cuda_dev, mode):
+    """``attn_stats`` in B5 mode (``stats_logits``) and B6 mode
+    (``softmax_stats``) over rows up to 10,000 edges through the forward
+    CSR's split table, with some logits -inf (in B6 every logit of the hub
+    row's second segment and of a short row, which keeps the sentinel):
+    against the plain version, two launches bit-equal, the hub row
+    bit-equal alone and inside the CSR, and without a table: the same
+    logits and max bits (a max does not depend on order) and sums as
+    close to the plain version."""
+    rp, col, val, _, rng = _long_rows(cuda_dev, 8, seed=3)
+    n_rows, n_edges = rp.numel() - 1, col.numel()
+    split = row_split(rp)
+    assert split.n_long == 3
+    e0, e1 = int(rp[7]), int(rp[8])  # the hub row
+    one_ptr = torch.tensor([0, e1 - e0], dtype=torch.int32, device=cuda_dev)
+    if mode == "stats_logits":
+        logval = torch.log(val)
+        logval[::41] = -float("inf")  # val 0: the edge drops out
+        es = torch.from_numpy(rng.randn(n_rows).astype(np.float32)).to(cuda_dev)
+        ed = torch.from_numpy(rng.randn(2000).astype(np.float32)).to(cuda_dev)
+        wrapper = att.stats_logits
+
+        def run(sp, ptr=rp, lo=0, hi=n_edges, es_=es):
+            return att.stats_logits(ptr, col[lo:hi].contiguous(), logval[lo:hi].contiguous(),
+                                    es_, ed, 0.2, split=sp)
+
+        want = att.stats_logits_plain(rp, col, logval, es, ed, 0.2)
+        alone = run(row_split(one_ptr), one_ptr, e0, e1, es[7:8])
+        hub = (alone[0], *(t[0] for t in alone[1:]))
+    else:
+        lg = torch.from_numpy(rng.randn(n_edges).astype(np.float32) * 3).to(cuda_dev)
+        lg[::41] = -float("inf")
+        lg[e0 + SEGMENT_EDGES : e0 + 2 * SEGMENT_EDGES] = -float("inf")
+        lg[int(rp[0]) : int(rp[1])] = -float("inf")  # row 0: 3 edges
+        wrapper = att.softmax_stats
+
+        def run(sp, ptr=rp, lo=0, hi=n_edges):
+            return att.softmax_stats(ptr, lg[lo:hi].contiguous(), split=sp)
+
+        want = att.softmax_stats_plain(rp, lg)
+        alone = run(row_split(one_ptr), one_ptr, e0, e1)
+        hub = tuple(t[0] for t in alone)
+    n0 = wrapper.launches
+    got, again = run(split), run(split)
+    torch.cuda.synchronize()
+    assert wrapper.launches == n0 + 2
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    # the same f32 logits; exp-sums of up to 10,000 terms in another order
+    # (the smoke's ATT_TOL)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+    mx, sm = got[-2:]
+    if mode == "softmax_stats":
+        assert (mx[0].item(), sm[0].item()) == (np.float32(-1e30), 0.0)
+    # the hub row alone, with its own table, gives the same bits
+    if mode == "stats_logits":
+        assert torch.equal(hub[0], got[0][e0:e1])
+    assert (torch.equal(hub[-2], mx[7]), torch.equal(hub[-1], sm[7])) == (True, True)
+    # without a table every row is one warp's: the logits and the max keep
+    # their bits, the sums are as close to the plain version
+    no_table = run(None)
+    for a, b in zip(no_table[:-1], got[:-1]):
+        assert torch.equal(a, b)
+    torch.testing.assert_close(no_table[-1], want[-1], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_rowsum_kernel_splits_long_rows(cuda_dev):
+    """``rowsum`` over both CSRs of an asymmetric square graph (a hub row of
+    10,000 edges and a hub column of 3,000 in-edges), each through its own
+    split table: against the plain version, two launches bit-equal, the hub
+    row bit-equal alone and inside the CSR, and without a table."""
+    n = 12_000
+    rng = np.random.RandomState(4)
+    row = np.r_[np.full(10_000, 3), rng.permutation(n)[:3000], rng.randint(0, n, 30_000)]
+    col = np.r_[rng.permutation(n)[:10_000], np.full(3000, 9), rng.randint(0, n, 30_000)]
+    key = np.unique(row * n + col)
+    ag = att.AttentionGraph.from_coo(key // n, key % n, np.ones(len(key)), n, device=cuda_dev)
+    assert ag.split.n_long >= 1 and ag.split_t.n_long >= 1
+    assert ag.split.fingerprint != ag.split_t.fingerprint
+    v = torch.from_numpy(rng.randn(ag.n_edges).astype(np.float32) / 100).to(cuda_dev)
+    for ptr, sp, vals, hub in ((ag.row_ptr, ag.split, v, 3),
+                               (ag.row_ptr_t, ag.split_t, v[ag.perm_t.long()], 9)):
+        n0 = att.rowsum.launches
+        got = att.rowsum(ptr, vals, split=sp)
+        assert torch.equal(got, att.rowsum(ptr, vals, split=sp))
+        torch.cuda.synchronize()
+        assert att.rowsum.launches == n0 + 2
+        want = att.rowsum_plain(ptr, vals)
+        # f32 sums of up to 10,000 values in another order
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        e0, e1 = int(ptr[hub]), int(ptr[hub + 1])
+        assert e1 - e0 > SEGMENT_EDGES
+        one_ptr = torch.tensor([0, e1 - e0], dtype=torch.int32, device=cuda_dev)
+        alone = att.rowsum(one_ptr, vals[e0:e1].contiguous(), split=row_split(one_ptr))
+        assert torch.equal(alone[0], got[hub])
+        torch.testing.assert_close(att.rowsum(ptr, vals), want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("f", [8, 16, 200, 264])
 def test_sddmm_kernel_on_long_rows(cuda_dev, f):
     """The edge-parallel sddmm over the same rows: against the plain version,

@@ -232,7 +232,10 @@ def _asymmetric_graph(n=1300, seed=0):
     return key // n, key % n, rng.rand(len(key)) * 0.9 + 0.1, n
 
 
-@pytest.mark.parametrize("kernel", ["row_reduce", "attn_agg", "bsr_spmm"])
+@pytest.mark.parametrize(
+    "kernel",
+    ["row_reduce", "attn_agg", "bsr_spmm", "stats_logits", "softmax_stats", "rowsum"],
+)
 def test_a_table_of_another_csr_with_equal_counts_is_refused(kernel):
     """C.2: the forward table with the transpose CSR (and the other way
     round), or one tile stack's table with another stack of the same counts,
@@ -271,7 +274,7 @@ def test_a_table_of_another_csr_with_equal_counts_is_refused(kernel):
         with pytest.raises(ValueError, match="fingerprint"):
             row_reduce(ag.row_ptr, ag.col, w_t, x, split=ag.split_t)
         row_reduce(ag.row_ptr_t, ag.col_t, w_t, x, split=ag.split_t)
-    else:
+    elif kernel == "attn_agg":
         lg = torch.from_numpy(rng.randn(ag.n_edges).astype(np.float32))
         mx, sm = att.softmax_stats(ag.row_ptr, lg)
         with pytest.raises(ValueError, match="fingerprint"):
@@ -279,6 +282,26 @@ def test_a_table_of_another_csr_with_equal_counts_is_refused(kernel):
         with pytest.raises(ValueError, match="split table"):
             att.attn_agg(ag.row_ptr_t, ag.col_t, lg, mx, sm, x, split=ag.split)
         att.attn_agg(ag.row_ptr, ag.col, lg, mx, sm, x, split=ag.split)
+    elif kernel == "stats_logits":
+        es, ed = (torch.from_numpy(rng.randn(n).astype(np.float32)) for _ in range(2))
+        with pytest.raises(ValueError, match="fingerprint"):
+            att.stats_logits(ag.row_ptr, ag.col, ag.logval, es, ed, 0.2, split=ag.split_t)
+        att.stats_logits(ag.row_ptr, ag.col, ag.logval, es, ed, 0.2, split=ag.split)
+    elif kernel == "softmax_stats":
+        lg = torch.from_numpy(rng.randn(ag.n_edges).astype(np.float32))
+        with pytest.raises(ValueError, match="fingerprint"):
+            att.softmax_stats(ag.row_ptr, lg, split=ag.split_t)
+        with pytest.raises(ValueError, match="fingerprint"):
+            att.softmax_stats(ag.row_ptr_t, lg, split=ag.split)
+        att.softmax_stats(ag.row_ptr, lg, split=ag.split)
+    else:
+        v = torch.from_numpy(rng.randn(ag.n_edges).astype(np.float32))
+        with pytest.raises(ValueError, match="fingerprint"):
+            att.rowsum(ag.row_ptr_t, v, split=ag.split)
+        with pytest.raises(ValueError, match="fingerprint"):
+            att.rowsum(ag.row_ptr, v, split=ag.split_t)
+        att.rowsum(ag.row_ptr, v, split=ag.split)
+        att.rowsum(ag.row_ptr_t, v, split=ag.split_t)
 
 
 def test_fingerprint_records_survive_moves_and_void_on_change():

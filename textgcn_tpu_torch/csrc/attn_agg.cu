@@ -41,16 +41,13 @@
 // partial rows are summed with shuffles at the end in a fixed order.
 #include <cuda_runtime.h>
 
-#include <climits>
-
-#include "row_split.cuh"  // S (TEXTGCN_K2_S) and pass 2
+#include "row_split.cuh"  // S (TEXTGCN_K2_S), kNeg, split_item and pass 2
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFull = 0xffffffffu;
-constexpr float kNeg = -1e30f;
 constexpr int kUnroll = 4;  // gathers a lane keeps in flight
 
 // acc[0..7] += w * (the 8 bf16 values of q); bf16 -> f32 is a 16-bit shift.
@@ -85,19 +82,8 @@ attn_agg_kernel(const int* __restrict__ row_ptr,
   const int grp = lane / lanes;   // which edge of each group of 32/lanes
   const int n_grp = 32 / lanes;
   int row, e0, e1;
-  float* dst;
-  if (w < n_seg) {
-    row = seg_row[w];
-    e0 = seg_e0[w];
-    e1 = min(e0 + kSegEdges, row_ptr[row + 1]);
-    dst = partial + (size_t)w * nv * 8;
-  } else {
-    row = w - n_seg;
-    e0 = row_ptr[row];
-    e1 = row_ptr[row + 1];
-    if (e1 - e0 > (n_seg ? kSegEdges : INT_MAX)) return;  // a long row: pass 2
-    dst = out + (size_t)row * nv * 8;
-  }
+  if (!split_item(w, n_seg, kSegEdges, row_ptr, seg_row, seg_e0, row, e0, e1)) return;
+  float* dst = w < n_seg ? partial + (size_t)w * nv * 8 : out + (size_t)row * nv * 8;
   const float m = mx[row];
   const float shift = m > 0.5f * kNeg ? m : 0.f;
   const float inv = 1.f / fmaxf(sm[row], 1e-30f);

@@ -62,10 +62,9 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include <climits>
 #include <cstdint>
 
-#include "row_split.cuh"  // pass 2
+#include "row_split.cuh"  // split_item and pass 2
 
 #ifndef TEXTGCN_K1_T
 #define TEXTGCN_K1_T 16
@@ -161,20 +160,9 @@ bsr_spmm_kernel(const __nv_bfloat16* __restrict__ tiles,
   const int stage_elems = kTile * kLdA + kK * ldx;
 
   const int w = blockIdx.x;
-  int t0, t1;
-  float* dst;
-  if (w < n_seg) {
-    const int br = seg_row[w];
-    t0 = seg_t0[w];
-    t1 = min(t0 + kSegTiles, tile_ptr[br + 1]);
-    dst = partial + (size_t)w * kTile * f;
-  } else {
-    const int br = w - n_seg;
-    t0 = tile_ptr[br];
-    t1 = tile_ptr[br + 1];
-    if (t1 - t0 > (n_seg ? kSegTiles : INT_MAX)) return;  // a long block-row: pass 2
-    dst = out + (size_t)br * kTile * f;
-  }
+  int br, t0, t1;
+  if (!split_item(w, n_seg, kSegTiles, tile_ptr, seg_row, seg_t0, br, t0, t1)) return;
+  float* dst = w < n_seg ? partial + (size_t)w * kTile * f : out + (size_t)br * kTile * f;
   const int n_units = 2 * (t1 - t0);  // half tiles: unit u is half u % 2 of tile u / 2
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;

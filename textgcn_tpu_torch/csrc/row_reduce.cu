@@ -48,10 +48,9 @@
 // flight. Wider rows walk in column tiles of 32*V columns.
 #include <cuda_runtime.h>
 
-#include <climits>
 #include <cstdint>
 
-#include "row_split.cuh"  // S (TEXTGCN_K2_S) and pass 2
+#include "row_split.cuh"  // S (TEXTGCN_K2_S), split_item and pass 2
 
 #ifndef TEXTGCN_K2_NARROW_F
 #define TEXTGCN_K2_NARROW_F 16
@@ -184,20 +183,9 @@ row_reduce_kernel(const int* __restrict__ row_ptr,
   const int nv = f / V;
   const bool seg = w < n_seg;
   int row, e0, e1;
-  float* dst;
-  if (seg) {
-    row = seg_row[w];
-    e0 = seg_e0[w];
-    e1 = min(e0 + kSegEdges, row_ptr[row + 1]);
-    dst = partial + (size_t)w * f;
-  } else {
-    row = w - n_seg;
-    e0 = row_ptr[row];
-    e1 = row_ptr[row + 1];
-    if (e1 - e0 > (n_seg ? kSegEdges : INT_MAX)) return;  // a long row: pass 2
-    if (e0 == e1 && has_base) return;             // nothing to add
-    dst = out + (size_t)row * f;
-  }
+  if (!split_item(w, n_seg, kSegEdges, row_ptr, seg_row, seg_e0, row, e0, e1)) return;
+  if (!seg && e0 == e1 && has_base) return;  // nothing to add
+  float* dst = seg ? partial + (size_t)w * f : out + (size_t)row * f;
   for (int v0 = 0; v0 < nv; v0 += lanes) {
     const int v = v0 + sub;
     const bool active = v < nv;

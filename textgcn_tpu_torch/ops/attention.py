@@ -15,14 +15,24 @@ wrapper             kernel                       replaces (Pallas)
 ==================  ===========================  ==============================
 
 Each source carries its note (what bounds it on the card, what its design
-does about that). ``attn_agg`` splits the forward CSR's rows longer than
-K2's S with the forward split table (``split``), as K2 does. ``dx`` of both
-ops goes through K2 (:func:`textgcn_tpu_torch.ops.row_reduce.row_reduce`)
-over the transpose CSR, with the transpose CSR's split table (``split_t``),
-as the JAX package sends it through the one-hot kernel (``_onehot_kernel``)
-over the transpose plan. Each table's fingerprint is recorded on its
-``row_ptr`` (:mod:`~textgcn_tpu_torch.ops.split`), so the two, whose
-counts are equal for a square graph, cannot be swapped.
+does about that). On a degree-sorted graph a kernel that gives each row
+one warp waits for the hub row (R8's: 9,589 edges) while the rest of the
+card idles. So each row-wise kernel splits a CSR's rows longer than K2's S
+into row-local segments with that CSR's split table (``split``), as K2
+does: ``stats_logits``, ``softmax_stats``, ``attn_agg`` and ``rowsum`` over
+the forward CSR take the forward table (``AttentionGraph.split``), and
+``rowsum`` over the transpose CSR (ded) takes the transpose table
+(``split_t``); ``sddmm`` is edge-parallel and needs none. A segment's warp
+writes a partial (a feature row, an f32 sum, or a softmax pair (max, sum
+of exp(x - max))), and a second small launch combines a long row's
+partials in segment order: no atomics, so two launches give the same bits.
+``dx`` of both ops goes through K2
+(:func:`textgcn_tpu_torch.ops.row_reduce.row_reduce`) over the transpose
+CSR, with the transpose table, as the JAX package sends it through the
+one-hot kernel (``_onehot_kernel``) over the transpose plan. Each table's
+fingerprint is recorded on its ``row_ptr``
+(:mod:`~textgcn_tpu_torch.ops.split`), so the two, whose counts are equal
+for a square graph, cannot be swapped.
 
 Layout. The TPU's ``OneHotPlan`` (windows, k-chunks, superchunks, phantom
 slots, 128-lane replicated stats) is not carried over. An
@@ -94,9 +104,11 @@ class AttentionGraph:
       edge_pos:  [E] forward position of each input edge, in input order
                  (the counterpart of ``fwd_dst``).
       split:     the forward CSR's :class:`RowSplit` (the segments of its
-                 rows longer than K2's S, for ``attn_agg``), or None.
-      split_t:   the transpose CSR's :class:`RowSplit` (for K2 as dx), or
-                 None when it has none.
+                 rows longer than K2's S, for ``stats_logits``,
+                 ``softmax_stats``, ``attn_agg`` and ``rowsum`` over it), or
+                 None.
+      split_t:   the transpose CSR's :class:`RowSplit` (for K2 as dx and
+                 ``rowsum`` over it), or None when it has none.
     ``n_nodes`` is the row space (softmax rows, outputs, es) and ``n_cols``
     the column space (x, ed); they are equal for a square graph. Each
     table's fingerprint is recorded on its ``row_ptr`` / ``row_ptr_t``.
@@ -279,15 +291,33 @@ def _stream():
     return torch.cuda.current_stream().cuda_stream
 
 
-def stats_logits(row_ptr, col, logval, es, ed, slope: float):
+def _split_args(name, ref, split, width):
+    """``(table, partial, n_seg, n_long)`` for a kernel's C entry point:
+    nothing without a table; else the table (checked to lie on ``ref``'s
+    device) and an [n_seg, width] f32 scratch for the segments' partials."""
+    if split is None:
+        return None, None, 0, 0
+    _on_cuda(name, ref, split=(split.table, torch.int32))
+    partial = torch.empty(split.n_seg, width, dtype=torch.float32, device=ref.device)
+    return split.table, partial, split.n_seg, split.n_long
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def stats_logits(row_ptr, col, logval, es, ed, slope: float, split=None):
     """Per-edge GAT logits ``leaky(es[row] + ed[col], slope) + logval`` over
     the forward CSR, with each row's softmax max and sum over them.
 
     Returns ``(logits [E], mx [n_rows], sm [n_rows])``, f32. A row with no
-    edges has ``mx = -1e30`` and ``sm = 0``. On CPU tensors this runs
-    :func:`stats_logits_plain`; on CUDA tensors it launches
-    ``csrc/attn_stats.cu`` or raises.
+    edges has ``mx = -1e30`` and ``sm = 0``. ``split`` is the forward CSR's
+    :class:`RowSplit` (``AttentionGraph.split``; None when no row is longer
+    than S); a table of another CSR is refused, on the CPU too, with no
+    device sync. On CPU tensors this runs :func:`stats_logits_plain`; on
+    CUDA tensors it launches ``csrc/attn_stats.cu`` or raises.
     """
+    check_split("stats_logits", row_ptr, col.numel(), split, RowSplit, SEGMENT_EDGES)
     if es.device.type == "cpu":
         return stats_logits_plain(row_ptr, col, logval, es, ed, slope)
     i32, f32 = torch.int32, torch.float32
@@ -299,22 +329,26 @@ def stats_logits(row_ptr, col, logval, es, ed, slope: float):
     logits = torch.empty_like(logval)
     mx = torch.empty(n_rows, dtype=f32, device=es.device)
     sm = torch.empty_like(mx)
+    table, partial, n_seg, n_long = _split_args("stats_logits", es, split, 2)
     lib = _build.load()
     with torch.cuda.device(es.device):
         err = lib.textgcn_attn_stats(
             row_ptr.data_ptr(), col.data_ptr(), logval.data_ptr(), es.data_ptr(),
             ed.data_ptr(), logits.data_ptr(), mx.data_ptr(), sm.data_ptr(),
-            n_rows, float(slope), 1, _stream(),
+            _ptr(table), _ptr(partial), n_rows, float(slope), 1, n_seg, n_long,
+            _stream(),
         )
     stats_logits.launches += 1
     _build.check_launch("stats_logits", err)
     return logits, mx, sm
 
 
-def softmax_stats(row_ptr, logits):
+def softmax_stats(row_ptr, logits, split=None):
     """Each row's softmax max and sum over given per-edge ``logits`` (the
     kernel of :func:`stats_logits` without building them). Returns
-    ``(mx, sm)``, [n_rows] f32 each."""
+    ``(mx, sm)``, [n_rows] f32 each. ``split`` is the forward CSR's
+    :class:`RowSplit`, checked as in :func:`stats_logits`."""
+    check_split("softmax_stats", row_ptr, logits.numel(), split, RowSplit, SEGMENT_EDGES)
     if logits.device.type == "cpu":
         return softmax_stats_plain(row_ptr, logits)
     _on_cuda("softmax_stats", logits, row_ptr=(row_ptr, torch.int32),
@@ -322,11 +356,13 @@ def softmax_stats(row_ptr, logits):
     n_rows = row_ptr.numel() - 1
     mx = torch.empty(n_rows, dtype=torch.float32, device=logits.device)
     sm = torch.empty_like(mx)
+    table, partial, n_seg, n_long = _split_args("softmax_stats", logits, split, 2)
     lib = _build.load()
     with torch.cuda.device(logits.device):
         err = lib.textgcn_attn_stats(
             row_ptr.data_ptr(), None, None, None, None, logits.data_ptr(),
-            mx.data_ptr(), sm.data_ptr(), n_rows, 0.0, 0, _stream(),
+            mx.data_ptr(), sm.data_ptr(), _ptr(table), _ptr(partial), n_rows, 0.0,
+            0, n_seg, n_long, _stream(),
         )
     softmax_stats.launches += 1
     _build.check_launch("softmax_stats", err)
@@ -355,20 +391,13 @@ def attn_agg(row_ptr, col, logits, mx, sm, x, split=None):
     _features("attn_agg", x)
     n_rows, f = row_ptr.numel() - 1, x.shape[1]
     out = torch.empty(n_rows, f, dtype=f32, device=x.device)
-    if split is None:
-        table, partial, n_seg, n_long = None, None, 0, 0
-    else:
-        _on_cuda("attn_agg", x, split=(split.table, i32))
-        table, n_seg, n_long = split.table, split.n_seg, split.n_long
-        partial = torch.empty(n_seg, f, dtype=f32, device=x.device)
+    table, partial, n_seg, n_long = _split_args("attn_agg", x, split, f)
     lib = _build.load()
     with torch.cuda.device(x.device):
         err = lib.textgcn_attn_agg(
             row_ptr.data_ptr(), col.data_ptr(), logits.data_ptr(), mx.data_ptr(),
-            sm.data_ptr(), x.data_ptr(), out.data_ptr(),
-            None if table is None else table.data_ptr(),
-            None if partial is None else partial.data_ptr(), n_rows, f // VEC,
-            n_seg, n_long, _stream(),
+            sm.data_ptr(), x.data_ptr(), out.data_ptr(), _ptr(table), _ptr(partial),
+            n_rows, f // VEC, n_seg, n_long, _stream(),
         )
     attn_agg.launches += 1
     _build.check_launch("attn_agg", err)
@@ -408,19 +437,25 @@ def sddmm(row_ptr, col, g, x, row):
     return u
 
 
-def rowsum(row_ptr, v):
+def rowsum(row_ptr, v, split=None):
     """``out[r] = sum_{e in row r} v[e]`` over a CSR; returns [n_rows] f32.
-    On CPU tensors this runs :func:`rowsum_plain`; on CUDA tensors it
-    launches ``csrc/rowsum.cu`` or raises."""
+    ``split`` is that CSR's :class:`RowSplit` (``AttentionGraph.split`` for
+    the forward CSR, ``split_t`` for the transpose; None when no row is
+    longer than S); a table of another CSR is refused, on the CPU too, with
+    no device sync. On CPU tensors this runs :func:`rowsum_plain`; on CUDA
+    tensors it launches ``csrc/rowsum.cu`` or raises."""
+    check_split("rowsum", row_ptr, v.numel(), split, RowSplit, SEGMENT_EDGES)
     if v.device.type == "cpu":
         return rowsum_plain(row_ptr, v)
     _on_cuda("rowsum", v, row_ptr=(row_ptr, torch.int32), v=(v, torch.float32))
     n_rows = row_ptr.numel() - 1
     out = torch.empty(n_rows, dtype=torch.float32, device=v.device)
+    table, partial, n_seg, n_long = _split_args("rowsum", v, split, 1)
     lib = _build.load()
     with torch.cuda.device(v.device):
         err = lib.textgcn_rowsum(
-            row_ptr.data_ptr(), v.data_ptr(), out.data_ptr(), n_rows, _stream()
+            row_ptr.data_ptr(), v.data_ptr(), out.data_ptr(), _ptr(table),
+            _ptr(partial), n_rows, n_seg, n_long, _stream(),
         )
     rowsum.launches += 1
     _build.check_launch("rowsum", err)
@@ -465,7 +500,7 @@ def _softmax_backward(ag: AttentionGraph, wt, g16, x16):
     and ``S_row = sum_row wt * u`` (rowsum), and ``dx = Aᵀ_wt @ g`` (K2 over
     the transpose CSR with the weights moved there)."""
     u = sddmm(ag.row_ptr, ag.col, g16, x16, ag.row)
-    s_row = rowsum(ag.row_ptr, wt * u)
+    s_row = rowsum(ag.row_ptr, wt * u, split=ag.split)
     dlog = wt * (u - s_row.index_select(0, ag.row))
     dx = row_reduce(
         ag.row_ptr_t, ag.col_t, wt.index_select(0, ag.perm_t), g16, split=ag.split_t
@@ -477,7 +512,8 @@ class _GatAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, ag, es, ed, x, slope):
         logits, mx, sm = stats_logits(
-            ag.row_ptr, ag.col, ag.logval, es.contiguous(), ed.contiguous(), slope
+            ag.row_ptr, ag.col, ag.logval, es.contiguous(), ed.contiguous(), slope,
+            split=ag.split,
         )
         x16 = features_bf16(x)
         out = attn_agg(ag.row_ptr, ag.col, logits, mx, sm, x16, split=ag.split)
@@ -495,8 +531,8 @@ class _GatAttention(torch.autograd.Function):
         # leaky' from the stored logits: logit - logval = leaky(base) has
         # base's sign; a -inf - -inf NaN picks the slope where dlog is 0
         dbase = dlog * torch.where(logits - ag.logval >= 0, 1.0, slope)
-        des = rowsum(ag.row_ptr, dbase)
-        ded = rowsum(ag.row_ptr_t, dbase.index_select(0, ag.perm_t))
+        des = rowsum(ag.row_ptr, dbase, split=ag.split)
+        ded = rowsum(ag.row_ptr_t, dbase.index_select(0, ag.perm_t), split=ag.split_t)
         return None, des, ded, dx[:, :f], None
 
 
@@ -523,7 +559,7 @@ class _AttentionSpmm(torch.autograd.Function):
     @staticmethod
     def forward(ctx, ag, logits, x):
         logits = logits.contiguous()
-        mx, sm = softmax_stats(ag.row_ptr, logits)
+        mx, sm = softmax_stats(ag.row_ptr, logits, split=ag.split)
         x16 = features_bf16(x)
         out = attn_agg(ag.row_ptr, ag.col, logits, mx, sm, x16, split=ag.split)
         ctx.ag = ag
