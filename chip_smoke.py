@@ -5,7 +5,7 @@
 
 Run from the root of a checkout on a machine with one NVIDIA Hopper GPU and
 ``nvcc``. It builds the CUDA kernels from ``textgcn_tpu_torch/csrc`` and
-drives the port's two main paths on R8 doc-word:
+drives the port's paths: on R8 doc-word, then on R8's topic graph:
 
 - GCN: holds K1 (through the tile stack's split table; two launches must
   give the same bits) and K2 against their plain PyTorch versions at the
@@ -46,6 +46,19 @@ drives the port's two main paths on R8 doc-word:
   GPU): ``bsr_leg`` and K2 must run on rank 0 and test accuracy must reach
   0.95 in both.
 
+- Topic slice (TopicGCN on R8's topic graph, from copies of the committed
+  artifacts in a temporary directory; the checkout's theta cache is read,
+  never written): prepares the graph on the card and holds K1 (the topic
+  layout has no residual edges for K2) and the hybrid pass against their
+  plain versions at the topic widths; runs the port's LDA E-step on the
+  card against the committed theta (max abs diff 1e-4) and through
+  prepare with no cache; trains GCN and GAT on the JAX package's five
+  seeds (GCN mean >= 0.9411, both within 0.005 of the JAX package's
+  committed means), the six other families on their committed seeds
+  (within 0.01), the GCN on ``--spmm auto`` and every family once on
+  ``--spmm hybrid`` (within 0.01 of its segment run at that seed; K1, and
+  for GAT its kernels and K2 as dx, must launch).
+
 Every kernel's record also carries its bound on the card (the larger of its
 bytes over the memory rate and its operations over the peak rate, from this
 run's inputs) and the time of one PyTorch call that computes the same
@@ -66,14 +79,17 @@ lines are the kernels' JSON record, the card's name and power limit, and
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
 import time
 import warnings
 
+import numpy as np
 import torch
 
+REPO = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
 ACC_MIN = 0.95  # the JAX package records 96.85% mean over 3 seeds here
 # K1 vs plain: the same bf16 products summed in f32, in another order
@@ -110,6 +126,18 @@ SYM_TOL = 1e-5
 STEP_LOSS_TOL, STEP_GRAD_TOL = 1e-4, 1e-3
 # sharded GCN: ranks of R8 doc-word
 SHARDS = 4
+# the topic slice: the JAX package's bench seeds, the reference TopicGCN's
+# R8 test accuracy, and the largest gaps of a mean from the JAX package's
+# committed mean on the same seeds (GCN and GAT; the other families), which
+# also bound a one-seed run on another format against its segment run
+BENCH_SEEDS = (7, 42, 1234, 31415, 2718)
+REF_TOPIC_ACC = 0.9411
+TOPIC_GAP, FAMILY_GAP = 0.005, 0.01
+HYBRID_SEED = 7
+NEW_FAMILIES = ("sgc", "sgc_pre", "appnp", "sage", "gin", "gcnii")
+# theta on the card vs the JAX E-step's: f32 E-steps, digamma differing in
+# the last bits, up to 100 iterations a chunk
+THETA_TOL = 1e-4
 # H100 SXM peaks (NVIDIA's data sheet): HBM rate, dense bf16 tensor
 # cores, f32 outside them
 HBM_BYTES_PER_S = 3.35e12
@@ -621,42 +649,50 @@ def attention_spmm_path(att, ag, gen, counters, steps=3):
     return launches
 
 
-def train_via_cli(cli, model, flags, acc_min, counters, need):
-    """Train R8 doc-word once through the port's CLI with every launch count
-    set to 0 just before; check the run and return the counts (summed over
-    each kernel's wrappers) read just after."""
+def run_cli(cli, args, counters, graph):
+    """``cli train --dataset R8 *args`` with every launch count set to 0 just
+    before; returns (the report, the counts read just after, summed over
+    each kernel's wrappers, and the wall seconds). Raises unless it returns
+    0 with finite losses in every run."""
     for fns in counters.values():
         for fn in fns:
             fn.launches = 0
     torch.cuda.reset_peak_memory_stats()
     with tempfile.TemporaryDirectory() as out_dir:
         t0 = time.perf_counter()
-        rc = cli.main([
-            "train", "--dataset", "R8", "--graph", "docword", *flags,
-            "--times", "1", "--seed", str(SEED), "--quiet",
-            "--output_dir", out_dir,
-        ])
-        wall = time.perf_counter() - t0
+        rc = cli.main(["train", "--dataset", "R8", *args, "--quiet", "--output_dir", out_dir])
+        wall_s = time.perf_counter() - t0
         launches = {k: sum(fn.launches for fn in fns) for k, fns in counters.items()}
-        with open(os.path.join(out_dir, "R8_docword_training_results.json")) as fh:
+        with open(os.path.join(out_dir, f"R8_{graph}_training_results.json")) as fh:
             summary = json.load(fh)
     if rc != 0:
-        raise AssertionError(f"cli train returned {rc}")
+        raise AssertionError(f"cli train {' '.join(args)} returned {rc}")
+    if not all(
+        math.isfinite(r[k]) for run in summary["runs"] for r in run["history"]
+        for k in ("train_loss", "val_loss")
+    ):
+        raise AssertionError(f"non-finite loss in a training history of {' '.join(args)}")
+    return summary, launches, wall_s
+
+
+def train_via_cli(cli, model, flags, acc_min, counters, need):
+    """Train R8 doc-word once through the port's CLI with every launch count
+    set to 0 just before; check the run and return the counts (summed over
+    each kernel's wrappers) read just after."""
+    summary, launches, wall_s = run_cli(
+        cli, ["--graph", "docword", *flags, "--times", "1", "--seed", str(SEED)],
+        counters, "docword",
+    )
     if "--shards" in flags and summary.get("sharding", {}).get("kernel") != "hybrid":
         raise AssertionError(f"a sharded run's report lacks its sharding: {summary.get('sharding')}")
     if min(launches[k] for k in need) < 1:
         raise AssertionError(f"a kernel of the {model} path never launched: {launches}")
     run = summary["runs"][0]
-    hist = run["history"]
-    if not all(
-        math.isfinite(r[k]) for r in hist for k in ("train_loss", "val_loss")
-    ):
-        raise AssertionError("non-finite loss in the training history")
     test = run["test"]
     epochs = run["epochs_run"]
     log(f"train {model}", f"cli train R8 docword {' '.join(flags)} seed "
         f"{run['seed']}: {epochs} epochs, train {test['train_time']:.3f} s = "
-        f"{1000 * test['train_time'] / epochs:.3f} ms/epoch, {wall:.1f} s with "
+        f"{1000 * test['train_time'] / epochs:.3f} ms/epoch, {wall_s:.1f} s with "
         f"data prep; test acc {test['acc']:.4f}, macro-F1 "
         f"{test['macro_f1']:.4f}; launches {launches}; peak memory "
         f"{json.dumps(summary['device_memory'])}")
@@ -705,6 +741,225 @@ def train_sharded_ranks(pre, counters, run1):
     if test["acc"] < ACC_MIN:
         raise AssertionError(f"sharded x{SHARDS} test accuracy {test['acc']:.4f} < {ACC_MIN}")
     return launches
+
+
+def topic_roots(tmp):
+    """Two data roots under ``tmp`` with copies of the committed R8 topic
+    artifacts (the label files and the clean corpus linked): ``fresh``, whose
+    theta cache is written after its model pickle, so prepare takes it as the
+    build stage left it (git keeps no mtimes, so a checkout may order the
+    committed files either way), and ``stale``, without the cache, so prepare
+    runs the E-step. Nothing of the checkout is written."""
+    roots = {}
+    for name, suffixes in (("fresh", (".txt", "_model.pkl", "_theta.npy")),
+                           ("stale", (".txt", "_model.pkl"))):
+        root = os.path.join(tmp, name)
+        os.makedirs(os.path.join(root, "graph"))
+        os.symlink(os.path.join(REPO, "data", "text_dataset"), os.path.join(root, "text_dataset"))
+        for suffix in suffixes:
+            shutil.copyfile(os.path.join(REPO, "data", "graph", f"R8_topic{suffix}"),
+                            os.path.join(root, "graph", f"R8_topic{suffix}"))
+        roots[name] = root
+    now = time.time()
+    os.utime(os.path.join(roots["fresh"], "graph", "R8_topic_model.pkl"), (now - 10, now - 10))
+    os.utime(os.path.join(roots["fresh"], "graph", "R8_topic_theta.npy"), (now, now))
+    return roots
+
+
+def topic_data_phase(dev, gen, records, root):
+    """16. topic data: the R8 topic graph prepared on the card, its hybrid
+    layout, and K1, K2 (where the layout has residual edges) and the hybrid
+    pass held against their plain versions at the topic path's widths (F =
+    200, 100, 8: F' = 208, 112, 16). Returns whether there is a residual."""
+    from textgcn_tpu_torch.graph.format import convert_graph
+    from textgcn_tpu_torch.graph.reorder import hybrid_pass, spmm_hybrid
+    from textgcn_tpu_torch.graph.structs import SparseGraph
+    from textgcn_tpu_torch.ops.bsr_spmm import F_ALIGN, SEGMENT_TILES, bsr_spmm, bsr_spmm_plain
+    from textgcn_tpu_torch.ops.row_reduce import SEGMENT_EDGES, row_reduce, row_reduce_plain
+    from textgcn_tpu_torch.ops.spmm import spmm_coo_segment
+    from textgcn_tpu_torch.train.prepare import cached_theta, prepare_topic_data
+
+    base = os.path.join(root, "graph", "R8_topic")
+    theta_from = "the cache" if cached_theta(base, 7674, 50) is not None else "the E-step"
+    t0 = time.perf_counter()
+    pre = prepare_topic_data("R8", data_root=root, device=dev)
+    prep_s = time.perf_counter() - t0
+    if (pre.n_nodes, pre.num_docs, pre.num_topics) != (7724, 7674, 50) or pre.features.shape != (7724, 100):
+        raise AssertionError(f"R8 topic prepared as {pre.n_nodes} nodes, features {pre.features.shape}")
+    t0 = time.perf_counter()
+    h, perm = convert_graph(pre.graph, "hybrid")
+    bsr, rest = h.bsr, h.rest
+    per_row = torch.diff(bsr.tile_ptr.long())
+    ksp = bsr.split
+    log("topic data", f"R8 topic on the card: {pre.n_nodes} nodes ({pre.num_docs} docs, "
+        f"{pre.num_topics} topics), {pre.graph.n_edges} stored edges, features "
+        f"{list(pre.features.shape)} {pre.features.dtype}, theta from {theta_from}; "
+        f"{prep_s:.2f} s. Hybrid: {bsr.nnzb} tiles ({bsr.n_edges} edges, "
+        f"{h.dense_fraction:.4f}) in {bsr.n_block_rows} block-rows, tiles a block-row "
+        f"{per_row.tolist()}; K1 T = {SEGMENT_TILES}: {0 if ksp is None else ksp.n_long} "
+        f"block-rows longer than T cut into {0 if ksp is None else ksp.n_seg} segments; "
+        + ("no residual edges: K2 has no work on this layout" if rest is None else
+           f"residual {rest.n_edges} edges, longest row {int(torch.diff(rest.row_ptr).max())}, "
+           f"K2 S = {SEGMENT_EDGES} ({0 if rest.split is None else rest.split.n_long} rows "
+           f"split)") + f"; {time.perf_counter() - t0:.2f} s for the layout")
+    n_pad = bsr.n_block_rows * bsr.bm
+    for f in (200, 100, 8):
+        fp = -(-f // F_ALIGN) * F_ALIGN
+        xp = torch.zeros((n_pad, fp), dtype=torch.bfloat16, device=dev)
+        xp[: h.n_nodes, :f] = torch.randn((h.n_nodes, f), generator=gen, device=dev)
+        args = (bsr.blocks, bsr.tile_ptr, bsr.block_cols, xp)
+        got = bsr_spmm(*args, split=ksp)
+        if not torch.equal(got, bsr_spmm(*args, split=ksp)):
+            raise AssertionError(f"two K1 launches differ on the topic tiles at F={f}")
+        err, _ = compare(got, bsr_spmm_plain(*args), K1_TOL)
+        ms, dev_ms = both_ms(lambda: bsr_spmm(*args, split=ksp))
+        plain_ms = cuda_ms(lambda: bsr_spmm_plain(*args))
+        records["bsr_spmm"].append((err, ms, dev_ms, plain_ms))
+        k2 = ""
+        if rest is not None:
+            rargs = (rest.row_ptr, rest.col, rest.val, xp)
+            err_k, _ = compare(row_reduce(*rargs, base=got.clone(), split=rest.split),
+                               row_reduce_plain(*rargs, base=got.clone()), K2_TOL)
+            ms_k, dev_k = both_ms(lambda: row_reduce(*rargs, base=got, split=rest.split))
+            plain_k = cuda_ms(lambda: row_reduce_plain(*rargs, base=got))
+            records["row_reduce"].append((err_k, ms_k, dev_k, plain_k))
+            k2 = (f"; K2 with base max abs err {err_k:.3e}, {ms_k:.4f} ms a call "
+                  f"({dev_k:.4f} device), plain {plain_k:.4f} ms, tol {K2_TOL}*(1+|ref|)")
+        log("topic K1/K2", f"F={f} (F'={fp}) on the R8 topic layout: K1 max abs err "
+            f"{err:.3e}, tol {K1_TOL}*(1+|ref|), two launches bit-equal, {ms:.4f} ms a call "
+            f"({dev_ms:.4f} device), plain {plain_ms:.4f} ms{k2}")
+    row, col, val = pre.graph.coo_numpy()
+    seg = SparseGraph.from_coo(perm[row], perm[col], val, h.n_nodes, device=dev)
+    x = torch.randn((h.n_nodes, 200), generator=gen, device=dev).requires_grad_(True)
+    y = spmm_hybrid(h, x)
+    err, _ = compare(y.detach(), spmm_coo_segment(seg.row, seg.col, seg.val, x.detach(), h.n_nodes),
+                     HYBRID_TOL)
+    cot = torch.randn(y.shape, generator=gen, device=dev)
+    y.backward(cot)
+    if not torch.equal(x.grad, hybrid_pass(h, cot)):
+        raise AssertionError("topic hybrid: autograd backward differs from a pass on the cotangent")
+    gerr, _ = compare(x.grad, spmm_coo_segment(seg.col, seg.row, seg.val, cot, h.n_nodes), HYBRID_TOL)
+    hyb_ms = cuda_ms(lambda: hybrid_pass(h, x.detach()))
+    seg_ms = cuda_ms(lambda: spmm_coo_segment(seg.row, seg.col, seg.val, x.detach(), h.n_nodes))
+    log("topic hybrid pass", f"F=200 vs the segment oracle: max abs err {err:.3e}, backward "
+        f"{gerr:.3e}, tol {HYBRID_TOL}*(1+|ref|); backward == pass on the cotangent; hybrid "
+        f"pass {hyb_ms:.4f} ms, segment pass {seg_ms:.4f} ms")
+    return rest is not None
+
+
+def lda_phase(dev, roots):
+    """17. lda e-step: the port's ``LDA.transform`` on the card over the R8
+    clean corpus against the committed theta (the JAX package's E-step), and
+    prepare's stale-cache path (the E-step inside ``prepare_topic_data``)."""
+    from textgcn_tpu_torch.topics import lda as lda_mod
+    from textgcn_tpu_torch.topics.model import TopicModel, load_documents_from_file
+    from textgcn_tpu_torch.train.prepare import prepare_topic_data
+
+    tm = TopicModel().load(os.path.join(REPO, "data", "graph", "R8_topic_model.pkl"))
+    docs = load_documents_from_file(os.path.join(REPO, "data", "text_dataset", "clean_corpus", "R8.txt"))
+    seen, e_step = [], lda_mod._e_step
+
+    def traced(x, gamma0, exp_elog_beta, *a, **k):
+        seen.append({t.device.type for t in (x, gamma0, exp_elog_beta)})
+        return e_step(x, gamma0, exp_elog_beta, *a, **k)
+
+    lda_mod._e_step = traced
+    try:
+        theta, secs = wall(lambda: tm.get_document_topic_distribution(docs, device=dev))
+        stale, stale_s = wall(lambda: prepare_topic_data("R8", data_root=roots["stale"], device=dev))
+    finally:
+        lda_mod._e_step = e_step
+    want = np.load(os.path.join(REPO, "data", "graph", "R8_topic_theta.npy"))
+    diff = float(np.abs(theta - want).max())
+    fresh = prepare_topic_data("R8", data_root=roots["fresh"], device=dev)
+    x_diff = float(np.abs(stale.features - fresh.features).max())
+    cache = os.path.join(roots["stale"], "graph", "R8_topic_theta.npy")
+    log("lda e-step", f"LDA.transform on the card over {len(docs)} R8 docs "
+        f"({len(seen) // 2} chunks of {tm.lda.chunk_size}; E-step tensors on "
+        f"{sorted(set().union(*seen))}): {secs:.2f} s with the host's vectorizing; "
+        f"theta max abs diff vs the committed (JAX) theta {diff:.3e}, limit {THETA_TOL}; "
+        f"prepare with no cache {stale_s:.2f} s (E-step on the card, cache written: "
+        f"{os.path.exists(cache)}), its X vs the cached X max abs diff {x_diff:.3e}")
+    if not seen or any(d != {"cuda"} for d in seen):
+        raise AssertionError(f"an E-step tensor was not on cuda: {seen}")
+    if theta.shape != want.shape or diff > THETA_TOL:
+        raise AssertionError(f"theta differs from the committed theta by {diff:.3e}")
+    if not os.path.exists(cache) or x_diff > THETA_TOL:
+        raise AssertionError(f"prepare's E-step path: cache {os.path.exists(cache)}, X diff {x_diff:.3e}")
+
+
+def committed(family):
+    """The JAX package's committed R8 topic report of ``family``."""
+    name = {"gcn": "", "sgc_pre": "_sgcpre"}.get(family, f"_{family}")
+    with open(os.path.join(REPO, "results", f"R8_topic{name}_training_results.json")) as fh:
+        return json.load(fh)
+
+
+def topic_runs(cli, counters, root, family, spmm, seeds):
+    """``cli train --dataset R8`` (no ``--graph``: the topic graph) of
+    ``family`` on ``spmm`` over ``seeds``; returns (report, launches, {seed:
+    acc}, a one-line account)."""
+    summary, launches, wall_s = run_cli(
+        cli, ["--data_root", root, "--model", family, "--spmm", spmm,
+              "--seeds", *map(str, seeds)], counters, "topic",
+    )
+    if summary["graph_family"] != "topic" or summary["hyperparameters"]["model"] != family:
+        raise AssertionError(f"a topic run reports {summary['graph_family']}, {summary['hyperparameters']}")
+    accs = {r["seed"]: r["test"]["acc"] for r in summary["runs"]}
+    runs = "; ".join(
+        f"seed {r['seed']}: acc {r['test']['acc']:.4f}, {r['epochs_run']} epochs, "
+        f"{1000 * r['test']['train_time'] / r['epochs_run']:.3f} ms/epoch"
+        for r in summary["runs"]
+    )
+    text = (f"{family} --spmm {spmm}: {runs}; mean acc "
+            f"{summary['test_accuracy']['mean']:.4f}; {wall_s:.1f} s with data prep")
+    return summary, launches, accs, text
+
+
+def topic_training_phases(cli, counters, root, residual):
+    """18-21. The topic slice through the CLI: GCN and GAT on the bench
+    seeds, each new family on its committed seeds (segment), the GCN on
+    --spmm auto, and every family once on its kernels (--spmm hybrid: K1,
+    and K2 where the layout has ``residual`` edges; GAT's kernels and K2 as
+    dx). Returns the launches of the hybrid runs: (non-GAT, GAT)."""
+    seg = {}
+    for phase, families in (("train topic gcn/gat", ("gcn", "gat")),
+                            ("train topic families", NEW_FAMILIES)):
+        for family in families:
+            ref = committed(family)
+            seeds = BENCH_SEEDS if family in ("gcn", "gat") else [r["seed"] for r in ref["runs"]]
+            summary, _, seg[family], text = topic_runs(cli, counters, root, family, "segment", seeds)
+            mean, ref_mean = summary["test_accuracy"]["mean"], ref["test_accuracy"]["mean"]
+            gap = mean - ref_mean
+            limit = TOPIC_GAP if family in ("gcn", "gat") else FAMILY_GAP
+            log(phase, f"{text}; the JAX package's mean on these seeds {ref_mean:.4f}, "
+                f"gap {gap:+.4f} (limit ±{limit})")
+            if abs(gap) > limit:
+                raise AssertionError(f"{family}: mean acc {mean:.4f} is {gap:+.4f} off the JAX package's")
+            if family == "gcn" and mean < REF_TOPIC_ACC:
+                raise AssertionError(f"topic GCN mean acc {mean:.4f} < the reference's {REF_TOPIC_ACC}")
+    _, _, acc, text = topic_runs(cli, counters, root, "gcn", "auto", [HYBRID_SEED])
+    gap = acc[HYBRID_SEED] - seg["gcn"][HYBRID_SEED]
+    log("train topic auto", f"{text} (dense); vs segment at this seed {gap:+.4f} (limit ±{FAMILY_GAP})")
+    if abs(gap) > FAMILY_GAP:
+        raise AssertionError(f"topic GCN on --spmm auto is {gap:+.4f} off its segment run")
+    hybrid = {}
+    for family in ("gcn", *NEW_FAMILIES, "gat"):
+        _, launches, acc, text = topic_runs(cli, counters, root, family, "hybrid", [HYBRID_SEED])
+        need = (("row_reduce", "attn_stats", "attn_agg", "sddmm", "rowsum") if family == "gat"
+                else ("bsr_spmm", "row_reduce") if residual else ("bsr_spmm",))
+        if family != "gat" and not residual and launches["row_reduce"]:
+            raise AssertionError(f"K2 ran on a layout without residual edges: {launches}")
+        gap = acc[HYBRID_SEED] - seg[family][HYBRID_SEED]
+        log("train topic hybrid", f"{text}; vs segment at this seed {gap:+.4f} (limit "
+            f"±{FAMILY_GAP}); launches {launches}")
+        if min(launches[k] for k in need) < 1:
+            raise AssertionError(f"a kernel of the topic {family} path never launched: {launches}")
+        if abs(gap) > FAMILY_GAP:
+            raise AssertionError(f"topic {family} on --spmm hybrid is {gap:+.4f} off its segment run")
+        hybrid[family] = launches
+    gat = hybrid.pop("gat")
+    return {k: sum(v[k] for v in hybrid.values()) for k in gat}, gat
 
 
 def main() -> int:
@@ -1080,6 +1335,13 @@ def main() -> int:
     # 10-15. the streamed slice at the baseline scale config
     stream_launches = stream_phases(dev, gen, records, yard, r8_graph)
 
+    # 16-21. the topic slice: its data, the E-step, and every family trained
+    with tempfile.TemporaryDirectory() as tmp:
+        roots = topic_roots(tmp)
+        residual = topic_data_phase(dev, gen, records, roots["fresh"])
+        lda_phase(dev, roots)
+        topic_hybrid, topic_gat = topic_training_phases(cli, counters, roots["fresh"], residual)
+
     sources = {
         "bsr_spmm": ("textgcn_tpu_torch/csrc/bsr_spmm.cu",
                      "textgcn_tpu/ops/pallas_spmm.py:143"),
@@ -1102,11 +1364,11 @@ def main() -> int:
         "bsr_leg": ("textgcn_tpu_torch/csrc/bsr_spmm.cu",
                     "textgcn_tpu/parallel/mesh_kernels.py:641"),
     }
-    paths = (launches, gat_launches, spmm_launches, shard1, shard4)
+    paths = (launches, gat_launches, spmm_launches, shard1, shard4, topic_hybrid, topic_gat)
     total = {k: sum(p[k] for p in paths) for k in launches}
     # K2's one counter: the attention paths' launches are dx (B3), the
     # others B2
-    total["row_reduce_dx"] = gat_launches["row_reduce"] + spmm_launches["row_reduce"]
+    total["row_reduce_dx"] = sum(p["row_reduce"] for p in (gat_launches, spmm_launches, topic_gat))
     total["row_reduce"] -= total["row_reduce_dx"]
     total["sorted_chunk_add"] = stream_launches
     kernels = []

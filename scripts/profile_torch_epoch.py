@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
-"""Where a steady R8 doc-word epoch of the PyTorch port spends its time.
+"""Where a steady R8 epoch of the PyTorch port spends its time.
 
-    python scripts/profile_torch_epoch.py [--model gcn|gat] [--epochs 20] [--warmup 10]
+    python scripts/profile_torch_epoch.py [--graph docword|topic] [--model gat]
+        [--spmm hybrid] [--epochs 20] [--warmup 10]
 
-Runs on one CUDA GPU (it fails without one). It prepares R8 doc-word in
-the ``--spmm hybrid`` layout of ``--model`` as ``train/run.py`` does and
-builds the trainer the CLI runs (``train/trainer.py`` ``Trainer``). One
+Runs on one CUDA GPU (it fails without one). It prepares R8's ``--graph``
+(doc-word by default) in the ``--spmm`` layout of ``--model`` (any family)
+as ``train/run.py`` does, with ``sgc_pre``'s precompute, and builds the
+trainer the CLI runs (``train/trainer.py`` ``Trainer``). One
 ``fit`` of ``--warmup`` epochs builds the kernels and warms the allocator;
 a second ``fit`` of ``--epochs`` epochs runs under ``torch.profiler``
 (early stopping off in both, so every epoch runs). ``fit`` draws a fresh
@@ -29,16 +31,19 @@ import torch
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
 
-from textgcn_tpu_torch.train.prepare import (  # noqa: E402
-    apply_spmm_format, prepare_docword_data,
+from textgcn_tpu_torch.models import MODELS  # noqa: E402
+from textgcn_tpu_torch.train.prepare import apply_spmm_format  # noqa: E402
+from textgcn_tpu_torch.train.run import (  # noqa: E402
+    apply_gat_format, apply_sgc_precompute, prepare_data,
 )
-from textgcn_tpu_torch.train.run import apply_gat_format  # noqa: E402
 from textgcn_tpu_torch.train.trainer import TrainConfig, Trainer  # noqa: E402
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--model", choices=("gcn", "gat"), default="gat")
+    ap.add_argument("--graph", choices=("docword", "topic"), default="docword")
+    ap.add_argument("--model", choices=sorted(MODELS), default="gat")
+    ap.add_argument("--spmm", default="hybrid")
     ap.add_argument("--epochs", type=int, default=20)
     ap.add_argument("--warmup", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
@@ -47,15 +52,17 @@ def main(argv=None) -> int:
         print("profile_torch_epoch: no CUDA device available", file=sys.stderr)
         return 1
     dev = torch.device("cuda")
-    pre = prepare_docword_data("R8", device=dev)
+    pre = prepare_data("R8", args.graph, "data", device=dev)
     if args.model == "gat":
-        pre = apply_gat_format(pre, "hybrid")
+        pre = apply_gat_format(pre, args.spmm)
     else:
-        pre = apply_spmm_format(pre, "hybrid")
+        pre = apply_spmm_format(pre, args.spmm)
+    if args.model == "sgc_pre":
+        pre = apply_sgc_precompute(pre, device=dev)
     lab = pre.labels
     trainer = Trainer(
         pre.graph, pre.features, lab.target, lab.train_idx, lab.test_idx,
-        lab.n_classes, TrainConfig(model=args.model, spmm="hybrid", seed=args.seed),
+        lab.n_classes, TrainConfig(model=args.model, spmm=args.spmm, seed=args.seed),
         device=dev,
     )
 
@@ -91,7 +98,7 @@ def main(argv=None) -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip()
     print(f"{torch.cuda.get_device_name(0)}; nvidia-smi: {smi}")
-    print(f"{args.model} R8 doc-word --spmm hybrid: {wall_ms:.3f} ms/epoch over "
+    print(f"{args.model} R8 {args.graph} --spmm {args.spmm}: {wall_ms:.3f} ms/epoch over "
           f"{args.epochs} epochs of Trainer.fit (after a fit of {args.warmup}); "
           f"device busy {busy_ms:.3f} ms/epoch ({100 * busy_ms / wall_ms:.1f}%, idle "
           f"{100 * (1 - busy_ms / wall_ms):.1f}%)")
@@ -102,7 +109,8 @@ def main(argv=None) -> int:
         print(f"  {ms:8.4f} ms/epoch {100 * ms / max(busy_ms, 1e-9):5.1f}%  "
               f"{calls / args.epochs:5.1f} calls/epoch  {name[:100]}")
     print(json.dumps({
-        "model": args.model, "ms_per_epoch": wall_ms, "device_busy_ms": busy_ms,
+        "model": args.model, "graph": args.graph, "spmm": args.spmm,
+        "ms_per_epoch": wall_ms, "device_busy_ms": busy_ms,
         "kernels": [{"name": n, "ms_per_epoch": ms, "calls_per_epoch": c / args.epochs}
                     for n, (ms, c) in top[:15]],
     }))

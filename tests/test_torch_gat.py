@@ -286,7 +286,7 @@ def test_model_and_format_checks(tmp_path, monkeypatch):
     with pytest.raises(ValueError, match="GAT needs"):
         ttrainer.model_class("gat", hybrid.graph)
     with pytest.raises(ValueError, match="unknown model"):
-        ttrainer.model_class("sage", pt.graph)
+        ttrainer.model_class("graphormer", pt.graph)
     with pytest.raises(ValueError, match="GAT takes"):
         trun.apply_gat_format(pt, "bsr")
     monkeypatch.setattr(trun, "DENSE_MAX_NODES", 100)
@@ -310,7 +310,7 @@ def test_cli_model_and_onehot():
     assert (args.model, args.spmm) == ("gat", "onehot")
     assert cli.build_parser().parse_args(["train", "--dataset", "R8"]).model == "gcn"
     with pytest.raises(SystemExit):
-        cli.build_parser().parse_args(["train", "--dataset", "R8", "--model", "sage"])
+        cli.build_parser().parse_args(["train", "--dataset", "R8", "--model", "graphormer"])
     # GCN through --spmm onehot is not ported: it raises before any GPU check
     with pytest.raises(NotImplementedError, match="A.4"):
         cli.main(["train", "--dataset", "R8", "--graph", "docword", "--spmm", "onehot"])

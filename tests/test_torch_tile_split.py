@@ -11,7 +11,10 @@ containers are checked to build the table once and carry it (the shards'
 tables put together equal the single-device table), and every split table is
 checked to be refused with a CSR or tile stack it was not built from, even
 one with the same counts. On the CPU the wrappers run their plain versions.
+The ``--graph`` default is held on the tiny corpus of ``tests/test_runner.py``.
 """
+import inspect
+
 import numpy as np
 import pytest
 import torch
@@ -33,7 +36,10 @@ from textgcn_tpu_torch.ops.split import (
     RowSplit, TileSplit, build_split, fingerprint, fingerprint_of,
 )
 from textgcn_tpu_torch.parallel.mesh_kernels import MeshHybridAllGather
+from textgcn_tpu_torch.train import run as trun
 from textgcn_tpu_torch.train.run import run_experiment
+
+from torch_tiny_data import N_DOCS, N_TOPICS, build_tiny
 
 CPU = torch.device("cpu")
 T = SEGMENT_TILES
@@ -340,21 +346,37 @@ def test_attention_graph_builds_the_forward_split_and_moves_it():
 @pytest.mark.parametrize(
     "graph", [None, "topic", "docword"], ids=["default", "topic", "docword"]
 )
-def test_cli_graph_defaults_to_topic_and_raises_until_ported(graph, monkeypatch, tmp_path):
-    """C.1: as in the JAX package, ``--graph`` defaults to ``topic``, which
-    the port has no data path for yet: it raises, naming ROADMAP A.1, before
-    the GPU check; ``--graph docword`` reaches the GPU check as before. The
-    library's ``run_experiment`` defaults the same way."""
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    argv = ["train", "--dataset", "R8", "--spmm", "hybrid", "--output_dir", str(tmp_path)]
+def test_cli_graph_defaults_to_topic_and_prepares_it(graph, monkeypatch, tmp_path):
+    """C.1: as in the JAX package, ``--graph`` defaults to ``topic``, and
+    ``train`` without it (or with ``--graph topic``) prepares the topic graph
+    (docs, then topics; dense features) and trains on it; ``--graph
+    docword`` prepares the doc-word graph (identity features). The tiny
+    corpus's graphs are built by the JAX package's builders; the CLI runs on
+    the CPU here (it sees a CUDA device, and its ``run_experiment`` is given
+    the CPU). The library's ``run_experiment`` defaults the same way."""
+    root = build_tiny(tmp_path / "t", docword=True)
+    prepared, prepare_data = [], trun.prepare_data
+
+    def prepare(*a, **k):
+        prepared.append(prepare_data(*a, **k))
+        return prepared[-1]
+
+    monkeypatch.setattr(trun, "prepare_data", prepare)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(
+        cli, "run_experiment", lambda *a, **k: run_experiment(*a, **{**k, "device": "cpu"})
+    )
+    argv = ["train", "--dataset", "tiny", "--data_root", root, "--max_epoch", "2",
+            "--nhid", "8", "--quiet", "--output_dir", str(tmp_path)]
     if graph is not None:
         argv += ["--graph", graph]
-    if graph == "docword":
-        with pytest.raises(RuntimeError, match="CUDA"):
-            cli.main(argv)
-        return
-    assert cli.build_parser().parse_args(argv).graph == "topic"
-    with pytest.raises(NotImplementedError, match=r"A\.1\b.*--graph docword"):
-        cli.main(argv)
-    with pytest.raises(NotImplementedError, match=r"A\.1\b"):
-        run_experiment("R8", device="cpu")
+    assert cli.main(argv) == 0
+    (pre,) = prepared
+    family = graph or "topic"
+    assert (tmp_path / f"tiny_{family}_training_results.json").exists()
+    if family == "topic":
+        assert (pre.num_docs, pre.num_topics, pre.n_nodes) == (N_DOCS, N_TOPICS, N_DOCS + N_TOPICS)
+        assert pre.features.shape == (N_DOCS + N_TOPICS, pre.n_feat)
+    else:
+        assert pre.features is None and pre.num_topics == 0 and pre.n_nodes > N_DOCS
+    assert inspect.signature(run_experiment).parameters["graph_family"].default == "topic"

@@ -142,5 +142,5 @@ def test_run_experiment_writes_reports_with_the_jax_schema(tmp_path):
     assert got["hyperparameters"] == dataclasses.asdict(cfg)
     assert summary["runs"][0]["epochs_run"] == 4
     assert os.path.exists(tmp_path / "toy_docword_training_results.txt")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run_experiment("toy", graph_family="topic", pre_data=pt, device="cpu")
+    with pytest.raises(ValueError, match="unknown graph family"):
+        run_experiment("toy", graph_family="wordnet", pre_data=pt, device="cpu")

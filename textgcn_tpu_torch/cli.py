@@ -1,11 +1,11 @@
 """Command-line entry point: ``python -m textgcn_tpu_torch.cli train ...``.
 
-Port of the ``train`` subcommand of ``textgcn_tpu/cli.py`` (GCN and GAT on
-the doc-word graph, ``--graph docword``; the GCN also sharded over
-``--shards N`` GPUs). ``--graph`` defaults to ``topic`` as in the JAX
-package, and that graph is not ported yet: it raises. It trains
-on CUDA devices and raises when there are too few: the port never falls
-back to the CPU.
+Port of the ``train`` subcommand of ``textgcn_tpu/cli.py``: every model
+family of the JAX registry on the topic graph (``--graph topic``, the
+default, as in the JAX package) or the doc-word graph (``--graph
+docword``); the GCN also sharded over ``--shards N`` GPUs. ``--seeds``
+names the runs' seeds outright. It trains on CUDA devices and raises when
+there are too few: the port never falls back to the CPU.
 """
 from __future__ import annotations
 
@@ -18,7 +18,7 @@ from textgcn_tpu_torch.graph.format import DENSE_MAX_NODES, SPMM_FORMATS
 from textgcn_tpu_torch.models import MODELS
 from textgcn_tpu_torch.parallel.trainer import check_sharded
 from textgcn_tpu_torch.train.run import (
-    check_graph_family, check_model_format, generate_seeds, run_experiment,
+    check_model_format, generate_seeds, run_experiment,
 )
 from textgcn_tpu_torch.train.trainer import TrainConfig
 
@@ -33,7 +33,6 @@ def cmd_train(args) -> int:
                 "ROADMAP A.11 has the one-hot mesh kernel)"
             )
     check_model_format(args.model, args.spmm)
-    check_graph_family(args.graph)
     if not torch.cuda.is_available():
         raise RuntimeError(
             "textgcn_tpu_torch trains on a CUDA device and none is available"
@@ -60,7 +59,7 @@ def cmd_train(args) -> int:
         data_root=args.data_root,
         output_dir=args.output_dir,
         config=cfg,
-        seeds=generate_seeds(args.times, args.seed),
+        seeds=args.seeds or generate_seeds(args.times, args.seed),
         verbose=not args.quiet,
         n_shards=args.shards,
         partition=args.partition,
@@ -78,13 +77,13 @@ def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="textgcn_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
 
-    p = sub.add_parser("train", help="train a GCN or GAT on a built graph (CUDA)")
+    p = sub.add_parser("train", help="train a model family on a built graph (CUDA)")
     p.add_argument("--dataset", required=True)
     p.add_argument(
         "--graph", default="topic", choices=["topic", "docword"],
-        help="graph family: topic (TopicGCN; the JAX package's default, not "
-        "ported yet: raises, ROADMAP A.1) or docword (classic TextGCN "
-        "doc-word graph)",
+        help="graph family: topic (TopicGCN's document-topic graph, dense "
+        "features) or docword (classic TextGCN doc-word graph, identity "
+        "features)",
     )
     p.add_argument("--times", type=int, default=1)
     p.add_argument("--data_root", default="data")
@@ -100,22 +99,33 @@ def build_parser() -> argparse.ArgumentParser:
         help="master seed for the runs' seeds (default: fresh random seeds)",
     )
     p.add_argument(
+        "--seeds", type=int, nargs="+", default=None, metavar="SEED",
+        help="the runs' seeds themselves, one run each (overrides --times "
+        "and --seed)",
+    )
+    p.add_argument(
         "--model", default="gcn", choices=sorted(MODELS),
-        help="model family: gcn (2-layer Kipf-Welling GCN) or gat (2-layer "
-        "graph attention network)",
+        help="model family: gcn (2-layer Kipf-Welling GCN), gat (2-layer "
+        "graph attention network), sgc (linear A^2XW classifier), sgc_pre "
+        "(SGC with A^2X propagated once before training; dense features "
+        "only), appnp (MLP + 10-step personalized-PageRank propagation), "
+        "sage (GraphSAGE mean aggregator: separate self/neighbour "
+        "transforms), gin ((1+eps)h + Ah through an MLP, learnable eps) or "
+        "gcnii (8 layers with initial residual and identity mapping)",
     )
     p.add_argument(
         "--spmm",
         default="auto",
         choices=[*SPMM_FORMATS, "onehot"],
-        help="graph format. GCN: segment = gather + index_add_ (plain "
-        "PyTorch, the oracle); dense = one [N, N] matmul; hybrid = degree "
-        "sort, then 128x128 tiles holding >= 24 edges run on the tile kernel "
-        "and the other edges on the residual kernel (relabels nodes); onehot "
-        "is not ported for the GCN yet and raises. GAT: segment = plain "
-        "PyTorch segment softmax (the oracle); dense = the [N, N] bf16 "
-        "log-adjacency; onehot = the attention kernels over a CSR; hybrid = "
-        "the same after the degree sort (relabels nodes). Both: auto = dense "
+        help="graph format. Every family but GAT: segment = gather + "
+        "index_add_ (plain PyTorch, the oracle); dense = one [N, N] matmul; "
+        "hybrid = degree sort, then 128x128 tiles holding >= 24 edges run on "
+        "the tile kernel and the other edges on the residual kernel "
+        "(relabels nodes); onehot is not ported for them yet and raises. "
+        "GAT: segment = plain PyTorch segment softmax (the oracle); dense = "
+        "the [N, N] bf16 log-adjacency; onehot = the attention kernels over "
+        "a CSR; hybrid = the same after the degree sort (relabels nodes). "
+        "All: auto = dense "
         f"up to {DENSE_MAX_NODES} nodes, and above that an error until the "
         "port has GPU cost constants",
     )

@@ -31,13 +31,13 @@ import dataclasses
 import math
 from typing import Dict, Optional
 
-import numpy as np
 import torch
 import torch.nn.functional as F
-from torch import nn
 
 from textgcn_tpu_torch.graph.structs import SparseGraph
-from textgcn_tpu_torch.models.gcn import _init_layer
+from textgcn_tpu_torch.models.family import (  # noqa: F401 (params_from_jax)
+    FamilyModule, dropout as _dropout, init_layer, params_from_jax,
+)
 from textgcn_tpu_torch.ops.attention import AttentionGraph, check_coalesced, det_exp, gat_attention
 
 Params = Dict[str, torch.Tensor]
@@ -71,7 +71,7 @@ class DenseAttentionGraph:
 
 
 def _layer_init(generator, n_in: int, n_out: int, device) -> Params:
-    p = _init_layer(generator, n_in, n_out, device)  # w, b: U(±1/√n_out)
+    p = init_layer(generator, n_in, n_out, device)  # w, b: U(±1/√n_out)
     s = 1.0 / math.sqrt(n_out)
     for k in ("a_src", "a_dst"):
         p[k] = torch.empty((n_out,), device=device).uniform_(-s, s, generator=generator)
@@ -88,18 +88,6 @@ def gat_init(
         for k, v in _layer_init(generator, n_in, n_out, device).items():
             params[f"{name}.{k}"] = v
     return params
-
-
-def params_from_jax(params_np: dict, *, device) -> Params:
-    """The JAX pytree ``{"gat1": {"w", "b", "a_src", "a_dst"}, "gat2": ...}``
-    of numpy arrays → the port's flat f32 parameter dict on ``device``."""
-    return {
-        f"{layer}.{k}": torch.tensor(
-            np.asarray(params_np[layer][k]), dtype=torch.float32, device=device
-        )
-        for layer in LAYERS
-        for k in KEYS
-    }
 
 
 def segment_softmax(logits: torch.Tensor, row: torch.Tensor, n_nodes: int) -> torch.Tensor:
@@ -191,53 +179,13 @@ def gat_forward(
             "(kernel layout) or a DenseAttentionGraph (dense layout); got "
             f"{type(graph).__name__}"
         )
-    h = torch.relu(layer(_layer(params, "gat1"), graph, x))
-    if train and dropout > 0.0:
-        keep = 1.0 - dropout
-        mask = torch.rand(h.shape, generator=generator, device=h.device) < keep
-        h = torch.where(mask, h / keep, 0.0)
+    h = _dropout(torch.relu(layer(_layer(params, "gat1"), graph, x)), dropout, train, generator)
     return layer(_layer(params, "gat2"), graph, h)
 
 
-class GATLayer(nn.Module):
-    def __init__(self, n_in: int, n_out: int, *, device):
-        super().__init__()
-        self.w = nn.Parameter(torch.empty((n_in, n_out), device=device))
-        self.b = nn.Parameter(torch.empty((n_out,), device=device))
-        self.a_src = nn.Parameter(torch.empty((n_out,), device=device))
-        self.a_dst = nn.Parameter(torch.empty((n_out,), device=device))
-
-
-class GAT(nn.Module):
+class GAT(FamilyModule):
     """The two-layer GAT as a module; its ``state_dict`` is the flat
     parameter dict of :func:`gat_forward`."""
 
-    def __init__(
-        self,
-        n_feat: int,
-        n_hidden: int,
-        n_class: int,
-        dropout: float = 0.5,
-        *,
-        device,
-        generator: Optional[torch.Generator] = None,
-    ):
-        super().__init__()
-        self.dropout = dropout
-        self.gat1 = GATLayer(n_feat, n_hidden, device=device)
-        self.gat2 = GATLayer(n_hidden, n_class, device=device)
-        if generator is not None:
-            with torch.no_grad():
-                self.load_state_dict(
-                    gat_init(generator, n_feat, n_hidden, n_class, device=device)
-                )
-
-    def forward(self, graph, x=None, generator: Optional[torch.Generator] = None):
-        return gat_forward(
-            dict(self.named_parameters()),
-            graph,
-            x,
-            dropout=self.dropout,
-            train=self.training,
-            generator=generator,
-        )
+    init_params = staticmethod(gat_init)
+    forward_params = staticmethod(gat_forward)

@@ -1,0 +1,67 @@
+"""GIN (Graph Isomorphism Network), full-batch.
+
+Port of ``textgcn_tpu/models/gin.py``. A layer aggregates before its
+transform::
+
+    h' = MLP((1 + eps) h + Â h)
+
+with a learnable scalar ``eps`` per layer, 0 at init. Layer 1's MLP is
+Linear → ReLU → Linear, followed by ReLU and dropout; layer 2 maps to the
+class logits with one linear. The aggregation runs on the layer's input, so
+layer 1's SpMM is at the raw feature width. ``x=None`` selects identity
+features: layer 1 then aggregates its first weight table,
+``(1 + eps) W + Â W``. Parameters: ``{"gin1.eps", "gin1.w1", "gin1.b1",
+"gin1.w2", "gin1.b2", "gin2.eps", "gin2.w", "gin2.b"}``.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from textgcn_tpu_torch.models.family import (  # noqa: F401 (params_from_jax)
+    FamilyModule, Params, dropout as _dropout, init_layer, params_from_jax,
+)
+from textgcn_tpu_torch.ops.spmm import spmm
+
+
+def gin_init(
+    generator: torch.Generator, n_feat: int, n_hidden: int, n_class: int, *, device
+) -> Params:
+    mlp1a = init_layer(generator, n_feat, n_hidden, device)
+    mlp1b = init_layer(generator, n_hidden, n_hidden, device)
+    head = init_layer(generator, n_hidden, n_class, device)
+    zero = torch.zeros((), device=device)
+    return {
+        "gin1.eps": zero.clone(), "gin1.w1": mlp1a["w"], "gin1.b1": mlp1a["b"],
+        "gin1.w2": mlp1b["w"], "gin1.b2": mlp1b["b"],
+        "gin2.eps": zero.clone(), "gin2.w": head["w"], "gin2.b": head["b"],
+    }
+
+
+def _aggregate(eps: torch.Tensor, graph, x: Optional[torch.Tensor], w: torch.Tensor):
+    """((1 + eps) x + Â x) @ w, or the identity-feature table form."""
+    if x is None:
+        return (1.0 + eps) * w + spmm(graph, w)
+    return ((1.0 + eps) * x + spmm(graph, x)) @ w
+
+
+def gin_forward(
+    params: Params,
+    graph,
+    x: Optional[torch.Tensor],
+    *,
+    dropout: float = 0.5,
+    train: bool = False,
+    generator: Optional[torch.Generator] = None,
+) -> torch.Tensor:
+    """Logits for all nodes: gin2(dropout(MLP-layer(x)))."""
+    h = torch.relu(_aggregate(params["gin1.eps"], graph, x, params["gin1.w1"]) + params["gin1.b1"])
+    h = torch.relu(h @ params["gin1.w2"] + params["gin1.b2"])
+    h = _dropout(h, dropout, train, generator)
+    return _aggregate(params["gin2.eps"], graph, h, params["gin2.w"]) + params["gin2.b"]
+
+
+class GIN(FamilyModule):
+    init_params = staticmethod(gin_init)
+    forward_params = staticmethod(gin_forward)

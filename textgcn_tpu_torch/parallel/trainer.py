@@ -152,6 +152,8 @@ class ShardedTrainer:
         kernel: str = "hybrid",
     ):
         check_sharded(config.model, kernel, partition)
+        if config.restore_best:
+            raise NotImplementedError("restore_best is not ported to the sharded trainer")
         self.device = torch.device(device)
         self.group = group
         self.rank = int(rank)

@@ -1,12 +1,16 @@
 """Prepared training data: graph artifact → tensors on a device.
 
-Port of the doc-word path of ``textgcn_tpu/train/prepare.py``
-(``PreparedData``, ``load_graph_edges``, ``prepare_docword_data``,
-``apply_spmm_format``, ``apply_attention_format``,
-``apply_dense_attention_format``, ``permute_rows_1d_docs``): read the weighted
-edgelist, max-symmetrize (A := max(A, Aᵀ)), sym-normalize with self-loops,
-pack into a :class:`SparseGraph`, and read labels and splits. The topic-graph
-path (``prepare_topic_data``) comes with the topic pipeline.
+Port of ``textgcn_tpu/train/prepare.py`` (``PreparedData``,
+``load_graph_edges``, ``prepare_docword_data``, ``prepare_topic_data``,
+``normalize_rows_l2``, ``build_topic_features``, ``apply_spmm_format``,
+``apply_attention_format``, ``apply_dense_attention_format``,
+``permute_rows_1d_docs``): read the weighted edgelist, max-symmetrize
+(A := max(A, Aᵀ)), sym-normalize with self-loops, pack into a
+:class:`SparseGraph`, and read labels and splits. The topic graph's node
+features come from the build stage's topic model: document rows are theta
+(the cached one, or the LDA E-step's on the caller's device), topic rows the
+topic embeddings, L2-normalized row by row. The feature code is the JAX
+package's numpy code, so the same theta gives the same bits.
 """
 from __future__ import annotations
 
@@ -24,6 +28,7 @@ from textgcn_tpu_torch.graph.structs import SparseGraph
 from textgcn_tpu_torch.models.gat import DenseAttentionGraph
 from textgcn_tpu_torch.ops.attention import AttentionGraph
 from textgcn_tpu_torch.text.datasets import DatasetLabels, load_labels
+from textgcn_tpu_torch.topics.model import TopicModel, load_documents_from_file
 
 
 @dataclasses.dataclass
@@ -158,4 +163,88 @@ def prepare_docword_data(
         n_feat=n_nodes,
         num_docs=labels.n_docs,
         num_topics=0,
+    )
+
+
+def normalize_rows_l2(x: np.ndarray) -> np.ndarray:
+    norms = np.linalg.norm(x, axis=1, keepdims=True)
+    return x / np.maximum(norms, 1e-12)
+
+
+def build_topic_features(
+    doc_topic_dist: np.ndarray, topic_embeddings: np.ndarray
+) -> np.ndarray:
+    """Doc rows = theta (sum-normalized); topic rows = embeddings; pad to
+    max(K, E); L2-normalize rows."""
+    num_docs, num_topics = doc_topic_dist.shape
+    emb_dim = topic_embeddings.shape[1]
+    n_feat = max(num_topics, emb_dim)
+    feats = np.zeros((num_docs + num_topics, n_feat), dtype=np.float32)
+    theta = doc_topic_dist / (doc_topic_dist.sum(axis=1, keepdims=True) + 1e-8)
+    feats[:num_docs, :num_topics] = theta
+    feats[num_docs:, : min(emb_dim, n_feat)] = topic_embeddings[:, : min(emb_dim, n_feat)]
+    return normalize_rows_l2(feats).astype(np.float32)
+
+
+def cached_theta(base: str, n_docs: int, n_topics: int) -> Optional[np.ndarray]:
+    """The build stage's theta cache ``{base}_theta.npy`` if it is not older
+    than the model pickle ``{base}_model.pkl`` and has shape [n_docs,
+    n_topics], in its saved dtype; else None."""
+    path = base + "_theta.npy"
+    if not os.path.exists(path) or os.path.getmtime(path) < os.path.getmtime(
+        base + "_model.pkl"
+    ):
+        return None
+    theta = np.load(path)
+    # the saved dtype (float32 from the E-step) is kept: casting up would
+    # change the features' bits against the uncached path
+    return theta if theta.shape == (n_docs, n_topics) else None
+
+
+def prepare_topic_data(
+    dataset: str,
+    data_root: str = "data",
+    graph_dir: Optional[str] = None,
+    num_topics: Optional[int] = None,
+    *,
+    device,
+) -> PreparedData:
+    """TopicGCN's document-topic graph → dense-feature training inputs on
+    ``device``.
+
+    Nodes are docs [0, D) then topics [D, D+K). theta comes from the cache
+    (:func:`cached_theta`) or, when that is stale or missing, from the LDA
+    E-step over the clean corpus on ``device``, and is then cached (a
+    read-only artifact directory is left as it is).
+    """
+    graph_dir = graph_dir or os.path.join(data_root, "graph")
+    base = os.path.join(graph_dir, f"{dataset}_topic")
+    labels = load_labels(os.path.join(data_root, "text_dataset", f"{dataset}.txt"))
+    tm = TopicModel(num_topics=num_topics or 50)
+    tm.load(base + "_model.pkl")
+    theta = cached_theta(base, labels.n_docs, tm.num_topics)
+    if theta is None:
+        docs = load_documents_from_file(
+            os.path.join(data_root, "text_dataset", "clean_corpus", f"{dataset}.txt")
+        )
+        theta = tm.get_document_topic_distribution(docs, device=device)
+        try:
+            np.save(base + "_theta.npy", theta)
+        except OSError:
+            pass  # read-only artifact dir: recompute next time
+    if tm.topic_embeddings is None:
+        tm.get_topic_embeddings(top_n=20)
+    features = build_topic_features(theta, tm.topic_embeddings)
+
+    num_docs, k = theta.shape
+    if num_docs != labels.n_docs:
+        raise ValueError(f"corpus has {num_docs} docs but label file has {labels.n_docs}")
+    graph = load_graph_edges(base + ".txt", num_docs + k, device=device)
+    return PreparedData(
+        graph=graph,
+        features=features,
+        labels=labels,
+        n_feat=features.shape[1],
+        num_docs=num_docs,
+        num_topics=k,
     )

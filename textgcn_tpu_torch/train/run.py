@@ -1,8 +1,9 @@
 """Multi-seed training runner and its human/machine reports.
 
-Port of ``textgcn_tpu/train/run.py`` (``run_experiment`` on one device with
-its single-device GAT layouts, and sharded over ``n_shards`` devices for the
-GCN; ``generate_seeds``, ``aggregate``, ``write_reports``). The reports keep
+Port of ``textgcn_tpu/train/run.py`` (``run_experiment`` on the topic or
+doc-word graph, on one device for every model family with GAT's own
+layouts and ``sgc_pre``'s precompute, and sharded over ``n_shards`` devices
+for the GCN; ``generate_seeds``, ``aggregate``, ``write_reports``). The reports keep
 the JAX package's schema: ``{ds}_{family}_training_results.json`` (with full
 per-epoch histories and hyperparameters, and ``"sharding"`` for a sharded
 run) and ``.txt``. The summary also names the device it ran on.
@@ -20,6 +21,7 @@ import numpy as np
 import torch
 
 from textgcn_tpu_torch.graph.format import DENSE_MAX_NODES
+from textgcn_tpu_torch.models.sgc import sgc_precompute
 from textgcn_tpu_torch.parallel.launch import HostData, run_sharded_seeds
 from textgcn_tpu_torch.parallel.trainer import check_sharded
 from textgcn_tpu_torch.train.prepare import (
@@ -28,6 +30,7 @@ from textgcn_tpu_torch.train.prepare import (
     apply_dense_attention_format,
     apply_spmm_format,
     prepare_docword_data,
+    prepare_topic_data,
 )
 from textgcn_tpu_torch.train.trainer import TrainConfig, Trainer
 
@@ -40,10 +43,10 @@ GAT_FORMATS = ("auto", "segment", "dense", "onehot", "hybrid")
 def check_model_format(model: str, spmm: str) -> None:
     """Raise for a pairing of model family and graph format that the port
     does not run yet (before any data is read)."""
-    if model == "gcn" and spmm == "onehot":
+    if model != "gat" and spmm == "onehot":
         raise NotImplementedError(
-            "--spmm onehot for the GCN is not ported yet (ROADMAP A.4: a bare "
-            "residual CSR through K2); choose hybrid, segment, dense or auto"
+            f"--spmm onehot for --model {model} is not ported yet (ROADMAP A.4: "
+            "a bare residual CSR through K2); choose hybrid, segment, dense or auto"
         )
 
 
@@ -96,17 +99,31 @@ def device_memory(device: torch.device) -> Dict[str, Dict[str, float]]:
 
 
 def check_graph_family(graph_family: str) -> None:
-    """Raise unless the port has ``graph_family``'s data path. The default
-    is ``topic``, as in the JAX package, whose path is not ported yet: a
-    command that names no graph must not train another graph than JAX's."""
-    if graph_family == "topic":
-        raise NotImplementedError(
-            "graph family 'topic' (the default, as in the JAX package): the "
-            "port has no topic-graph data path yet (ROADMAP A.1); pass "
-            "--graph docword (graph_family='docword') for the doc-word graph"
-        )
-    if graph_family != "docword":
+    if graph_family not in ("topic", "docword"):
         raise ValueError(f"unknown graph family {graph_family!r}: topic or docword")
+
+
+def prepare_data(dataset: str, graph_family: str, data_root: str, *, device) -> PreparedData:
+    """The graph family's prepared data on ``device`` (for the topic graph,
+    a stale theta cache is re-inferred there)."""
+    if graph_family == "docword":
+        return prepare_docword_data(dataset, data_root=data_root, device=device)
+    return prepare_topic_data(dataset, data_root=data_root, device=device)
+
+
+def apply_sgc_precompute(pre: PreparedData, *, device) -> PreparedData:
+    """``sgc_pre``'s features: Â^K X propagated once before training,
+    through the graph's format on ``device``, where the graph lives."""
+    if pre.features is None:
+        raise ValueError(
+            "sgc_pre needs dense node features to precompute Â^K X; "
+            "identity-feature (docword) graphs have none — use --model "
+            "sgc instead"
+        )
+    x = torch.tensor(pre.features, dtype=torch.float32, device=device)
+    with torch.no_grad():
+        feats = sgc_precompute(pre.graph, x).cpu().numpy()
+    return dataclasses.replace(pre, features=feats)
 
 
 def device_name(device: torch.device) -> str:
@@ -142,10 +159,10 @@ def run_experiment(
         check_sharded(config.model, config.spmm, partition)
     check_model_format(config.model, config.spmm)
     check_graph_family(graph_family)
+    if pre_data is None:
+        pre_data = prepare_data(dataset, graph_family, data_root, device=device)
     if n_shards is not None:
-        # the host prepares the data once; each rank builds its own shard
-        if pre_data is None:
-            pre_data = prepare_docword_data(dataset, data_root=data_root, device="cpu")
+        # prepared once; each rank builds its own shard from the host arrays
         seeds = seeds or generate_seeds(times)
         cuda = device.type == "cuda"
         runs = run_sharded_seeds(
@@ -157,12 +174,12 @@ def run_experiment(
         )
         sharding = {"n_shards": n_shards, "partition": partition, "kernel": config.spmm}
         return _summarize(dataset, graph_family, output_dir, config, runs, device, sharding)
-    if pre_data is None:
-        pre_data = prepare_docword_data(dataset, data_root=data_root, device=device)
     if config.model == "gat":
         pre_data = apply_gat_format(pre_data, config.spmm)
     else:
         pre_data = apply_spmm_format(pre_data, config.spmm)
+    if config.model == "sgc_pre":
+        pre_data = apply_sgc_precompute(pre_data, device=device)
     seeds = seeds or generate_seeds(times)
 
     runs: List[Dict[str, Any]] = []

@@ -1,4 +1,4 @@
-"""Full-batch semi-supervised training of a GCN or GAT.
+"""Full-batch semi-supervised training of any model family.
 
 Port of ``textgcn_tpu/train/trainer.py`` (``TrainConfig``, ``EarlyStopping``,
 ``train_val_split``, ``Trainer.fit / evaluate / test``, the model families'
@@ -7,7 +7,8 @@ graph check):
 - Adam with the reference's settings (lr 0.02, betas 0.9/0.999, eps 1e-8);
 - cross-entropy on the train nodes' logits only (semi-supervised masking);
 - early stopping on val loss with the reference's patience semantics; on a
-  stop the params of the stopping epoch are kept;
+  stop the params of the stopping epoch are kept, or with ``restore_best``
+  those of the epoch with the lowest val loss;
 - init and dropout draw from one ``torch.Generator`` seeded with
   ``cfg.seed``; the train/val split is the JAX package's numpy split, so it
   is identical for a given seed.
@@ -45,10 +46,14 @@ class TrainConfig:
     early_stopping: int = 10
     val_ratio: float = 0.1
     seed: int = 42
+    # hand back the params of the lowest-val-loss epoch after fit, not the
+    # last epoch's (off by default, as in the reference)
+    restore_best: bool = False
     # SpMM graph format (textgcn_tpu_torch.graph.format.SPMM_FORMATS, and
     # onehot for GAT), applied by run_experiment before the Trainer is built
     spmm: str = "auto"
-    # model family (textgcn_tpu_torch.models.MODELS): gcn | gat
+    # model family (textgcn_tpu_torch.models.MODELS): gcn | gat | sgc |
+    # sgc_pre | appnp | sage | gin | gcnii
     model: str = "gcn"
 
 
@@ -109,9 +114,8 @@ def model_class(model: str, graph) -> type:
 
 
 class Trainer:
-    """Trains a 2-layer model of family ``config.model`` full-batch on a
-    prepared graph on ``device`` (the graph's tensors must already be
-    there)."""
+    """Trains a model of family ``config.model`` full-batch on a prepared
+    graph on ``device`` (the graph's tensors must already be there)."""
 
     def __init__(
         self,
@@ -171,6 +175,7 @@ class Trainer:
             model.parameters(), lr=cfg.lr, betas=(0.9, 0.999), eps=1e-8
         )
         stopper = EarlyStopping(cfg.early_stopping)
+        best_val, best_params = float("inf"), None
 
         start = time.perf_counter()
         for epoch in range(cfg.max_epoch):
@@ -206,9 +211,14 @@ class Trainer:
                         for k, v in rec.items()
                     )
                 )
+            if cfg.restore_best and vloss < best_val:
+                best_val = vloss
+                best_params = {k: v.detach().clone() for k, v in model.state_dict().items()}
             if stopper(vloss):
                 break  # the params of the stopping epoch are kept
         self.train_time = time.perf_counter() - start
+        if best_params is not None:
+            model.load_state_dict(best_params)
         return {"epochs_run": len(self.history), "train_time": self.train_time}
 
     def evaluate(self, idx: torch.Tensor, prefix: str = "test") -> Dict[str, float]:
