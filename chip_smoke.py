@@ -58,6 +58,20 @@ drives the port's paths: on R8 doc-word, then on R8's topic graph:
   (within 0.01), the GCN on ``--spmm auto`` and every family once on
   ``--spmm hybrid`` (within 0.01 of its segment run at that seed; K1, and
   for GAT its kernels and K2 as dx, must launch).
+- Build slice (the build pipeline on the card, each phase in a temporary
+  data root holding copies of the label file and the clean corpus): builds
+  R8's topic graph with experiments/r8.yaml's settings (LDA fit and
+  Word2Vec on the card; stage times, EM and E-step iterations, CBOW steps a
+  second, peak memory, and the bound trace, phi and edges against the
+  committed JAX build, printed); two same-seed LDA fits and two Word2Vec
+  fits must give the same bits; trains the GCN on the built graph through
+  the CLI (segment on the bench seeds: mean >= 0.9411 and within 0.01 of
+  the JAX package's committed mean; hybrid once, K1 must launch); runs
+  ``cli experiment`` on a copy of experiments/r8.yaml from a temporary
+  working directory (build, train, inspect, their logs and reports); builds
+  mr's doc-word graph on the host (``cli build-docword``), which must equal
+  the committed edge set; and checks that nothing under data/,
+  experiments/ or results/ of the checkout was written.
 
 Every kernel's record also carries its bound on the card (the larger of its
 bytes over the memory rate and its operations over the peak rate, from this
@@ -138,6 +152,19 @@ NEW_FAMILIES = ("sgc", "sgc_pre", "appnp", "sage", "gin", "gcnii")
 # theta on the card vs the JAX E-step's: f32 E-steps, digamma differing in
 # the last bits, up to 100 iterations a chunk
 THETA_TOL = 1e-4
+# the build slice: the committed R8 topic graph's edge counts (the JAX
+# package's build), and the largest gap of the GCN's mean on the port's own
+# build from the JAX package's committed mean on the same seeds (the two
+# builds' LDA and Word2Vec runs differ in f32 rounding, so their graphs
+# differ in a few edges); a final per-word bound more than BOUND_FINDING
+# below the committed trace's is reported as a finding, not failed
+R8_DOC_TOPIC_EDGES, R8_TOPIC_TOPIC_EDGES = 31_818, 1_200
+BUILT_GAP = 0.01
+BOUND_FINDING = 0.02
+# the doc-word build vs the committed mr_docword.txt: the same float64
+# formulas, the weights' text written with repr
+DOCWORD_RTOL = 1e-12
+ARTIFACT_DIRS = ("data", "experiments", "results")
 # H100 SXM peaks (NVIDIA's data sheet): HBM rate, dense bf16 tensor
 # cores, f32 outside them
 HBM_BYTES_PER_S = 3.35e12
@@ -962,10 +989,248 @@ def topic_training_phases(cli, counters, root, residual):
     return {k: sum(v[k] for v in hybrid.values()) for k in gat}, gat
 
 
+def artifact_snapshot():
+    """{path: (size, mtime_ns)} of every file under the checkout's data/,
+    experiments/ and results/."""
+    out = {}
+    for top in ARTIFACT_DIRS:
+        for dirpath, _, files in os.walk(os.path.join(REPO, top)):
+            for name in files:
+                path = os.path.join(dirpath, name)
+                st = os.stat(path)
+                out[os.path.relpath(path, REPO)] = (st.st_size, st.st_mtime_ns)
+    return out
+
+
+def corpus_root(tmp, name, dataset):
+    """A data root under ``tmp`` holding copies of ``dataset``'s label file
+    and clean corpus, and nothing else."""
+    root = os.path.join(tmp, name)
+    os.makedirs(os.path.join(root, "text_dataset", "clean_corpus"))
+    for rel in (f"{dataset}.txt", os.path.join("clean_corpus", f"{dataset}.txt")):
+        shutil.copyfile(os.path.join(REPO, "data", "text_dataset", rel),
+                        os.path.join(root, "text_dataset", rel))
+    return root
+
+
+def jaccard(src_a, dst_a, src_b, dst_b):
+    a = set(zip(src_a.tolist(), dst_a.tolist()))
+    b = set(zip(src_b.tolist(), dst_b.tolist()))
+    return len(a & b) / max(len(a | b), 1)
+
+
+def build_phase(dev, root):
+    """22. build r8 topic: R8's topic graph built on the card from the
+    committed clean corpus into ``root`` with experiments/r8.yaml's build
+    settings (the builder's 60 EM iterations), through the builder that
+    ``cli build-graph`` and the runner call; measured against the committed
+    build of the JAX package (bound trace, phi, edges)."""
+    from textgcn_tpu_torch.graph.build_topic import TopicGraphBuilder, read_weighted_edgelist
+    from textgcn_tpu_torch.topics.model import TopicModel
+    from textgcn_tpu_torch.train.prepare import cached_theta
+    from textgcn_tpu_torch.utils.config import ExperimentConfig
+
+    b = ExperimentConfig.from_yaml(os.path.join(REPO, "experiments", "r8.yaml")).build
+    builder = TopicGraphBuilder(
+        "R8", num_topics=b.num_topics, doc_topic_threshold=b.doc_topic_threshold,
+        topic_topic_threshold=b.topic_topic_threshold, min_df=b.min_df, max_df=b.max_df,
+        use_word2vec=b.use_word2vec, lda_backend=b.lda_backend, lda_max_iter=b.lda_max_iter,
+        data_root=root, verbose=False, device=dev,
+    )
+    torch.cuda.reset_peak_memory_stats()
+    live = torch.cuda.memory_allocated()
+    (g, _), build_s = wall(lambda: (builder.build(), builder.save()))
+    peak_mb = (torch.cuda.max_memory_allocated() - live) / 1e6
+    tm, times = builder.topic_model, builder.timer.times
+    lda, w2v = tm.lda, tm.word2vec_model
+    with open(os.path.join(REPO, "results", "R8_lda_elbo_trace.json")) as fh:
+        ref = json.load(fh)["per_word_bound_trace"][: b.lda_max_iter]
+    n = min(len(ref), len(lda.bound_trace_))
+    d_bound = max(abs(x - y) for x, y in zip(lda.bound_trace_[:n], ref[:n]))
+    final_gap = lda.bound_trace_[-1] - ref[len(lda.bound_trace_) - 1]
+    committed = TopicModel().load(os.path.join(REPO, "data", "graph", "R8_topic_model.pkl"))
+    if list(tm.vocabulary_) != list(committed.vocabulary_):
+        raise AssertionError("the built vocabulary differs from the committed model's")
+    d_phi = float(np.abs(tm.topic_word_distribution - committed.topic_word_distribution).max())
+    src, dst, _ = read_weighted_edgelist(os.path.join(REPO, "data", "graph", "R8_topic.txt"))
+    dt, ndt = src < 7674, g.n_doc_topic_edges
+    jac_dt = jaccard(g.src[:ndt], g.dst[:ndt], src[dt], dst[dt])
+    jac_tt = jaccard(g.src[ndt:], g.dst[ndt:], src[~dt], dst[~dt])
+    theta = builder._theta
+    log("build r8 topic", f"TopicGraphBuilder on the card, experiments/r8.yaml's build "
+        f"({b.num_topics} topics, lda_max_iter {b.lda_max_iter}): {build_s:.2f} s with the "
+        f"save; by stage {json.dumps({k: round(v, 3) for k, v in times.items()})}; LDA "
+        f"{lda.n_iter_} EM iterations over {len(lda.e_step_iters_) // max(lda.n_iter_, 1)} "
+        f"chunks of {lda.chunk_size} docs x {lda.components_.shape[1]} words, "
+        f"{sum(lda.e_step_iters_)} E-step iterations ({sum(lda.e_step_iters_) / times['lda fit']:.0f} "
+        f"a second); Word2Vec {w2v.steps_} CBOW steps of {w2v.batch_size} "
+        f"({w2v.steps_ / times['word2vec']:.1f} steps/s), {len(w2v)} words; peak device "
+        f"memory {peak_mb:.1f} MB above what earlier phases hold. Per-word bound vs the committed trace's first {n}: max "
+        f"|diff| {d_bound:.3e}, final {lda.bound_trace_[-1]:.6f} (committed "
+        f"{ref[len(lda.bound_trace_) - 1]:.6f}, gap {final_gap:+.6f}); phi vs the committed "
+        f"model's max |diff| {d_phi:.3e}; edges: doc-topic {g.n_doc_topic_edges} (committed "
+        f"{R8_DOC_TOPIC_EDGES}), topic-topic {g.n_topic_topic_edges} (committed "
+        f"{R8_TOPIC_TOPIC_EDGES}), Jaccard vs data/graph/R8_topic.txt {jac_dt:.4f} and "
+        f"{jac_tt:.4f}")
+    if final_gap < -BOUND_FINDING:
+        log("build r8 topic", f"FINDING: the final bound is {-final_gap:.4f} nats/word below "
+            f"the committed trace's (more than {BOUND_FINDING})")
+    base = os.path.join(root, "graph", "R8_topic")
+    if (g.n_nodes, theta.shape) != (7724, (7674, 50)) or not np.isfinite(lda.components_).all():
+        raise AssertionError(f"the build gave {g.n_nodes} nodes, theta {theta.shape}")
+    if np.abs(theta.sum(axis=1) - 1).max() > 1e-5 or not g.n_doc_topic_edges:
+        raise AssertionError("theta rows do not sum to 1, or no doc-topic edge")
+    cached = cached_theta(base, 7674, 50)
+    if cached is None or not np.array_equal(cached, theta):
+        raise AssertionError("training would not take the built theta (mtime rule)")
+
+
+def determinism_phase(dev, root):
+    """23. build determinism: two LDA fits (2 EM iterations) and two
+    Word2Vec fits (1 epoch) on the R8 corpus from one seed each must give
+    the same bits."""
+    from textgcn_tpu_torch.topics.lda import LDA
+    from textgcn_tpu_torch.topics.model import load_documents_from_file
+    from textgcn_tpu_torch.topics.vectorize import CountVectorizer
+    from textgcn_tpu_torch.topics.word2vec import Word2Vec
+
+    docs = load_documents_from_file(os.path.join(root, "text_dataset", "clean_corpus", "R8.txt"))
+    dtm = CountVectorizer(min_df=2, max_df=0.95).fit_transform(docs)
+    ldas, lda_s = wall(lambda: [LDA(n_components=50, max_iter=2).fit(dtm, device=dev) for _ in range(2)])
+    w2vs, w2v_s = wall(lambda: [Word2Vec(epochs=1, seed=42).fit(docs, device=dev) for _ in range(2)])
+    same_lda = (np.array_equal(ldas[0].components_, ldas[1].components_)
+                and ldas[0].bound_trace_ == ldas[1].bound_trace_)
+    same_w2v = np.array_equal(w2vs[0].vectors, w2vs[1].vectors)
+    log("build determinism", f"two LDA fits of 2 EM iterations ({lda_s:.2f} s): bit-equal "
+        f"{same_lda}; two Word2Vec fits of 1 epoch, {w2vs[0].steps_} steps each ({w2v_s:.2f} s): "
+        f"bit-equal {same_w2v}")
+    if not (same_lda and same_w2v):
+        raise AssertionError("two same-seed fits on the card differ")
+
+
+def train_built_phase(cli, counters, dev, root):
+    """24. train built r8: the GCN on the port's own build through the CLI,
+    segment on the bench seeds (mean >= the reference's and within BUILT_GAP
+    of the JAX package's committed mean), then once on --spmm hybrid with
+    its kernels' launches counted."""
+    from textgcn_tpu_torch.graph.format import convert_graph
+    from textgcn_tpu_torch.train.prepare import prepare_topic_data
+
+    summary, _, _, text = topic_runs(cli, counters, root, "gcn", "segment", BENCH_SEEDS)
+    mean, ref = summary["test_accuracy"]["mean"], committed("gcn")["test_accuracy"]["mean"]
+    log("train built r8", f"on the port's build: {text}; the JAX package's committed mean "
+        f"{ref:.4f}, gap {mean - ref:+.4f} (limit ±{BUILT_GAP}; the reference's {REF_TOPIC_ACC})")
+    if mean < REF_TOPIC_ACC or abs(mean - ref) > BUILT_GAP:
+        raise AssertionError(f"GCN on the built graph: mean acc {mean:.4f}")
+    h, _ = convert_graph(prepare_topic_data("R8", data_root=root, device=dev).graph, "hybrid")
+    _, launches, _, text = topic_runs(cli, counters, root, "gcn", "hybrid", [HYBRID_SEED])
+    need = ("bsr_spmm",) if h.rest is None else ("bsr_spmm", "row_reduce")
+    log("train built r8", f"{text}; {h.bsr.nnzb} tiles, residual edges "
+        f"{0 if h.rest is None else h.rest.n_edges}; launches {launches}")
+    if min(launches[k] for k in need) < 1:
+        raise AssertionError(f"a kernel of the built graph's hybrid path never launched: {launches}")
+    return launches
+
+
+def experiment_phase(cli, tmp):
+    """25. experiment r8: ``cli experiment`` on a copy of experiments/r8.yaml
+    whose data_root holds only the label file and the clean corpus, from a
+    temporary working directory; build, train and inspect must leave their
+    logs, config_used.yaml, reports and stage times."""
+    import yaml
+
+    root = corpus_root(tmp, "experiment_data", "R8")
+    cwd = os.path.join(tmp, "experiment_cwd")
+    os.makedirs(cwd)
+    with open(os.path.join(REPO, "experiments", "r8.yaml"), encoding="utf-8") as fh:
+        cfg = yaml.safe_load(fh)
+    cfg["data_root"] = root
+    path = os.path.join(cwd, "r8.yaml")
+    with open(path, "w", encoding="utf-8") as fh:
+        yaml.safe_dump(cfg, fh)
+    here = os.getcwd()
+    os.chdir(cwd)
+    try:
+        rc, secs = wall(lambda: cli.main(["experiment", "--config", path]))
+    finally:
+        os.chdir(here)
+    exp = os.path.join(cwd, "experiments", "R8")
+    need = [os.path.join("logs", f"{s}.log") for s in ("build", "train", "inspect")] + [
+        os.path.join("logs", "stage_times.txt"), "config_used.yaml",
+        os.path.join("results", "R8_topic_training_results.json"),
+        os.path.join("results", "R8_topic_inspection.txt"),
+    ]
+    missing = [p for p in need if not os.path.exists(os.path.join(exp, p))]
+    if rc != 0 or missing:
+        raise AssertionError(f"cli experiment returned {rc}; missing {missing}")
+    with open(os.path.join(exp, "logs", "stage_times.txt"), encoding="utf-8") as fh:
+        stages = " | ".join(" ".join(ln.split()) for ln in fh.read().splitlines()[1:])
+    with open(os.path.join(exp, "results", "R8_topic_training_results.json")) as fh:
+        acc = json.load(fh)["test_accuracy"]["mean"]
+    log("experiment r8", f"cli experiment --config r8.yaml (data_root a temporary copy): "
+        f"{secs:.1f} s; stages (s, share): {stages}; test acc {acc:.4f}; logs, "
+        f"config_used.yaml, the reports and stage_times.txt written under the working "
+        f"directory")
+
+
+def docword_phase(cli, tmp):
+    """26. build mr docword (host): ``cli build-docword --dataset mr`` into a
+    temporary data root, against the committed data/graph/mr_docword.txt as
+    a sorted edge set (weights within DOCWORD_RTOL relative)."""
+    from textgcn_tpu_torch.graph.build_topic import read_weighted_edgelist
+
+    root = corpus_root(tmp, "mr_data", "mr")
+    rc, secs = wall(lambda: cli.main(["build-docword", "--dataset", "mr", "--data_root", root]))
+    if rc != 0:
+        raise AssertionError(f"cli build-docword returned {rc}")
+
+    def sorted_edges(path):
+        src, dst, w = read_weighted_edgelist(path)
+        order = np.lexsort((dst, src))
+        return src[order], dst[order], w[order]
+
+    got = sorted_edges(os.path.join(root, "graph", "mr_docword.txt"))
+    want = sorted_edges(os.path.join(REPO, "data", "graph", "mr_docword.txt"))
+    same = len(got[0]) == len(want[0]) and all(np.array_equal(a, b) for a, b in zip(got[:2], want[:2]))
+    rel = float(np.max(np.abs(got[2] - want[2]) / np.abs(want[2]))) if same else float("inf")
+    with open(os.path.join(root, "graph", "mr_docword_vocab.txt"), "rb") as a, open(
+            os.path.join(REPO, "data", "graph", "mr_docword_vocab.txt"), "rb") as b:
+        same_vocab = a.read() == b.read()
+    log("build mr docword", f"cli build-docword --dataset mr on the host: {secs:.2f} s, "
+        f"{len(got[0])} edges (committed {len(want[0])}); same edge set {same}, weights max "
+        f"rel diff {rel:.3e} (limit {DOCWORD_RTOL}); vocabulary file byte-equal {same_vocab}")
+    if not (same and same_vocab) or rel > DOCWORD_RTOL:
+        raise AssertionError("the mr doc-word build differs from the committed graph")
+
+
+def checkout_phase(before):
+    """27. checkout untouched: no file under data/, experiments/ or results/
+    was added, removed or rewritten by this run; in a git checkout, also
+    ``git status --porcelain`` lists none there."""
+    after = artifact_snapshot()
+    changed = sorted(k for k in set(before) | set(after) if before.get(k) != after.get(k))
+    git = "not a git checkout: git status not asked"
+    top = subprocess.run(["git", "-C", REPO, "rev-parse", "--show-toplevel"],
+                         capture_output=True, text=True) if shutil.which("git") else None
+    if top is not None and top.returncode == 0 and os.path.samefile(top.stdout.strip(), REPO):
+        status = subprocess.run(["git", "-C", REPO, "status", "--porcelain", "--", *ARTIFACT_DIRS],
+                                capture_output=True, text=True)
+        if status.returncode == 0:
+            changed += status.stdout.splitlines()
+            git = f"git status --porcelain lists {len(status.stdout.splitlines())} there"
+        else:
+            git = f"git status failed ({status.stderr.strip()[:200]}): the snapshot alone decides"
+    log("checkout untouched", f"{len(before)} files under {', '.join(ARTIFACT_DIRS)}: "
+        f"{len(changed)} added, removed or rewritten; {git}")
+    if changed:
+        raise AssertionError(f"the run wrote into the checkout: {changed[:10]}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
+    untouched = artifact_snapshot()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from textgcn_tpu_torch import cli
     from textgcn_tpu_torch.graph.format import convert_graph
@@ -1342,6 +1607,17 @@ def main() -> int:
         lda_phase(dev, roots)
         topic_hybrid, topic_gat = topic_training_phases(cli, counters, roots["fresh"], residual)
 
+    # 22-27. the build slice: R8's topic graph built on the card, trained,
+    # the YAML experiment, mr's doc-word graph, and the checkout untouched
+    with tempfile.TemporaryDirectory() as tmp:
+        built = corpus_root(tmp, "built", "R8")
+        build_phase(dev, built)
+        determinism_phase(dev, built)
+        built_hybrid = train_built_phase(cli, counters, dev, built)
+        experiment_phase(cli, tmp)
+        docword_phase(cli, tmp)
+    checkout_phase(untouched)
+
     sources = {
         "bsr_spmm": ("textgcn_tpu_torch/csrc/bsr_spmm.cu",
                      "textgcn_tpu/ops/pallas_spmm.py:143"),
@@ -1364,7 +1640,8 @@ def main() -> int:
         "bsr_leg": ("textgcn_tpu_torch/csrc/bsr_spmm.cu",
                     "textgcn_tpu/parallel/mesh_kernels.py:641"),
     }
-    paths = (launches, gat_launches, spmm_launches, shard1, shard4, topic_hybrid, topic_gat)
+    paths = (launches, gat_launches, spmm_launches, shard1, shard4, topic_hybrid, topic_gat,
+             built_hybrid)
     total = {k: sum(p[k] for p in paths) for k in launches}
     # K2's one counter: the attention paths' launches are dx (B3), the
     # others B2

@@ -1,15 +1,26 @@
-"""Command-line entry point: ``python -m textgcn_tpu_torch.cli train ...``.
+"""Command-line entry point: ``python -m textgcn_tpu_torch.cli <command>``.
 
-Port of the ``train`` subcommand of ``textgcn_tpu/cli.py``: every model
-family of the JAX registry on the topic graph (``--graph topic``, the
-default, as in the JAX package) or the doc-word graph (``--graph
-docword``); the GCN also sharded over ``--shards N`` GPUs. ``--seeds``
-names the runs' seeds outright. It trains on CUDA devices and raises when
-there are too few: the port never falls back to the CPU.
+Port of ``textgcn_tpu/cli.py``, with its flags and defaults:
+
+  clean          clean a raw corpus into clean_corpus/{ds}.txt (host)
+  build-graph    fit the topic model on the GPU, build and save the
+                 doc-topic-topic graph
+  build-docword  build and save the classic TextGCN doc-word graph (host)
+  train          train a model family on a built graph (GPU)
+  inspect        topic inspection report (GPU: theta by the E-step)
+  experiment     YAML-driven build → train → inspect in one process (GPU)
+
+``train`` runs every model family of the JAX registry on the topic graph
+(``--graph topic``, the default, as in the JAX package) or the doc-word
+graph (``--graph docword``); the GCN also sharded over ``--shards N`` GPUs.
+``--seeds`` names the runs' seeds outright. The device work runs on CUDA
+and raises when there is no CUDA device: the port never falls back to the
+CPU.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import sys
 
 import torch
@@ -17,10 +28,101 @@ import torch
 from textgcn_tpu_torch.graph.format import DENSE_MAX_NODES, SPMM_FORMATS
 from textgcn_tpu_torch.models import MODELS
 from textgcn_tpu_torch.parallel.trainer import check_sharded
+from textgcn_tpu_torch.topics.model import LDA_BACKENDS
 from textgcn_tpu_torch.train.run import (
     check_model_format, generate_seeds, run_experiment,
 )
 from textgcn_tpu_torch.train.trainer import TrainConfig
+from textgcn_tpu_torch.utils.profiling import trace
+
+
+def require_cuda(what: str) -> None:
+    if not torch.cuda.is_available():
+        raise RuntimeError(f"textgcn_tpu_torch {what} on a CUDA device and none is available")
+
+
+def _add_build_args(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--dataset", required=True)
+    p.add_argument("--num_topics", type=int, default=50)
+    p.add_argument("--doc_topic_threshold", type=float, default=0.02)
+    p.add_argument("--topic_topic_threshold", type=float, default=0.3)
+    p.add_argument("--min_df", type=int, default=2)
+    p.add_argument("--max_df", type=float, default=0.95)
+    p.add_argument("--no_word2vec", action="store_true")
+    p.add_argument(
+        "--lda_backend", default="jax", choices=LDA_BACKENDS,
+        help="jax: batch VB-EM on the GPU (the port of the JAX package's); "
+        "sklearn: sklearn's LatentDirichletAllocation on the host, where "
+        "sklearn is installed",
+    )
+    p.add_argument("--lda_max_iter", type=int, default=60)
+    p.add_argument("--data_root", default="data")
+
+
+def cmd_clean(args) -> int:
+    from textgcn_tpu_torch.text.clean import CorpusProcess
+
+    CorpusProcess(args.dataset, data_root=args.data_root)
+    return 0
+
+
+def cmd_build_graph(args) -> int:
+    from textgcn_tpu_torch.graph.build_topic import TopicGraphBuilder
+
+    require_cuda("fits the topic model")
+    b = TopicGraphBuilder(
+        args.dataset,
+        num_topics=args.num_topics,
+        doc_topic_threshold=args.doc_topic_threshold,
+        topic_topic_threshold=args.topic_topic_threshold,
+        min_df=args.min_df,
+        max_df=args.max_df,
+        use_word2vec=not args.no_word2vec,
+        lda_backend=args.lda_backend,
+        lda_max_iter=args.lda_max_iter,
+        data_root=args.data_root,
+        device="cuda",
+    )
+    g = b.build()
+    b.save()
+    print(f"built {args.dataset}: {g.n_nodes} nodes, {g.n_edges} edges")
+    return 0
+
+
+def cmd_build_docword(args) -> int:
+    from textgcn_tpu_torch.graph.build_textgcn import TextGCNGraphBuilder
+
+    b = TextGCNGraphBuilder(args.dataset, window_size=args.window, data_root=args.data_root)
+    g = b.build()
+    b.save()
+    print(
+        f"built {args.dataset} doc-word graph: {g.n_nodes} nodes "
+        f"({g.num_docs} docs + {g.num_words} words), {len(g.src)} edges"
+    )
+    return 0
+
+
+def cmd_inspect(args) -> int:
+    from textgcn_tpu_torch.inspect.topics import inspect_topics
+
+    require_cuda("infers theta")
+    inspect_topics(
+        args.dataset,
+        data_root=args.data_root,
+        top_n_words=args.top_n_words,
+        top_n_docs=args.top_n_docs,
+        heatmap=not args.no_heatmap,
+        output_dir=args.output_dir,
+        device="cuda",
+    )
+    return 0
+
+
+def cmd_experiment(args) -> int:
+    from textgcn_tpu_torch.runner import run_experiment_config
+
+    require_cuda("runs an experiment")
+    return run_experiment_config(args.config, device="cuda")
 
 
 def cmd_train(args) -> int:
@@ -33,10 +135,7 @@ def cmd_train(args) -> int:
                 "ROADMAP A.11 has the one-hot mesh kernel)"
             )
     check_model_format(args.model, args.spmm)
-    if not torch.cuda.is_available():
-        raise RuntimeError(
-            "textgcn_tpu_torch trains on a CUDA device and none is available"
-        )
+    require_cuda("trains")
     if args.shards is not None and torch.cuda.device_count() < args.shards:
         raise RuntimeError(
             f"--shards {args.shards} needs {args.shards} CUDA devices (one rank "
@@ -52,19 +151,24 @@ def cmd_train(args) -> int:
         spmm=args.spmm,
         model=args.model,
     )
-    summary = run_experiment(
-        args.dataset,
-        times=args.times,
-        graph_family=args.graph,
-        data_root=args.data_root,
-        output_dir=args.output_dir,
-        config=cfg,
-        seeds=args.seeds or generate_seeds(args.times, args.seed),
-        verbose=not args.quiet,
-        n_shards=args.shards,
-        partition=args.partition,
-        device="cuda",
-    )
+    trace_ctx = contextlib.nullcontext()
+    if args.trace:
+        trace_ctx = trace(args.trace)
+        print(f"writing a torch.profiler trace to {args.trace}")
+    with trace_ctx:
+        summary = run_experiment(
+            args.dataset,
+            times=args.times,
+            graph_family=args.graph,
+            data_root=args.data_root,
+            output_dir=args.output_dir,
+            config=cfg,
+            seeds=args.seeds or generate_seeds(args.times, args.seed),
+            verbose=not args.quiet,
+            n_shards=args.shards,
+            partition=args.partition,
+            device="cuda",
+        )
     acc = summary["test_accuracy"]
     print(
         f"{args.dataset}: acc mean={acc['mean']:.4f} "
@@ -76,6 +180,21 @@ def cmd_train(args) -> int:
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="textgcn_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
+
+    p = sub.add_parser("clean", help="clean a raw corpus (host)")
+    p.add_argument("--dataset", required=True)
+    p.add_argument("--data_root", default="data")
+    p.set_defaults(fn=cmd_clean)
+
+    p = sub.add_parser("build-graph", help="build the topic graph's artifacts (CUDA)")
+    _add_build_args(p)
+    p.set_defaults(fn=cmd_build_graph)
+
+    p = sub.add_parser("build-docword", help="build the classic TextGCN doc-word graph (host)")
+    p.add_argument("--dataset", required=True)
+    p.add_argument("--window", type=int, default=20)
+    p.add_argument("--data_root", default="data")
+    p.set_defaults(fn=cmd_build_docword)
 
     p = sub.add_parser("train", help="train a model family on a built graph (CUDA)")
     p.add_argument("--dataset", required=True)
@@ -143,7 +262,25 @@ def build_parser() -> argparse.ArgumentParser:
         "raises",
     )
     p.add_argument("--quiet", action="store_true")
+    p.add_argument(
+        "--trace", default=None, metavar="DIR",
+        help="profile the training run with torch.profiler (CPU and CUDA) "
+        "and write a Chrome trace to DIR/trace.json (open it in Perfetto)",
+    )
     p.set_defaults(fn=cmd_train)
+
+    p = sub.add_parser("inspect", help="topic inspection report (CUDA)")
+    p.add_argument("--dataset", required=True)
+    p.add_argument("--data_root", default="data")
+    p.add_argument("--output_dir", default="results")
+    p.add_argument("--top_n_words", type=int, default=10)
+    p.add_argument("--top_n_docs", type=int, default=5)
+    p.add_argument("--no_heatmap", action="store_true")
+    p.set_defaults(fn=cmd_inspect)
+
+    p = sub.add_parser("experiment", help="YAML-driven build, train, inspect (CUDA)")
+    p.add_argument("--config", required=True)
+    p.set_defaults(fn=cmd_experiment)
     return parser
 
 

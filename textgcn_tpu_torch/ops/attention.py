@@ -45,7 +45,7 @@ order; per-row statistics are one float per row.
 Every wrapper runs its plain version for CPU tensors only; for CUDA tensors
 it launches its kernel (building the library on first use) or raises, and
 adds one to its ``.launches`` where it launches. ``edge_logit_base`` and
-``spmm_onehot_ew`` of the JAX module are not ported yet (ROADMAP A.9).
+``spmm_onehot_ew`` of the JAX module are not ported yet (ROADMAP A.10).
 """
 from __future__ import annotations
 

@@ -1,1 +1,2 @@
-"""Dataset label files (port of :mod:`textgcn_tpu.text`)."""
+"""Dataset label files, the stop-word list and corpus cleaning (port of
+:mod:`textgcn_tpu.text`)."""

@@ -1,4 +1,3 @@
-"""The topic model's inference side (port of :mod:`textgcn_tpu.topics`):
-the stored vocabulary's vectorizer, the LDA E-step on a device, the
-Word2Vec lookup and the ``TopicModel`` that loads the build stage's
-pickle. Fitting (``LDA.fit``, CBOW training) is not ported yet."""
+"""The topic model (port of :mod:`textgcn_tpu.topics`): the vectorizer, LDA
+by batch VB-EM on a device, CBOW Word2Vec trained on a device, and the
+``TopicModel`` that fits, saves and loads the build stage's pickle."""

@@ -1,23 +1,54 @@
-"""Token counts over a stored vocabulary.
+"""Token-count vectorizer (a dependency-free CountVectorizer).
 
-Port of ``CountVectorizer.transform`` and ``get_feature_names_out`` of
-``textgcn_tpu/topics/vectorize.py``: tokens are whitespace-split
-(``doc.split()``), tokens outside the vocabulary are dropped, and the output
-is a CSR matrix with sorted column indices. The vocabulary comes from the
-build stage's topic model (:meth:`TopicModel.load`); ``fit`` is not ported.
+Port of ``textgcn_tpu/topics/vectorize.py`` (host work: pure Python, numpy
+and scipy):
+
+- tokens are whitespace-split (``doc.split()``: token pattern ``\\S+``, no
+  lowercasing); tokens outside the vocabulary are dropped;
+- ``fit`` keeps the tokens whose document frequency lies in ``[min_df,
+  max_df * D]`` and sorts them lexicographically (as sklearn does), so the
+  topic-word columns line up with the JAX package's;
+- ``transform`` gives a CSR matrix of counts with sorted column indices.
+
+A vectorizer is either fitted here or built over a stored vocabulary
+(``CountVectorizer(vocabulary)``, as :meth:`TopicModel.load` does).
 """
 from __future__ import annotations
 
 from collections import Counter
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import scipy.sparse as sp
 
 
 class CountVectorizer:
-    def __init__(self, vocabulary: Dict[str, int]):
-        self.vocabulary_ = vocabulary  # token -> column
+    def __init__(
+        self,
+        vocabulary: Optional[Dict[str, int]] = None,
+        min_df: int = 2,
+        max_df: float = 0.95,
+    ):
+        self.min_df = int(min_df)
+        self.max_df = float(max_df)
+        self.vocabulary_: Dict[str, int] = dict(vocabulary or {})  # token -> column
+
+    def fit(self, documents: Sequence[str]) -> "CountVectorizer":
+        df: Counter = Counter()
+        for doc in documents:
+            df.update(set(doc.split()))
+        max_count = self.max_df * len(documents)
+        terms = sorted(t for t, c in df.items() if self.min_df <= c <= max_count)
+        if not terms:
+            raise ValueError(
+                "empty vocabulary after min_df/max_df pruning "
+                f"(min_df={self.min_df}, max_df={self.max_df})"
+            )
+        self.vocabulary_ = {t: i for i, t in enumerate(terms)}
+        return self
+
+    def fit_transform(self, documents: Sequence[str]) -> sp.csr_matrix:
+        return self.fit(documents).transform(documents)
 
     def transform(self, documents: Sequence[str]) -> sp.csr_matrix:
         if not self.vocabulary_:

@@ -33,6 +33,7 @@ from textgcn_tpu_torch.train.prepare import (
     prepare_topic_data,
 )
 from textgcn_tpu_torch.train.trainer import TrainConfig, Trainer
+from textgcn_tpu_torch.utils.profiling import device_memory
 
 # --spmm spellings GAT takes: onehot / hybrid = the attention-kernel layout
 # without / with the degree sort, dense = the dense log-adjacency, auto =
@@ -58,7 +59,7 @@ def apply_gat_format(pre: PreparedData, fmt: str) -> PreparedData:
         if pre.graph.n_nodes > DENSE_MAX_NODES:
             raise NotImplementedError(
                 f"GAT --spmm auto above {DENSE_MAX_NODES} nodes needs the GPU "
-                "cost model (ROADMAP A.3); choose --spmm hybrid, onehot, "
+                "cost model (ROADMAP A.4); choose --spmm hybrid, onehot, "
                 "segment or dense"
             )
         fmt = "dense"
@@ -79,22 +80,6 @@ def aggregate(values: List[float]) -> Dict[str, float]:
         "mean": float(np.mean(values)),
         "max": float(np.max(values)),
         "min": float(np.min(values)),
-    }
-
-
-def device_memory(device: torch.device) -> Dict[str, Dict[str, float]]:
-    """Memory of a CUDA device in MB, from ``torch.cuda.memory_stats``
-    (empty for the CPU)."""
-    if device.type != "cuda":
-        return {}
-    stats = torch.cuda.memory_stats(device)
-    _, total = torch.cuda.mem_get_info(device)
-    return {
-        str(device): {
-            "bytes_in_use_mb": stats.get("allocated_bytes.all.current", 0) / 1e6,
-            "peak_bytes_in_use_mb": stats.get("allocated_bytes.all.peak", 0) / 1e6,
-            "bytes_limit_mb": total / 1e6,
-        }
     }
 
 

@@ -20,7 +20,7 @@ Not ported: the monolithic ``make_streamed_train_step`` /
 compile over the unsorted stream); the pre-tape hand steps; the
 ``_make_padded_stream`` 128-lane pad (a TPU gather-granule fix; an odd
 width pads one column inside ``spmm_streamed_sorted``); the other streamed
-families (SGC, APPNP, SAGE, GIN, GCNII; ROADMAP A.9).
+families (SGC, APPNP, SAGE, GIN, GCNII; ROADMAP A.10).
 """
 from __future__ import annotations
 
