@@ -73,11 +73,30 @@ drives the port's paths: on R8 doc-word, then on R8's topic graph:
   the committed edge set; and checks that nothing under data/,
   experiments/ or results/ of the checkout was written.
 
+- The single-card train with every flag of the JAX CLI: "machine" runs
+  ``probe_machine`` beside the committed ``MachineModel``; "bsr f32" holds
+  K1's f32 mode (B4's f32 mode, ``bsr_spmm_f32``) on the unsorted R8
+  doc-word tile stack (F' = 208, 16) and, in "bsr f32 topic", on R8 topic's
+  (208, 112, 16) against the plain version (within F32_TILE_TOL of its
+  largest output, two launches bit-equal); "onehot" holds K2 from zero on
+  the whole R8 doc-word CSR; "auto" times every eligible format's pass on
+  R8 doc-word, mr topic and mr doc-word and requires the cost model's pick
+  within AUTO_SLACK (or AUTO_ABS_MS) of the fastest, and "auto gat" the
+  dense GAT's measured peak not above its price; then, through the CLI,
+  mr topic on auto (JAX's committed seeds, within 0.01 of its mean), the
+  R8 doc-word GCN on auto, bsr and onehot (>= 0.95), the GAT on auto, the
+  R8 topic GCN on bsr and onehot on the bench seeds (within 0.01 of
+  segment per seed), "checkpoint" (a resumed run's losses bit-equal to a
+  straight run's, ``--load_model`` its test accuracy exactly) and
+  "experiment r8_docword". These phases draw from a generator of their own,
+  so the earlier phases' inputs are unchanged.
+
 Every kernel's record also carries its bound on the card (the larger of its
 bytes over the memory rate and its operations over the peak rate, from this
 run's inputs) and the time of one PyTorch call that computes the same
 function, where there is one. K2's record is split by role: ``row_reduce``
-(the residual leg, B2) and ``row_reduce_dx`` (GAT's dx, B3); B11 is
+(the residual leg, B2) and ``row_reduce_dx`` (from zero, B3: GAT's dx and
+the ``--spmm onehot`` runs); B11 is
 ``sorted_chunk_add``; ``attn_stats`` is B5 and ``softmax_stats`` B6 (one
 kernel, two modes, each with its own count). ``ms``, ``plain_ms`` and
 ``library_ms`` are CUDA events around 20 back-to-back calls (the host's
@@ -90,6 +109,8 @@ Each phase prints one line; any failure raises and exits non-zero. The last
 lines are the kernels' JSON record, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
 """
+import contextlib
+import io
 import json
 import math
 import os
@@ -165,6 +186,15 @@ BOUND_FINDING = 0.02
 # formulas, the weights' text written with repr
 DOCWORD_RTOL = 1e-12
 ARTIFACT_DIRS = ("data", "experiments", "results")
+# K1's f32 mode vs plain: f32 products of the same inputs, f32 sums of up to
+# a block-row's 128 * tiles terms in another order (here within 2e-5 of the
+# largest output; TF32 would miss it by two orders)
+F32_TILE_TOL = 2e-5
+# auto: the pick's device time within 25% of the fastest measured format's,
+# or within 0.02 ms of it (the committed constants are wrong otherwise)
+AUTO_SLACK, AUTO_ABS_MS = 0.25, 0.02
+# mr's topic graph: experiments/mr.yaml's 50 topics beside its 10,662 docs
+MR_TOPICS = 50
 # H100 SXM peaks (NVIDIA's data sheet): HBM rate, dense bf16 tensor
 # cores, f32 outside them
 HBM_BYTES_PER_S = 3.35e12
@@ -676,21 +706,21 @@ def attention_spmm_path(att, ag, gen, counters, steps=3):
     return launches
 
 
-def run_cli(cli, args, counters, graph):
-    """``cli train --dataset R8 *args`` with every launch count set to 0 just
-    before; returns (the report, the counts read just after, summed over
-    each kernel's wrappers, and the wall seconds). Raises unless it returns
-    0 with finite losses in every run."""
+def run_cli(cli, args, counters, graph, dataset="R8"):
+    """``cli train --dataset {dataset} *args`` with every launch count set to
+    0 just before; returns (the report, the counts read just after, summed
+    over each kernel's wrappers, and the wall seconds). Raises unless it
+    returns 0 with finite losses in every run."""
     for fns in counters.values():
         for fn in fns:
             fn.launches = 0
     torch.cuda.reset_peak_memory_stats()
     with tempfile.TemporaryDirectory() as out_dir:
         t0 = time.perf_counter()
-        rc = cli.main(["train", "--dataset", "R8", *args, "--quiet", "--output_dir", out_dir])
+        rc = cli.main(["train", "--dataset", dataset, *args, "--quiet", "--output_dir", out_dir])
         wall_s = time.perf_counter() - t0
         launches = {k: sum(fn.launches for fn in fns) for k, fns in counters.items()}
-        with open(os.path.join(out_dir, f"R8_{graph}_training_results.json")) as fh:
+        with open(os.path.join(out_dir, f"{dataset}_{graph}_training_results.json")) as fh:
             summary = json.load(fh)
     if rc != 0:
         raise AssertionError(f"cli train {' '.join(args)} returned {rc}")
@@ -712,7 +742,7 @@ def train_via_cli(cli, model, flags, acc_min, counters, need):
     )
     if "--shards" in flags and summary.get("sharding", {}).get("kernel") != "hybrid":
         raise AssertionError(f"a sharded run's report lacks its sharding: {summary.get('sharding')}")
-    if min(launches[k] for k in need) < 1:
+    if need and min(launches[k] for k in need) < 1:
         raise AssertionError(f"a kernel of the {model} path never launched: {launches}")
     run = summary["runs"][0]
     test = run["test"]
@@ -793,11 +823,13 @@ def topic_roots(tmp):
     return roots
 
 
-def topic_data_phase(dev, gen, records, root):
+def topic_data_phase(dev, gen, records, yard, root, gen_formats):
     """16. topic data: the R8 topic graph prepared on the card, its hybrid
     layout, and K1, K2 (where the layout has residual edges) and the hybrid
     pass held against their plain versions at the topic path's widths (F =
-    200, 100, 8: F' = 208, 112, 16). Returns whether there is a residual."""
+    200, 100, 8: F' = 208, 112, 16); then K1's f32 mode on the bare tile
+    stack (``--spmm bsr``) at the same widths, its inputs drawn from
+    ``gen_formats``. Returns whether there is a residual."""
     from textgcn_tpu_torch.graph.format import convert_graph
     from textgcn_tpu_torch.graph.reorder import hybrid_pass, spmm_hybrid
     from textgcn_tpu_torch.graph.structs import SparseGraph
@@ -871,6 +903,8 @@ def topic_data_phase(dev, gen, records, root):
     log("topic hybrid pass", f"F=200 vs the segment oracle: max abs err {err:.3e}, backward "
         f"{gerr:.3e}, tol {HYBRID_TOL}*(1+|ref|); backward == pass on the cotangent; hybrid "
         f"pass {hyb_ms:.4f} ms, segment pass {seg_ms:.4f} ms")
+    b, _ = convert_graph(pre.graph, "bsr")
+    bsr_f32_phase("bsr f32 topic", b, gen_formats, (200, 100, 8), records, yard)
     return rest is not None
 
 
@@ -915,11 +949,15 @@ def lda_phase(dev, roots):
         raise AssertionError(f"prepare's E-step path: cache {os.path.exists(cache)}, X diff {x_diff:.3e}")
 
 
+def committed_report(name):
+    """The JAX package's committed report ``results/{name}_training_results.json``."""
+    with open(os.path.join(REPO, "results", f"{name}_training_results.json")) as fh:
+        return json.load(fh)
+
+
 def committed(family):
     """The JAX package's committed R8 topic report of ``family``."""
-    name = {"gcn": "", "sgc_pre": "_sgcpre"}.get(family, f"_{family}")
-    with open(os.path.join(REPO, "results", f"R8_topic{name}_training_results.json")) as fh:
-        return json.load(fh)
+    return committed_report("R8_topic" + {"gcn": "", "sgc_pre": "_sgcpre"}.get(family, f"_{family}"))
 
 
 def topic_runs(cli, counters, root, family, spmm, seeds):
@@ -946,9 +984,12 @@ def topic_runs(cli, counters, root, family, spmm, seeds):
 def topic_training_phases(cli, counters, root, residual):
     """18-21. The topic slice through the CLI: GCN and GAT on the bench
     seeds, each new family on its committed seeds (segment), the GCN on
-    --spmm auto, and every family once on its kernels (--spmm hybrid: K1,
-    and K2 where the layout has ``residual`` edges; GAT's kernels and K2 as
-    dx). Returns the launches of the hybrid runs: (non-GAT, GAT)."""
+    --spmm auto, every family once on its kernels (--spmm hybrid: K1, and
+    K2 where the layout has ``residual`` edges; GAT's kernels and K2 as
+    dx), and the GCN on --spmm bsr (K1's f32 mode) and onehot (K2 from
+    zero) on the bench seeds, each within FAMILY_GAP of segment at every
+    seed. Returns the launches of the hybrid runs (non-GAT, GAT) and
+    [(launches, K2 record)] of the bsr and onehot runs."""
     seg = {}
     for phase, families in (("train topic gcn/gat", ("gcn", "gat")),
                             ("train topic families", NEW_FAMILIES)):
@@ -986,7 +1027,352 @@ def topic_training_phases(cli, counters, root, residual):
             raise AssertionError(f"topic {family} on --spmm hybrid is {gap:+.4f} off its segment run")
         hybrid[family] = launches
     gat = hybrid.pop("gat")
-    return {k: sum(v[k] for v in hybrid.values()) for k in gat}, gat
+    formats = []
+    for fmt in ("bsr", "onehot"):
+        _, launches, acc, text = topic_runs(cli, counters, root, "gcn", fmt, BENCH_SEEDS)
+        gaps = [acc[s] - seg["gcn"][s] for s in BENCH_SEEDS]
+        log("train topic bsr/onehot", f"{text}; vs segment per seed "
+            f"{', '.join(f'{g:+.4f}' for g in gaps)} (limit ±{FAMILY_GAP}); launches {launches}")
+        if min(launches[k] for k in kernel_need(fmt)) < 1:
+            raise AssertionError(f"a kernel of the topic GCN on {fmt} never launched: {launches}")
+        if max(map(abs, gaps)) > FAMILY_GAP:
+            raise AssertionError(f"topic GCN on --spmm {fmt} is off its segment runs: {gaps}")
+        formats.append((launches, "row_reduce_dx" if fmt == "onehot" else "row_reduce"))
+    return {k: sum(v[k] for v in hybrid.values()) for k in gat}, gat, formats
+
+
+def pad16(f):
+    return -(-f // 16) * 16
+
+
+def bsr_f32_phase(tag, b, gen, widths, records, yard):
+    """bsr f32: K1's f32 mode (B4's f32 mode) on the bare tile stack ``b``
+    (no degree sort) against ``bsr_spmm_plain`` at the feature widths
+    ``widths`` (F' = ``widths`` rounded up to 16): max abs err within
+    F32_TILE_TOL of max |plain|, two launches bit-equal, a call and device
+    time, the plain version's, the bound (f32 operations or bytes) and
+    ``torch.sparse.mm`` on the f32 CSR of the same matrix."""
+    from textgcn_tpu_torch.ops.bsr_spmm import bsr_spmm, bsr_spmm_f32, bsr_spmm_plain
+
+    n_pad = b.n_block_rows * b.bm
+    sp = b.split
+    log(tag, f"bare f32 tile stack (no degree sort): {b.nnzb} tiles "
+        f"({nbytes(b.blocks) / 1e6:.1f} MB) holding {b.n_edges} edges in {b.n_block_rows} "
+        f"block-rows, max {int(torch.diff(b.tile_ptr.long()).max())} tiles a block-row; "
+        f"T = 16: {0 if sp is None else sp.n_long} block-rows cut into "
+        f"{0 if sp is None else sp.n_seg} segments")
+    for f in widths:
+        fp = pad16(f)
+        xp = torch.zeros((n_pad, fp), device=b.blocks.device)
+        xp[: b.n_nodes, :f] = torch.randn((b.n_nodes, f), generator=gen, device=xp.device)
+        args = (b.blocks, b.tile_ptr, b.block_cols, xp)
+        got = bsr_spmm(*args, split=sp)
+        if not torch.equal(got, bsr_spmm_f32(*args, split=sp)):
+            raise AssertionError(f"{tag}: two f32 launches differ at F'={fp}")
+        want = bsr_spmm_plain(*args)
+        torch.cuda.synchronize()
+        err, scale = float((got - want).abs().max()), float(want.abs().max())
+        if err > F32_TILE_TOL * scale:
+            raise AssertionError(f"{tag}: F'={fp} max abs err {err:.3e} > {F32_TILE_TOL} * {scale:.3e}")
+        del got, want
+        ms, dev_ms = both_ms(lambda: bsr_spmm_f32(*args, split=sp))
+        plain_ms = cuda_ms(lambda: bsr_spmm_plain(*args))
+        n_bytes = (nbytes(b.blocks, b.tile_ptr, b.block_cols)
+                   + rows_read(b.block_cols, 128 * fp, 4) + n_pad * fp * 4)
+        bnd = bound(n_bytes, 2 * b.nnzb * 128 * 128 * fp, PEAK_F32)
+        a = tiles_csr(b, n_pad)
+        lib = both_ms(lambda: torch.sparse.mm(a, xp))
+        del a
+        records.setdefault("bsr_spmm_f32", []).append((err, ms, dev_ms, plain_ms))
+        yard.setdefault("bsr_spmm_f32", (*bnd, *lib))
+        log(tag, f"F'={fp}: max abs err {err:.3e} (limit {F32_TILE_TOL} * max|plain| = "
+            f"{F32_TILE_TOL * scale:.3e}; f32 products, sums in another order); two launches "
+            f"bit-equal; kernel {ms:.4f} ms a call ({dev_ms:.4f} device), plain "
+            f"{plain_ms:.4f} ms, bound {bnd[0]:.4f} ms by {bnd[1]}, torch.sparse.mm "
+            f"{lib[0]:.4f} ms a call ({lib[1]:.4f} device)")
+
+
+def onehot_phase(graph, gen, records):
+    """onehot: K2 from zero over the whole R8 doc-word graph as one CSR (the
+    ``--spmm onehot`` layout, B3's role on a new container) at F' = 208 and
+    16 against the plain version: two launches bit-equal, the yardsticks.
+    Its entries join ``row_reduce_dx`` (K2 from zero, B3)."""
+    from textgcn_tpu_torch.graph.format import convert_graph
+    from textgcn_tpu_torch.ops.row_reduce import row_reduce, row_reduce_plain
+
+    t0 = time.perf_counter()
+    g, _ = convert_graph(graph, "onehot")
+    c = g.csr
+    deg = torch.diff(c.row_ptr.long())
+    log("onehot", f"R8 doc-word as one CSR (no sort): {g.n_nodes} rows, {c.n_edges} edges, "
+        f"hub row {int(deg.max())}, median {int(deg.median())}; S = 512: "
+        f"{0 if c.split is None else c.split.n_long} rows cut into "
+        f"{0 if c.split is None else c.split.n_seg} segments; {time.perf_counter() - t0:.1f} s "
+        "on the host")
+    for f in (200, 8):
+        fp = pad16(f)
+        x = torch.randn((g.n_nodes, fp), generator=gen, device=c.val.device).to(torch.bfloat16)
+        args = (c.row_ptr, c.col, c.val, x)
+        got = row_reduce(*args, split=c.split)
+        if not torch.equal(got, row_reduce(*args, split=c.split)):
+            raise AssertionError(f"onehot: two K2 launches differ at F'={fp}")
+        err, _ = compare(got, row_reduce_plain(*args), K2_TOL)
+        del got
+        ms, dev_ms = both_ms(lambda: row_reduce(*args, split=c.split))
+        plain_ms = cuda_ms(lambda: row_reduce_plain(*args))
+        yd = k2_yardsticks(*args)
+        records.setdefault("row_reduce_dx", []).append((err, ms, dev_ms, plain_ms))
+        log("onehot", f"K2 from zero, F'={fp}: max abs err {err:.3e}, tol {K2_TOL}*(1+|ref|) "
+            f"(the same bf16 x, f32 sums in another order); two launches bit-equal; kernel "
+            f"{ms:.4f} ms a call ({dev_ms:.4f} device), plain {plain_ms:.4f} ms, bound "
+            f"{yd[0]:.4f} ms by {yd[1]}, torch.sparse.mm {yd[2]:.4f} ms a call "
+            f"({yd[3]:.4f} device)")
+
+
+def machine_phase(dev):
+    """machine: ``probe_machine`` on this card beside the committed
+    ``MachineModel`` defaults."""
+    import dataclasses
+
+    from textgcn_tpu_torch.graph.format import MachineModel, probe_machine
+
+    mm, secs = wall(lambda: probe_machine(dev))
+    base = MachineModel()
+    rows = [f"{k.name} {getattr(mm, k.name):.6g} (committed {getattr(base, k.name):.6g})"
+            for k in dataclasses.fields(MachineModel)
+            if getattr(mm, k.name) != getattr(base, k.name)]
+    log("machine", f"probe_machine in {secs:.1f} s: {'; '.join(rows)}")
+    return mm
+
+
+def auto_graphs(dev, r8):
+    """The three graphs ``auto`` is held on: R8 doc-word, mr topic and mr
+    doc-word, each as prepared (max-symmetrized, sym-normalized)."""
+    from textgcn_tpu_torch.text.datasets import load_labels
+    from textgcn_tpu_torch.train.prepare import load_graph_edges, prepare_docword_data
+
+    mr_docs = load_labels(os.path.join(REPO, "data", "text_dataset", "mr.txt")).n_docs
+    mr_topic = load_graph_edges(os.path.join(REPO, "data", "graph", "mr_topic.txt"),
+                                mr_docs + MR_TOPICS, device=dev)
+    return {"R8 doc-word": r8, "mr topic": mr_topic,
+            "mr doc-word": prepare_docword_data("mr", device=dev).graph}
+
+
+def auto_phase(dev, gen, graphs, mm_probe):
+    """auto: for each graph, one ``Â @ x`` pass (F = 200) of every format the
+    cost model finds eligible, device time (CUDA graph) beside the committed
+    model's estimate; the pick's device time must be within AUTO_SLACK of the
+    fastest, or AUTO_ABS_MS. Also the constants the measured passes imply
+    against the probe's rates. Returns {graph: pick}."""
+    from textgcn_tpu_torch.graph.format import (
+        HYBRID_CALLS, MachineModel, convert_graph, estimate_format_costs,
+    )
+    from textgcn_tpu_torch.ops.spmm import spmm
+
+    mm = MachineModel()
+    picks = {}
+    for name, g in graphs.items():
+        costs = estimate_format_costs(g, f=200, mm=mm)
+        pick = min(costs, key=costs.get)
+        x = torch.randn((g.n_nodes, 200), generator=gen, device=dev)
+        meas, built = {}, {}
+        for fmt in costs:
+            (c, _), build_s = wall(lambda: convert_graph(g, fmt))
+            with torch.no_grad():
+                meas[fmt] = (*both_ms(lambda: spmm(c, x)),)
+            built[fmt] = build_s
+            if fmt == "hybrid":
+                h = c
+            del c
+        best = min(v[1] for v in meas.values())
+        ok = meas[pick][1] <= (1 + AUTO_SLACK) * best or meas[pick][1] - best <= AUTO_ABS_MS
+        text = "; ".join(
+            f"{fmt}: estimate {1e3 * costs[fmt]:.4f} ms, measured {meas[fmt][1]:.4f} ms device "
+            f"({meas[fmt][0]:.4f} a call; layout {built[fmt]:.1f} s)" for fmt in costs)
+        implied = ""
+        if "hybrid" in meas:
+            e = g.n_edges
+            t_seg, t_one = meas["segment"][1] * 1e-3, meas["onehot"][1] * 1e-3
+            eff_seg = e / (mm_probe.gather_rows_per_s * t_seg)
+            eff_one = e / (mm_probe.gather_rows_per_s * t_one)
+            rest = 0 if h.rest is None else h.rest.n_edges
+            t_rest = rest / (mm_probe.gather_rows_per_s * eff_one)
+            n_pad = h.bsr.n_block_rows * 128
+            bsr_bytes = h.bsr.nnzb * (128 * 128 * 2 + 128 * 208 * 2) + n_pad * 208 * 4
+            t_k1 = max(meas["hybrid"][1] * 1e-3 - t_rest, 1e-9)
+            eff_k1 = bsr_bytes / (mm_probe.hbm_gbps * 1e9) / t_k1
+            implied = (f"; against the probe's rates these passes imply eff_segment "
+                       f"{eff_seg:.4g}, eff_onehot {eff_one:.4g}, eff_hybrid_bsr {eff_k1:.4g} "
+                       f"(committed {mm.eff_segment:.4g}, {mm.eff_onehot:.4g}, "
+                       f"{mm.eff_hybrid_bsr:.4g}; hybrid's {HYBRID_CALLS} calls priced at "
+                       f"{1e3 * mm.call_s:.4f} ms each)")
+            del h
+        log("auto", f"{name}: {g.n_nodes} nodes, {g.n_edges} edges, F=200; {text}; auto "
+            f"picks {pick} ({meas[pick][1]:.4f} ms, fastest measured {best:.4f} ms; limit "
+            f"+{AUTO_SLACK:.0%} or +{AUTO_ABS_MS} ms){implied}")
+        if not ok:
+            raise AssertionError(f"auto on {name} picks {pick} at {meas[pick][1]:.4f} ms, "
+                                 f"the fastest format takes {best:.4f} ms")
+        picks[name] = pick
+        del x
+    torch.cuda.empty_cache()
+    return picks
+
+
+def gat_peak_phase(dev, gen, graphs):
+    """auto (GAT): one dense GAT forward + backward (H = 200, dropout on) on
+    R8 doc-word; its peak memory above what was held before, beside the
+    priced peak (``gat_dense_tables`` [N, N] f32 tables), which must not be
+    below it; and what GAT's auto picks on each graph."""
+    from textgcn_tpu_torch.graph.format import MachineModel, gat_auto_format
+    from textgcn_tpu_torch.models.gat import GAT, DenseAttentionGraph
+
+    mm = MachineModel()
+    g = graphs["R8 doc-word"]
+    n = g.n_nodes
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    dg = DenseAttentionGraph.from_sparse_graph(g)
+    model = GAT(n, 200, 8, 0.5, device=dev, generator=gen)
+    model(dg, None, generator=gen).square().sum().backward()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del dg, model
+    torch.cuda.empty_cache()
+    table = 4.0 * n * n
+    priced = mm.gat_dense_tables * table
+    picks = {name: gat_auto_format(gr.n_nodes, mm) for name, gr in graphs.items()}
+    log("auto gat", f"R8 doc-word dense GAT fwd+bwd (N = {n}, H = 200): measured peak "
+        f"{peak / 1e9:.3f} GB above the {base / 1e9:.3f} GB held before = {peak / table:.3f} "
+        f"[N, N] f32 tables; priced {mm.gat_dense_tables} tables = {priced / 1e9:.3f} GB "
+        f"(budget {mm.dense_bytes_budget / 2**30:.0f} GiB); GAT auto picks {picks}")
+    if priced < peak:
+        raise AssertionError(f"GAT's priced dense peak {priced:.3e} B < measured {peak:.3e} B")
+    return picks
+
+
+def fresh_topic_root(tmp, dataset):
+    """A data root under ``tmp`` with copies of ``dataset``'s committed topic
+    artifacts (the label files and clean corpus linked), its theta cache
+    written after the model pickle, so prepare takes the cache."""
+    root = os.path.join(tmp, f"{dataset}_topic_root")
+    os.makedirs(os.path.join(root, "graph"))
+    os.symlink(os.path.join(REPO, "data", "text_dataset"), os.path.join(root, "text_dataset"))
+    for suffix in (".txt", "_model.pkl", "_theta.npy"):
+        shutil.copyfile(os.path.join(REPO, "data", "graph", f"{dataset}_topic{suffix}"),
+                        os.path.join(root, "graph", f"{dataset}_topic{suffix}"))
+    now = time.time()
+    os.utime(os.path.join(root, "graph", f"{dataset}_topic_model.pkl"), (now - 10, now - 10))
+    os.utime(os.path.join(root, "graph", f"{dataset}_topic_theta.npy"), (now, now))
+    return root
+
+
+def kernel_need(fmt, model="gcn"):
+    """The kernels a run on ``fmt`` must launch, and the record its K2
+    launches belong to (B2 with a base, B3 from zero)."""
+    if model == "gat":
+        return {"hybrid": ("row_reduce", "attn_stats", "attn_agg", "sddmm", "rowsum"),
+                "onehot": ("row_reduce", "attn_stats", "attn_agg", "sddmm", "rowsum")}.get(fmt, ())
+    return {"hybrid": ("bsr_spmm", "row_reduce"), "bsr": ("bsr_spmm_f32",),
+            "onehot": ("row_reduce",)}.get(fmt, ())
+
+
+def formats_training_phase(cli, counters, tmp, picks, gat_picks):
+    """train auto / bsr / onehot, through cli.main: mr topic (auto) on the
+    JAX package's committed seeds, mean within FAMILY_GAP of its 0.5781; R8
+    doc-word GCN on auto, bsr and onehot at the smoke's seed, each >=
+    ACC_MIN; R8 doc-word GAT on auto on the committed seeds (dense: within
+    FAMILY_GAP of 0.9157; the attention hybrid: >= GAT_ACC_MIN). Returns
+    [(launches, K2 record)] of the runs."""
+    paths = []
+
+    def check(launches, fmt, model, what):
+        need = kernel_need(fmt, model)
+        if need and min(launches[k] for k in need) < 1:
+            raise AssertionError(f"{what}: a kernel of {fmt} never launched: {launches}")
+        dx = model == "gat" or fmt == "onehot"
+        paths.append((launches, "row_reduce_dx" if dx else "row_reduce"))
+
+    ref = committed_report("mr_topic")
+    seeds = [r["seed"] for r in ref["runs"]]
+    summary, launches, wall_s = run_cli(
+        cli, ["--data_root", fresh_topic_root(tmp, "mr"), "--seeds", *map(str, seeds)],
+        counters, "topic", dataset="mr")
+    check(launches, picks["mr topic"], "gcn", "mr topic auto")
+    mean, want = summary["test_accuracy"]["mean"], ref["test_accuracy"]["mean"]
+    accs = ", ".join(f"{r['test']['acc']:.4f}" for r in summary["runs"])
+    log("train auto", f"cli train --dataset mr (topic, auto = {picks['mr topic']}) on seeds "
+        f"{seeds}: acc {accs}, mean {mean:.4f}; the JAX package's committed mean {want:.4f}, "
+        f"gap {mean - want:+.4f} (limit ±{FAMILY_GAP}); {wall_s:.1f} s; launches {launches}")
+    if abs(mean - want) > FAMILY_GAP:
+        raise AssertionError(f"mr topic auto mean {mean:.4f} is {mean - want:+.4f} off JAX's")
+    for fmt, spmm in ((picks["R8 doc-word"], "auto"), ("bsr", "bsr"), ("onehot", "onehot")):
+        launches, _ = train_via_cli(cli, f"gcn {spmm}", ["--spmm", spmm], ACC_MIN, counters,
+                                    need=kernel_need(fmt))
+        check(launches, fmt, "gcn", f"R8 doc-word --spmm {spmm}")
+    ref = committed_report("R8_docword")
+    seeds = [r["seed"] for r in ref["runs"]]
+    summary, launches, wall_s = run_cli(
+        cli, ["--graph", "docword", "--model", "gat", "--seeds", *map(str, seeds)],
+        counters, "docword")
+    pick = gat_picks["R8 doc-word"]
+    check(launches, pick, "gat", "R8 doc-word GAT auto")
+    mean, want = summary["test_accuracy"]["mean"], ref["test_accuracy"]["mean"]
+    accs = ", ".join(f"{r['test']['acc']:.4f}" for r in summary["runs"])
+    bar = (f"within ±{FAMILY_GAP} of the JAX package's committed dense mean {want:.4f}"
+           if pick == "dense" else f">= {GAT_ACC_MIN} (the attention hybrid's bar)")
+    log("train auto", f"cli train --dataset R8 --graph docword --model gat (auto = {pick}) "
+        f"on seeds {seeds}: acc {accs}, mean {mean:.4f}; bar: {bar}; {wall_s:.1f} s; "
+        f"launches {launches}")
+    if (abs(mean - want) > FAMILY_GAP) if pick == "dense" else (mean < GAT_ACC_MIN):
+        raise AssertionError(f"R8 doc-word GAT auto mean {mean:.4f} misses its bar")
+    return paths
+
+
+def checkpoint_phase(cli, counters, tmp):
+    """checkpoint: R8 doc-word GCN on --spmm hybrid (no atomics: its kernels
+    give the same bits run to run). A straight 20-epoch run saved with
+    --save_model; 10 epochs saved with --save_state, then --resume to 20:
+    the 20 train losses must equal the straight run's bit for bit; the
+    saved params through --load_model (and ``evaluate_checkpoint``, the
+    function it calls) must give the straight run's test accuracy exactly.
+    Everything is written under ``tmp``. Returns [(launches, K2 record)] of
+    the three runs."""
+    from textgcn_tpu_torch.train.run import evaluate_checkpoint
+
+    flags = ["--graph", "docword", "--spmm", "hybrid", "--early_stopping", "1000",
+             "--seeds", str(SEED)]
+    model_dir, state_dir = os.path.join(tmp, "model"), os.path.join(tmp, "state")
+    straight, l1, s_wall = run_cli(cli, [*flags, "--max_epoch", "20", "--save_model", model_dir],
+                                   counters, "docword")
+    first, l2, f_wall = run_cli(cli, [*flags, "--max_epoch", "10", "--save_state", state_dir],
+                                counters, "docword")
+    resumed, l3, r_wall = run_cli(cli, ["--graph", "docword", "--spmm", "hybrid",
+                                        "--early_stopping", "1000", "--max_epoch", "20",
+                                        "--resume", state_dir], counters, "docword")
+    for launches in (l1, l2, l3):
+        if min(launches[k] for k in kernel_need("hybrid")) < 1:
+            raise AssertionError(f"a kernel of the checkpoint runs never launched: {launches}")
+    losses = [h["train_loss"] for s in (first, resumed) for h in s["runs"][0]["history"]]
+    want = [h["train_loss"] for h in straight["runs"][0]["history"]]
+    acc = straight["runs"][0]["test"]["acc"]
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(["train", "--dataset", "R8", "--graph", "docword", "--spmm", "hybrid",
+                       "--load_model", model_dir])
+    loaded = evaluate_checkpoint("R8", model_dir, graph_family="docword", spmm="hybrid",
+                                 device="cuda")["acc"]
+    log("checkpoint", f"R8 doc-word GCN hybrid, seed {SEED}: straight 20 epochs ({s_wall:.1f} "
+        f"s), 10 epochs + --save_state ({f_wall:.1f} s), --resume to 20 ({r_wall:.1f} s, seed "
+        f"{resumed['runs'][0]['seed']} from the checkpoint): {len(losses)} train losses, "
+        f"bit-equal to the straight run's: {losses == want}; --load_model: "
+        f"{out.getvalue().strip()!r} (rc {rc}), evaluate_checkpoint acc {loaded!r} vs the "
+        f"run's {acc!r}: equal {loaded == acc}")
+    if losses != want or rc != 0 or loaded != acc or f"acc={acc:.4f}" not in out.getvalue():
+        raise AssertionError("a resumed run or a loaded checkpoint differs from the straight run")
+    return [(launches, "row_reduce") for launches in (l1, l2, l3)]
 
 
 def artifact_snapshot():
@@ -1132,20 +1518,24 @@ def train_built_phase(cli, counters, dev, root):
     return launches
 
 
-def experiment_phase(cli, tmp):
-    """25. experiment r8: ``cli experiment`` on a copy of experiments/r8.yaml
-    whose data_root holds only the label file and the clean corpus, from a
-    temporary working directory; build, train and inspect must leave their
-    logs, config_used.yaml, reports and stage times."""
+def experiment_phase(cli, tmp, name="r8.yaml"):
+    """25. experiment r8: ``cli experiment`` on a copy of experiments/{name}
+    (r8.yaml: the topic graph built on the card; r8_docword.yaml: the
+    doc-word graph built on the host, trained on --spmm auto) whose
+    data_root holds only the label file and the clean corpus, from a
+    temporary working directory; its stages must leave their logs,
+    config_used.yaml, reports and stage times."""
     import yaml
 
-    root = corpus_root(tmp, "experiment_data", "R8")
-    cwd = os.path.join(tmp, "experiment_cwd")
+    stem = name.removesuffix(".yaml")
+    root = corpus_root(tmp, f"experiment_data_{stem}", "R8")
+    cwd = os.path.join(tmp, f"experiment_cwd_{stem}")
     os.makedirs(cwd)
-    with open(os.path.join(REPO, "experiments", "r8.yaml"), encoding="utf-8") as fh:
+    with open(os.path.join(REPO, "experiments", name), encoding="utf-8") as fh:
         cfg = yaml.safe_load(fh)
     cfg["data_root"] = root
-    path = os.path.join(cwd, "r8.yaml")
+    family = cfg.get("graph", "topic")
+    path = os.path.join(cwd, name)
     with open(path, "w", encoding="utf-8") as fh:
         yaml.safe_dump(cfg, fh)
     here = os.getcwd()
@@ -1154,20 +1544,21 @@ def experiment_phase(cli, tmp):
         rc, secs = wall(lambda: cli.main(["experiment", "--config", path]))
     finally:
         os.chdir(here)
-    exp = os.path.join(cwd, "experiments", "R8")
-    need = [os.path.join("logs", f"{s}.log") for s in ("build", "train", "inspect")] + [
-        os.path.join("logs", "stage_times.txt"), "config_used.yaml",
-        os.path.join("results", "R8_topic_training_results.json"),
-        os.path.join("results", "R8_topic_inspection.txt"),
+    exp = os.path.join(cwd, "experiments", "R8" if family == "topic" else "R8_docword")
+    stages = ("build", "train", "inspect") if family == "topic" else ("build", "train")
+    report = os.path.join("results", f"R8_{family}_training_results.json")
+    need = [os.path.join("logs", f"{s}.log") for s in stages] + [
+        os.path.join("logs", "stage_times.txt"), "config_used.yaml", report,
+        *([os.path.join("results", "R8_topic_inspection.txt")] if family == "topic" else []),
     ]
     missing = [p for p in need if not os.path.exists(os.path.join(exp, p))]
     if rc != 0 or missing:
         raise AssertionError(f"cli experiment returned {rc}; missing {missing}")
     with open(os.path.join(exp, "logs", "stage_times.txt"), encoding="utf-8") as fh:
         stages = " | ".join(" ".join(ln.split()) for ln in fh.read().splitlines()[1:])
-    with open(os.path.join(exp, "results", "R8_topic_training_results.json")) as fh:
+    with open(os.path.join(exp, report)) as fh:
         acc = json.load(fh)["test_accuracy"]["mean"]
-    log("experiment r8", f"cli experiment --config r8.yaml (data_root a temporary copy): "
+    log(f"experiment {stem}", f"cli experiment --config {name} (data_root a temporary copy): "
         f"{secs:.1f} s; stages (s, share): {stages}; test acc {acc:.4f}; logs, "
         f"config_used.yaml, the reports and stage_times.txt written under the working "
         f"directory")
@@ -1240,7 +1631,7 @@ def main() -> int:
     from textgcn_tpu_torch.ops import _build
     from textgcn_tpu_torch.ops import attention as att
     from textgcn_tpu_torch.ops.bsr_spmm import (
-        F_ALIGN, SEGMENT_TILES, bsr_leg, bsr_spmm, bsr_spmm_plain,
+        F_ALIGN, SEGMENT_TILES, bsr_leg, bsr_spmm, bsr_spmm_f32, bsr_spmm_plain,
     )
     from textgcn_tpu_torch.ops.row_reduce import (
         SEGMENT_EDGES, row_reduce, row_reduce_plain,
@@ -1275,12 +1666,17 @@ def main() -> int:
     if seg_edges != SEGMENT_EDGES:
         raise AssertionError(f"K2 built for S = {seg_edges}, its tables for {SEGMENT_EDGES}")
     seg_tiles = lib.textgcn_bsr_spmm_segment_tiles()
-    if seg_tiles != SEGMENT_TILES:
-        raise AssertionError(f"K1 built for T = {seg_tiles}, its tables for {SEGMENT_TILES}")
+    if seg_tiles != SEGMENT_TILES or lib.textgcn_bsr_spmm_f32_segment_tiles() != SEGMENT_TILES:
+        raise AssertionError(f"K1 built for T = {seg_tiles} (f32 mode "
+                             f"{lib.textgcn_bsr_spmm_f32_segment_tiles()}), its tables for "
+                             f"{SEGMENT_TILES}")
     log("build", f"nvcc built {_build.library_path().name} in "
         f"{time.perf_counter() - t0:.1f} s; K2's and attn_agg's S = {seg_edges} "
         f"edges a warp, K1's T = {seg_tiles} tiles a block; "
         f"ptxas: {' | '.join(regs)}")
+
+    # 2b. machine: the cost model's rates measured here
+    mm_probe = machine_phase(dev)
 
     # the real R8 doc-word hybrid layout
     t0 = time.perf_counter()
@@ -1300,6 +1696,9 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s on the host")
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
+    # the phases of the --spmm bsr / onehot / auto slice draw from their own
+    # generator, so the earlier phases' inputs stay what they were
+    gen_formats = torch.Generator(device=dev).manual_seed(SEED + 1)
     n_pad = bsr.n_block_rows * bsr.bm
     # kernel name -> [(max abs err, ms, device ms, plain ms), ...]; the first
     # entry is the one the JSON record reports times from (F=200, the
@@ -1381,13 +1780,19 @@ def main() -> int:
         f"{hyb_ms:.4f} ms, segment pass {seg_ms:.4f} ms")
     del seg, x, y, want, cot, bwd_again, bsr, rest
 
+    # 5a. K1's f32 mode on the bare R8 doc-word tile stack (--spmm bsr)
+    b, _ = convert_graph(pre.graph, "bsr")
+    bsr_f32_phase("bsr f32", b, gen_formats, (200, 8), records, yard)
+    del b
+
     # 5b. B10: the sharded tile legs at SHARDS ranks, in this process
     shard_phase(dev, gen, records, yard, h, perm[row], perm[col], val)
     del h
 
     # 6. the GCN main path, through the CLI
     counters = {
-        "bsr_spmm": (bsr_spmm,), "bsr_leg": (bsr_leg,), "row_reduce": (row_reduce,),
+        "bsr_spmm": (bsr_spmm,), "bsr_spmm_f32": (bsr_spmm_f32,), "bsr_leg": (bsr_leg,),
+        "row_reduce": (row_reduce,),
         "attn_stats": (att.stats_logits,), "softmax_stats": (att.softmax_stats,),
         "attn_agg": (att.attn_agg,), "sddmm": (att.sddmm,),
         "rowsum": (att.rowsum,),
@@ -1552,6 +1957,9 @@ def main() -> int:
         del rs
     del x16, g16, v, v_t, w_t, logits, mx, sm, got, want
 
+    # 7b. K2 from zero over the whole graph as one CSR (--spmm onehot)
+    onehot_phase(pre.graph, gen_formats, records)
+
     # 8. one GAT layer, forward and backward, on the kernels vs the segment
     # layer under autograd, F=200 (K2 carries dx over the transpose CSR)
     row, col, val = pre.graph.coo_numpy()
@@ -1597,15 +2005,28 @@ def main() -> int:
         counters, need=("row_reduce", "attn_stats", "attn_agg", "sddmm", "rowsum"),
     )
 
+    # 9b. auto: every eligible format's pass on three graphs against the
+    # cost model's pick, GAT's dense peak; then the GCN trained on auto,
+    # bsr and onehot, the GAT on auto, and the checkpoints
+    graphs = auto_graphs(dev, r8_graph)
+    picks = auto_phase(dev, gen_formats, graphs, mm_probe)
+    gat_picks = gat_peak_phase(dev, gen_formats, graphs)
+    del graphs
+    with tempfile.TemporaryDirectory() as tmp:
+        new_paths = formats_training_phase(cli, counters, tmp, picks, gat_picks)
+        new_paths += checkpoint_phase(cli, counters, tmp)
+
     # 10-15. the streamed slice at the baseline scale config
     stream_launches = stream_phases(dev, gen, records, yard, r8_graph)
 
     # 16-21. the topic slice: its data, the E-step, and every family trained
     with tempfile.TemporaryDirectory() as tmp:
         roots = topic_roots(tmp)
-        residual = topic_data_phase(dev, gen, records, roots["fresh"])
+        residual = topic_data_phase(dev, gen, records, yard, roots["fresh"], gen_formats)
         lda_phase(dev, roots)
-        topic_hybrid, topic_gat = topic_training_phases(cli, counters, roots["fresh"], residual)
+        topic_hybrid, topic_gat, topic_formats = topic_training_phases(
+            cli, counters, roots["fresh"], residual)
+        new_paths += topic_formats
 
     # 22-27. the build slice: R8's topic graph built on the card, trained,
     # the YAML experiment, mr's doc-word graph, and the checkout untouched
@@ -1615,12 +2036,15 @@ def main() -> int:
         determinism_phase(dev, built)
         built_hybrid = train_built_phase(cli, counters, dev, built)
         experiment_phase(cli, tmp)
+        experiment_phase(cli, tmp, "r8_docword.yaml")
         docword_phase(cli, tmp)
     checkout_phase(untouched)
 
     sources = {
         "bsr_spmm": ("textgcn_tpu_torch/csrc/bsr_spmm.cu",
                      "textgcn_tpu/ops/pallas_spmm.py:143"),
+        "bsr_spmm_f32": ("textgcn_tpu_torch/csrc/bsr_spmm_f32.cu",
+                         "textgcn_tpu/ops/pallas_spmm.py:245"),
         "row_reduce": ("textgcn_tpu_torch/csrc/row_reduce.cu",
                        "textgcn_tpu/ops/pallas_onehot.py:232"),
         "row_reduce_dx": ("textgcn_tpu_torch/csrc/row_reduce.cu",
@@ -1647,6 +2071,10 @@ def main() -> int:
     # others B2
     total["row_reduce_dx"] = sum(p["row_reduce"] for p in (gat_launches, spmm_launches, topic_gat))
     total["row_reduce"] -= total["row_reduce_dx"]
+    # the runs of this slice's formats: K2 from zero (onehot) is B3's role
+    for p, k2 in new_paths:
+        for k in launches:
+            total[k2 if k == "row_reduce" else k] += p[k]
     total["sorted_chunk_add"] = stream_launches
     kernels = []
     for name, (src, replaces) in sources.items():

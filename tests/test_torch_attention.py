@@ -569,6 +569,33 @@ def test_gat_attention_matches_its_segment_oracle_in_f32():
         torch.testing.assert_close(p.grad, q.grad, rtol=1e-4, atol=1e-5)
 
 
+def test_gat_attention_backward_takes_the_leaky_slope_from_the_base_sign():
+    """An edge whose pre-activation ``es[r] + ed[c]`` is a tiny negative
+    number: its leaky value vanishes beside log(val) in the f32 logit, so
+    the sign cannot be read back from ``logit - log(val)`` (which is 0:
+    JAX's ``_gat_bwd`` then takes slope 1). The backward takes it from the
+    pre-activation itself, as the segment oracle's autograd does."""
+    from textgcn_tpu_torch.graph.structs import SparseGraph
+    from textgcn_tpu_torch.models.gat import gat_attention_segment
+
+    row, col, val, n = _graph(seed=16, symmetric=True)
+    tg = tatt.AttentionGraph.from_coo(row, col, val, n, device=CPU)
+    sg = SparseGraph.from_coo(row, col, val.astype(np.float32), n, device=CPU)
+    gen = torch.Generator().manual_seed(1)
+    es, ed = torch.randn(n, generator=gen), torch.randn(n, generator=gen)
+    r, c = int(tg.row[0]), int(tg.col[0])
+    ed[c], es[r] = 0.5, -0.5 - 2.0 ** -24  # base = -2^-24, leaky ~ -1.2e-8
+    assert float(tg.logval[0]) < -1.0
+    x = torch.randn(n, 12, generator=gen).bfloat16().float()
+    cot = torch.randn(n, 12, generator=gen).bfloat16().float()
+    a = [t.clone().requires_grad_(True) for t in (es, ed, x)]
+    b = [t.clone().requires_grad_(True) for t in (es, ed, x)]
+    tatt.gat_attention(tg, *a).backward(cot)
+    gat_attention_segment(sg, *b).backward(cot)
+    for p, q in zip(a, b):
+        torch.testing.assert_close(p.grad, q.grad, rtol=1e-4, atol=1e-5)
+
+
 def test_wrappers_raise_off_cpu_and_cuda():
     m = torch.device("meta")
     i = torch.zeros(3, dtype=torch.int32, device=m)

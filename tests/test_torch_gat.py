@@ -290,8 +290,8 @@ def test_model_and_format_checks(tmp_path, monkeypatch):
     with pytest.raises(ValueError, match="GAT takes"):
         trun.apply_gat_format(pt, "bsr")
     monkeypatch.setattr(trun, "DENSE_MAX_NODES", 100)
-    with pytest.raises(NotImplementedError, match="auto"):
-        trun.apply_gat_format(pt, "auto")
+    # above DENSE_MAX_NODES GAT's auto is priced and returns a layout
+    assert isinstance(trun.apply_gat_format(pt, "auto").graph, (tgat.DenseAttentionGraph, AttentionGraph))
     cfg = ttrainer.TrainConfig(n_hidden=8, max_epoch=2, model="gat", spmm="onehot")
     summary = trun.run_experiment(
         "toy", graph_family="docword", output_dir=str(tmp_path), config=cfg,
@@ -303,7 +303,7 @@ def test_model_and_format_checks(tmp_path, monkeypatch):
     )
 
 
-def test_cli_model_and_onehot():
+def test_cli_model_and_onehot(monkeypatch):
     args = cli.build_parser().parse_args(
         ["train", "--dataset", "R8", "--model", "gat", "--spmm", "onehot"]
     )
@@ -311,6 +311,7 @@ def test_cli_model_and_onehot():
     assert cli.build_parser().parse_args(["train", "--dataset", "R8"]).model == "gcn"
     with pytest.raises(SystemExit):
         cli.build_parser().parse_args(["train", "--dataset", "R8", "--model", "graphormer"])
-    # GCN through --spmm onehot is not ported: it raises before any GPU check
-    with pytest.raises(NotImplementedError, match="A.4"):
+    # GCN through --spmm onehot gets past the format check to the GPU check
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
         cli.main(["train", "--dataset", "R8", "--graph", "docword", "--spmm", "onehot"])

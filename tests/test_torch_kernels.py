@@ -18,7 +18,7 @@ from textgcn_tpu_torch.graph.normalize import max_symmetrize_coo, sym_normalize_
 from textgcn_tpu_torch.ops import attention as att
 from textgcn_tpu_torch.graph.structs import BlockSparseGraph
 from textgcn_tpu_torch.ops.bsr_spmm import (
-    SEGMENT_TILES, bsr_leg, bsr_spmm, bsr_spmm_plain, tile_split,
+    SEGMENT_TILES, bsr_leg, bsr_spmm, bsr_spmm_f32, bsr_spmm_plain, tile_split,
 )
 from textgcn_tpu_torch.parallel.mesh_kernels import (
     MeshHybridAllGather,
@@ -213,6 +213,32 @@ def test_bsr_spmm_kernel_splits_long_block_rows(cuda_dev, wrapper, f):
     # without a table every block-row is walked whole by one block
     torch.testing.assert_close(wrapper(tiles, tp, cols, x), want, rtol=1e-4, atol=1e-4)
     assert _build.load().textgcn_bsr_spmm_segment_tiles() == SEGMENT_TILES
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [16, 112, 208, 256])
+def test_bsr_spmm_f32_kernel_splits_long_block_rows(cuda_dev, f):
+    """K1's f32 mode over the same block-rows (f32 tiles and features,
+    through ``bsr_spmm``, which counts its launches on ``bsr_spmm_f32``):
+    against the plain version within 2e-5 of the largest output (f32
+    products, sums in another order), two launches bit-equal, without a
+    table too; a mix of f32 and bf16 is refused."""
+    tiles, tp, cols, x = _long_block_rows(cuda_dev, f)
+    tiles, x = tiles.float() * (1 + torch.rand_like(tiles.float()) / 7), x.float()
+    split = tile_split(tp)
+    n0, n1 = bsr_spmm_f32.launches, bsr_spmm.launches
+    got = bsr_spmm(tiles, tp, cols, x, split=split)
+    again = bsr_spmm_f32(tiles, tp, cols, x, split=split)
+    torch.cuda.synchronize()
+    assert (bsr_spmm_f32.launches, bsr_spmm.launches) == (n0 + 2, n1)
+    assert torch.equal(got, again)
+    want = bsr_spmm_plain(tiles, tp, cols, x)
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= 2e-5 * scale
+    assert float((bsr_spmm_f32(tiles, tp, cols, x) - want).abs().max()) <= 2e-5 * scale
+    with pytest.raises(TypeError, match="f32 tiles with f32 features"):
+        bsr_spmm(tiles, tp, cols, x.to(torch.bfloat16), split=split)
+    assert _build.load().textgcn_bsr_spmm_f32_segment_tiles() == SEGMENT_TILES
 
 
 @pytest.mark.cuda

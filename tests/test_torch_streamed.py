@@ -247,11 +247,11 @@ def test_convert_graph_streamed_and_the_cli_choices():
     x = torch.randn(n, 4, generator=torch.Generator().manual_seed(1))
     want = _matrix(row, col, val, n) @ x.numpy()
     np.testing.assert_allclose(spmm(sg, x).numpy(), want, rtol=2e-5, atol=2e-5)
-    # the CLI does not offer the stream: its --spmm choices are unchanged
+    # the CLI does not offer the stream: its --spmm choices are the JAX CLI's
     parser = cli.build_parser()
     train = parser._subparsers._group_actions[0].choices["train"]
     (action,) = [a for a in train._actions if a.dest == "spmm"]
-    assert action.choices == ["auto", "segment", "dense", "hybrid", "onehot"]
+    assert action.choices == ["auto", "segment", "dense", "bsr", "onehot", "hybrid"]
     with pytest.raises(SystemExit):
         parser.parse_args(["train", "--dataset", "R8", "--spmm", "streamed"])
     with pytest.raises(ValueError, match="unknown spmm format"):

@@ -12,10 +12,13 @@ Port of ``textgcn_tpu/cli.py``, with its flags and defaults:
 
 ``train`` runs every model family of the JAX registry on the topic graph
 (``--graph topic``, the default, as in the JAX package) or the doc-word
-graph (``--graph docword``); the GCN also sharded over ``--shards N`` GPUs.
-``--seeds`` names the runs' seeds outright. The device work runs on CUDA
-and raises when there is no CUDA device: the port never falls back to the
-CPU.
+graph (``--graph docword``), in every ``--spmm`` format of the JAX CLI; the
+GCN also sharded over ``--shards N`` GPUs. ``--seeds`` names the runs'
+seeds outright. ``--save_model`` / ``--load_model`` save the best run's
+params and evaluate a saved checkpoint; ``--save_state`` / ``--resume``
+save the best run's resumable state and continue it bit for bit. The
+device work runs on CUDA and raises when there is no CUDA device: the port
+never falls back to the CPU.
 """
 from __future__ import annotations
 
@@ -30,7 +33,8 @@ from textgcn_tpu_torch.models import MODELS
 from textgcn_tpu_torch.parallel.trainer import check_sharded
 from textgcn_tpu_torch.topics.model import LDA_BACKENDS
 from textgcn_tpu_torch.train.run import (
-    check_model_format, generate_seeds, run_experiment,
+    check_sharded_checkpoints, evaluate_checkpoint, generate_seeds, resume_training,
+    run_experiment,
 )
 from textgcn_tpu_torch.train.trainer import TrainConfig
 from textgcn_tpu_torch.utils.profiling import trace
@@ -126,6 +130,10 @@ def cmd_experiment(args) -> int:
 
 
 def cmd_train(args) -> int:
+    check_sharded_checkpoints(
+        args.shards, save_model=args.save_model, save_state=args.save_state,
+        resume=args.resume, load_model=args.load_model,
+    )
     if args.shards is not None:
         check_sharded(args.model, args.spmm, args.partition)
         if args.spmm != "hybrid":
@@ -134,7 +142,6 @@ def cmd_train(args) -> int:
                 "kernels only (the segment oracle runs through the library; "
                 "ROADMAP A.11 has the one-hot mesh kernel)"
             )
-    check_model_format(args.model, args.spmm)
     require_cuda("trains")
     if args.shards is not None and torch.cuda.device_count() < args.shards:
         raise RuntimeError(
@@ -151,6 +158,24 @@ def cmd_train(args) -> int:
         spmm=args.spmm,
         model=args.model,
     )
+    common = dict(graph_family=args.graph, data_root=args.data_root, device="cuda")
+    if args.resume:
+        summary = resume_training(
+            args.dataset, args.resume, output_dir=args.output_dir, config=cfg,
+            verbose=not args.quiet, save_model=args.save_model,
+            save_state=args.save_state, **common,
+        )
+        print(f"{args.dataset} (resumed): acc={summary['test_accuracy']['mean']:.4f}")
+        return 0
+    if args.load_model:
+        out = evaluate_checkpoint(
+            args.dataset, args.load_model, spmm=args.spmm, model=args.model, **common
+        )
+        print(
+            f"{args.dataset} (checkpoint {args.load_model}): "
+            f"acc={out['acc']:.4f} macro_f1={out['macro_f1']:.4f}"
+        )
+        return 0
     trace_ctx = contextlib.nullcontext()
     if args.trace:
         trace_ctx = trace(args.trace)
@@ -159,15 +184,15 @@ def cmd_train(args) -> int:
         summary = run_experiment(
             args.dataset,
             times=args.times,
-            graph_family=args.graph,
-            data_root=args.data_root,
             output_dir=args.output_dir,
             config=cfg,
             seeds=args.seeds or generate_seeds(args.times, args.seed),
             verbose=not args.quiet,
             n_shards=args.shards,
             partition=args.partition,
-            device="cuda",
+            save_model=args.save_model,
+            save_state=args.save_state,
+            **common,
         )
     acc = summary["test_accuracy"]
     print(
@@ -235,18 +260,43 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--spmm",
         default="auto",
-        choices=[*SPMM_FORMATS, "onehot"],
+        choices=list(SPMM_FORMATS),
         help="graph format. Every family but GAT: segment = gather + "
         "index_add_ (plain PyTorch, the oracle); dense = one [N, N] matmul; "
-        "hybrid = degree sort, then 128x128 tiles holding >= 24 edges run on "
-        "the tile kernel and the other edges on the residual kernel "
-        "(relabels nodes); onehot is not ported for them yet and raises. "
+        "bsr = the whole graph as 128x128 f32 tiles on the tile kernel's f32 "
+        "mode (f32-exact; for graphs whose edges cluster); onehot = the whole "
+        "graph as one CSR on the residual kernel (bf16 features, f32 sums); "
+        "hybrid = degree sort, then tiles holding >= 24 edges run on the "
+        "tile kernel and the other edges on the residual kernel (relabels "
+        f"nodes); auto = dense up to {DENSE_MAX_NODES} nodes, above that the "
+        "format the H100 cost model prices cheapest (hybrid among them). "
         "GAT: segment = plain PyTorch segment softmax (the oracle); dense = "
         "the [N, N] bf16 log-adjacency; onehot = the attention kernels over "
-        "a CSR; hybrid = the same after the degree sort (relabels nodes). "
-        "All: auto = dense "
-        f"up to {DENSE_MAX_NODES} nodes, and above that an error until the "
-        "port has GPU cost constants",
+        "a CSR; hybrid = the same after the degree sort (relabels nodes); "
+        "auto = dense while its priced peak memory fits, else hybrid; bsr "
+        "raises. A checkpoint of identity features (docword) loads only "
+        "under the node order it was saved with: use the same --spmm",
+    )
+    p.add_argument(
+        "--save_model", default=None,
+        help="directory to save the best run's params (a checkpoint)",
+    )
+    p.add_argument(
+        "--load_model", default=None,
+        help="restore a checkpoint and evaluate it on the test split (skips "
+        "training)",
+    )
+    p.add_argument(
+        "--save_state", default=None, metavar="DIR",
+        help="after training, save the best run's resumable state (params, "
+        "Adam's state, the epoch and early-stop counters, the dropout "
+        "generator) to DIR",
+    )
+    p.add_argument(
+        "--resume", default=None, metavar="DIR",
+        help="continue a run from a --save_state checkpoint (its seed and "
+        "dropout draws are restored from it; the resumed run gives an "
+        "uninterrupted run's bits)",
     )
     p.add_argument(
         "--shards", type=int, default=None, metavar="N",

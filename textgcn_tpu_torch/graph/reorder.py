@@ -9,6 +9,13 @@ edges as a row-sorted CSR for the residual kernel K2
 Occupancy thresholding keeps the split symmetric for a symmetric pattern, so
 for a sym-normalized Â the backward of :func:`spmm_hybrid` is the same pass.
 
+The same module holds the two bare layouts that need no degree sort: a whole
+graph as one row-sorted CSR through K2 from zero (:class:`CSRGraph`, the
+port's ``OneHotGraph`` of ``textgcn_tpu/ops/pallas_onehot.py``, ``--spmm
+onehot``) and a whole graph as a tile stack through K1
+(:func:`spmm_bsr`, ``--spmm bsr``: f32 tiles on K1's f32 mode). Their
+backward is the same pass too.
+
 The TPU layouts of the JAX module are not carried over: the grouped
 (K-packed) tile stack, the residual's ``OneHotPlan`` windows and superchunks,
 and the alignment of the padded rows to the plan's window grid.
@@ -110,6 +117,30 @@ class ResidualCSR:
 
 
 @dataclasses.dataclass(frozen=True)
+class CSRGraph:
+    """A whole graph as one row-sorted CSR for K2 from zero (``--spmm
+    onehot``; the port's counterpart of the JAX package's ``OneHotGraph``,
+    whose one-hot plan is a TPU layout). ``csr`` carries the CSR and its
+    :class:`RowSplit` at K2's S, built once here. A symmetric graph needs
+    no transpose: its backward is the same pass, as JAX's ``OneHotGraph``
+    aliases ``bwd`` to ``fwd``."""
+
+    csr: ResidualCSR
+    n_nodes: int
+    n_edges: int
+    symmetric: bool
+
+    @staticmethod
+    def from_coo(row, col, val, n_nodes: int, symmetric: bool = False, *, device) -> "CSRGraph":
+        return CSRGraph(
+            csr=ResidualCSR.from_coo(row, col, val, n_nodes, device=device),
+            n_nodes=int(n_nodes),
+            n_edges=int(len(row)),
+            symmetric=bool(symmetric),
+        )
+
+
+@dataclasses.dataclass(frozen=True)
 class HybridGraph:
     """Dense-tile BSR part (flat 128x128 tiles) + residual CSR.
 
@@ -136,10 +167,10 @@ class HybridGraph:
     ) -> "HybridGraph":
         """Build the hybrid layout on ``device``.
 
-        ``store_bf16`` stores the tile stack in bf16 (the kernel's input
-        type; the pass then also reads features in bf16). ``False`` keeps
-        f32 tiles for the plain path's f32-exact tile leg; the CUDA tile
-        kernel refuses them.
+        ``store_bf16`` stores the tile stack in bf16 (the tensor-core
+        kernel's input type; the pass then also reads features in bf16).
+        ``False`` keeps f32 tiles for an f32-exact tile leg (K1's f32 mode
+        on the card); the residual leg still reads bf16 features.
         """
         row = np.asarray(row, dtype=np.int64)
         col = np.asarray(col, dtype=np.int64)
@@ -227,19 +258,40 @@ def hybrid_pass(h: HybridGraph, x: torch.Tensor) -> torch.Tensor:
     return tile_and_residual(bsr, h.rest, xp)[: h.n_nodes, : x.shape[1]]
 
 
-class _SpmmHybrid(torch.autograd.Function):
+def csr_pass(g: CSRGraph, x: torch.Tensor) -> torch.Tensor:
+    """One pass ``Â @ x`` over the bare CSR (no autograd): K2 from zero on
+    x as a bf16 table padded to K2's column step (as the JAX package's
+    one-hot kernel gathers bf16), f32 out."""
+    c = g.csr
+    xp = feature_table(x, g.n_nodes, torch.bfloat16)
+    return row_reduce(c.row_ptr, c.col, c.val, xp, split=c.split)[:, : x.shape[1]]
+
+
+def bsr_pass(b: BlockSparseGraph, x: torch.Tensor) -> torch.Tensor:
+    """One pass ``Â @ x`` over a bare tile stack (no autograd): K1 on x as a
+    padded table in the tiles' type (f32 tiles: K1's f32 mode, products
+    and sums in f32, as the JAX package's ``spmm_bsr(bf16=False)``)."""
+    xp = feature_table(x, b.n_block_rows * b.bm, b.blocks.dtype)
+    out = bsr_spmm(b.blocks, b.tile_ptr, b.block_cols, xp, split=b.split)
+    return out[: b.n_nodes, : x.shape[1]]
+
+
+class _SymmetricPass(torch.autograd.Function):
+    """``pass_fn(graph, x)``, differentiable in ``x``: for Âᵀ = Â the
+    backward ``Âᵀ @ g`` is the same pass on the cotangent."""
+
     @staticmethod
-    def forward(ctx, h, x):
-        ctx.h = h
-        return hybrid_pass(h, x)
+    def forward(ctx, pass_fn, graph, x):
+        ctx.pass_fn, ctx.graph = pass_fn, graph
+        return pass_fn(graph, x)
 
     @staticmethod
     def backward(ctx, g):
-        if not ctx.h.symmetric:
+        if not ctx.graph.symmetric:
             raise NotImplementedError(
-                "spmm_hybrid backward needs a symmetric adjacency"
+                f"the backward of {ctx.pass_fn.__name__} needs a symmetric adjacency"
             )
-        return None, hybrid_pass(ctx.h, g)
+        return None, None, ctx.pass_fn(ctx.graph, g)
 
 
 def spmm_hybrid(h: HybridGraph, x: torch.Tensor) -> torch.Tensor:
@@ -248,4 +300,18 @@ def spmm_hybrid(h: HybridGraph, x: torch.Tensor) -> torch.Tensor:
     The backward needs ``h.symmetric`` (Âᵀ = Â), which holds for the
     sym-normalized adjacencies this package trains on.
     """
-    return _SpmmHybrid.apply(h, x)
+    return _SymmetricPass.apply(hybrid_pass, h, x)
+
+
+def spmm_csr(g: CSRGraph, x: torch.Tensor) -> torch.Tensor:
+    """``Â @ x`` over the bare CSR (K2 from zero, B3's role), differentiable
+    in ``x`` for a symmetric ``g`` (JAX: ``spmm_onehot`` on an
+    ``OneHotGraph``)."""
+    return _SymmetricPass.apply(csr_pass, g, x)
+
+
+def spmm_bsr(b: BlockSparseGraph, x: torch.Tensor) -> torch.Tensor:
+    """``Â @ x`` over a bare tile stack, differentiable in ``x`` for a
+    symmetric stack (JAX: ``spmm_bsr_ad(graph, graph, x)``, whose backward
+    is the same pass on a symmetric graph)."""
+    return _SymmetricPass.apply(bsr_pass, b, x)

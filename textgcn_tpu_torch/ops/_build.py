@@ -38,6 +38,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points: (pointers..., scalars..., stream) -> cudaError_t as int
 _SIGNATURES = {
     "textgcn_bsr_spmm": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "textgcn_bsr_spmm_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "textgcn_bsr_spmm_f32_segment_tiles": [],
     "textgcn_bsr_spmm_segment_tiles": [],
     "textgcn_row_reduce": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "textgcn_row_reduce_segment_edges": [],

@@ -518,19 +518,22 @@ class _GatAttention(torch.autograd.Function):
         x16 = features_bf16(x)
         out = attn_agg(ag.row_ptr, ag.col, logits, mx, sm, x16, split=ag.split)
         ctx.ag, ctx.slope = ag, slope
-        ctx.save_for_backward(logits, mx, sm, x16)
+        ctx.save_for_backward(logits, mx, sm, x16, es, ed)
         return out[:, : x.shape[1]]
 
     @staticmethod
     def backward(ctx, g):
         ag, slope = ctx.ag, ctx.slope
-        logits, mx, sm, x16 = ctx.saved_tensors
+        logits, mx, sm, x16, es, ed = ctx.saved_tensors
         f = g.shape[1]
         wt = edge_weights(ag, logits, mx, sm)
         dlog, dx = _softmax_backward(ag, wt, features_bf16(g), x16)
-        # leaky' from the stored logits: logit - logval = leaky(base) has
-        # base's sign; a -inf - -inf NaN picks the slope where dlog is 0
-        dbase = dlog * torch.where(logits - ag.logval >= 0, 1.0, slope)
+        # leaky' from the sign of the pre-activation es[row] + ed[col] (the
+        # same f32 sum as the forward kernel's). JAX reads it from logit -
+        # log(val), which is 0 where |leaky(base)| is below half an ulp of
+        # log(val), and then takes slope 1 for a negative base
+        base = es.index_select(0, ag.row) + ed.index_select(0, ag.col)
+        dbase = dlog * torch.where(base >= 0, 1.0, slope)
         des = rowsum(ag.row_ptr, dbase, split=ag.split)
         ded = rowsum(ag.row_ptr_t, dbase.index_select(0, ag.perm_t), split=ag.split_t)
         return None, des, ded, dx[:, :f], None

@@ -1,7 +1,11 @@
-"""K1: block-sparse tile stack @ dense features (the hybrid format's tile leg).
+"""K1: block-sparse tile stack @ dense features (the hybrid format's tile
+leg, and the whole graph under ``--spmm bsr``).
 
-Ports ``textgcn_tpu/ops/pallas_spmm.py``. The kernel is
-``csrc/bsr_spmm.cu``, a hand-written CUDA kernel for Hopper (``sm_90a``).
+Ports ``textgcn_tpu/ops/pallas_spmm.py``. The kernels are hand-written CUDA
+for Hopper (``sm_90a``): ``csrc/bsr_spmm.cu`` for bf16 tiles and features
+(the tensor cores), ``csrc/bsr_spmm_f32.cu`` for f32 tiles and features (K1's
+f32 mode, on the CUDA cores). :func:`bsr_spmm` takes either pair and refuses
+a mix, as the JAX package's f32 path refuses bf16 tiles.
 
 Source note:
 
@@ -40,6 +44,16 @@ Source note:
 - What bounds it now: at F'=208 a block's tile costs ~3.8 us (the MMA and
   ``ldmatrix`` issue of 8 warps an SM), so the call is ~3.5x its byte
   bound; ``wgmma`` from shared memory is the next step (PERF.md, ROADMAP).
+- The f32 mode (:func:`bsr_spmm_f32`) replaces ``_bsr_kernel`` on f32
+  blocks (``spmm_bsr(bf16=False)``, the JAX package's ``--spmm bsr``): f32
+  products and f32 sums, never TF32 (``--spmm bsr`` is the package's
+  f32-exact format). A 64 KiB f32 tile carries 2*128*128*F' flops, 104 a
+  byte at F'=208, above the f32 ridge (~20), so the FMAs bound it: 67
+  TFLOP/s on the CUDA cores. It keeps K1's layout, its split table at the
+  same T and its second pass; the tile and its feature slab are staged in
+  32-column chunks through a ``cp.async`` ring, and each thread holds an
+  8-row micro-tile of the output in registers. Its launches count on
+  :func:`bsr_spmm_f32`, whichever wrapper was called.
 """
 from __future__ import annotations
 
@@ -67,8 +81,8 @@ def tile_split(tile_ptr, device=None) -> Optional[TileSplit]:
 
 
 def bsr_spmm_plain(tiles, tile_ptr, tile_col, x, split=None):
-    """Plain PyTorch version of :func:`bsr_spmm` (any tile shape or dtype;
-    ``split`` is accepted and ignored).
+    """Plain PyTorch version of :func:`bsr_spmm` and :func:`bsr_spmm_f32`
+    (any tile shape or dtype; ``split`` is accepted and ignored).
 
     Multiplies each tile with its feature rows in f32 (bf16 inputs are exact
     in f32) and sums the products into their block-rows. The matrix may be
@@ -94,11 +108,10 @@ def _check(name, tiles, tile_ptr, tile_col, x):
             raise ValueError(f"{name}: {key} is on {t.device}, x on {dev}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {key} must be contiguous")
-    if tiles.dtype != torch.bfloat16 or x.dtype != torch.bfloat16:
+    if tiles.dtype != x.dtype or tiles.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(
-            f"{name}: the CUDA kernel takes bf16 tiles and bf16 features "
-            f"(got {tiles.dtype} and {x.dtype}); build the graph with "
-            "store_bf16=True"
+            f"{name}: the CUDA kernels take bf16 tiles with bf16 features or "
+            f"f32 tiles with f32 features, got {tiles.dtype} and {x.dtype}"
         )
     if tile_ptr.dtype != torch.int32 or tile_col.dtype != torch.int32:
         raise TypeError(f"{name}: tile_ptr and tile_col must be int32")
@@ -119,7 +132,7 @@ def _check(name, tiles, tile_ptr, tile_col, x):
 
 def _run(wrapper, tiles, tile_ptr, tile_col, x, split):
     """The plain version for a CPU ``x``; else K1's launches, counted on
-    ``wrapper``."""
+    ``wrapper`` for bf16 tiles and on :func:`bsr_spmm_f32` for f32 tiles."""
     name = wrapper.__name__
     check_split(name, tile_ptr, tile_col.numel(), split, TileSplit, SEGMENT_TILES)
     if x.device.type == "cpu":
@@ -127,6 +140,7 @@ def _run(wrapper, tiles, tile_ptr, tile_col, x, split):
     if x.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {x.device}")
     _check(name, tiles, tile_ptr, tile_col, x)
+    f32 = tiles.dtype == torch.float32
     n_block_rows, f = tile_ptr.numel() - 1, x.shape[1]
     out = torch.empty((n_block_rows * TILE, f), dtype=torch.float32, device=x.device)
     if split is None:
@@ -137,14 +151,15 @@ def _run(wrapper, tiles, tile_ptr, tile_col, x, split):
         table, n_seg, n_long = split.table, split.n_seg, split.n_long
         partial = torch.empty((n_seg, TILE, f), dtype=torch.float32, device=x.device)
     lib = _build.load()
+    entry = lib.textgcn_bsr_spmm_f32 if f32 else lib.textgcn_bsr_spmm
     with torch.cuda.device(x.device):
-        err = lib.textgcn_bsr_spmm(
+        err = entry(
             tiles.data_ptr(), tile_ptr.data_ptr(), tile_col.data_ptr(),
             x.data_ptr(), out.data_ptr(), None if table is None else table.data_ptr(),
             None if partial is None else partial.data_ptr(), n_block_rows, f,
             n_seg, n_long, torch.cuda.current_stream().cuda_stream,
         )
-    wrapper.launches += 1
+    (bsr_spmm_f32 if f32 else wrapper).launches += 1
     _build.check_launch(name, err)
     return out
 
@@ -162,10 +177,22 @@ def bsr_spmm(tiles, tile_ptr, tile_col, x, split=None):
     (other counts, or another ``tile_ptr`` fingerprint) is refused, with no
     device sync.
 
-    On CPU tensors this runs :func:`bsr_spmm_plain`; on CUDA tensors it
-    launches the kernel (building it on first use) or raises.
+    Tiles and ``x`` are both bf16 (the tensor-core kernel) or both f32
+    (K1's f32 mode, :func:`bsr_spmm_f32`); a mix is refused. On CPU tensors
+    this runs :func:`bsr_spmm_plain`; on CUDA tensors it launches the kernel
+    (building it on first use) or raises.
     """
     return _run(bsr_spmm, tiles, tile_ptr, tile_col, x, split)
+
+
+def bsr_spmm_f32(tiles, tile_ptr, tile_col, x, split=None):
+    """:func:`bsr_spmm` on f32 tiles and f32 features: K1's f32 mode (B4,
+    ``textgcn_tpu/ops/pallas_spmm.py`` ``_bsr_kernel`` on f32 blocks), f32
+    products and sums on the CUDA cores. Its launches are counted here,
+    also when :func:`bsr_spmm` dispatches to it."""
+    if x.device.type == "cuda" and tiles.dtype != torch.float32:
+        raise TypeError(f"bsr_spmm_f32: takes f32 tiles, got {tiles.dtype}")
+    return _run(bsr_spmm_f32, tiles, tile_ptr, tile_col, x, split)
 
 
 def bsr_leg(tiles, tile_ptr, tile_col, x, split=None):
@@ -180,4 +207,5 @@ def bsr_leg(tiles, tile_ptr, tile_col, x, split=None):
 
 
 bsr_spmm.launches = 0
+bsr_spmm_f32.launches = 0
 bsr_leg.launches = 0

@@ -9,14 +9,18 @@ segment-sum oracle):
 - :func:`spmm_dense`: one ``torch.matmul`` (the JAX package leaves it to XLA).
 - :func:`spmm` dispatches on the container type; ``HybridGraph`` goes to
   :func:`textgcn_tpu_torch.graph.reorder.spmm_hybrid` and its two kernels,
-  a host-resident ``SortedStreamGraph`` to its chunk stream through K2.
+  a bare ``BlockSparseGraph`` (``--spmm bsr``) to K1 (its f32 mode for f32
+  tiles), a ``CSRGraph`` (``--spmm onehot``) to K2 from zero, a
+  host-resident ``SortedStreamGraph`` to its chunk stream through K2.
 """
 from __future__ import annotations
 
 import torch
 
-from textgcn_tpu_torch.graph.reorder import HybridGraph, spmm_hybrid
-from textgcn_tpu_torch.graph.structs import DenseGraph, SparseGraph
+from textgcn_tpu_torch.graph.reorder import (
+    CSRGraph, HybridGraph, spmm_bsr, spmm_csr, spmm_hybrid,
+)
+from textgcn_tpu_torch.graph.structs import BlockSparseGraph, DenseGraph, SparseGraph
 from textgcn_tpu_torch.ops.streamed_sorted import SortedStreamGraph
 
 
@@ -58,7 +62,8 @@ def spmm_dense(a_dense: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 def spmm(graph, x: torch.Tensor) -> torch.Tensor:
     """Â @ x, dispatched on the container type (``DenseGraph``,
-    ``SparseGraph``, ``HybridGraph``: differentiable in ``x``;
+    ``SparseGraph``, ``HybridGraph``, ``BlockSparseGraph``, ``CSRGraph``:
+    differentiable in ``x``, the last three for a symmetric graph;
     ``SortedStreamGraph``: a forward pass streamed from the host, not
     differentiable; training streams through
     :func:`textgcn_tpu_torch.ops.streamed_sorted.spmm_streamed_sorted_sym`)."""
@@ -68,6 +73,10 @@ def spmm(graph, x: torch.Tensor) -> torch.Tensor:
         return spmm_dense(graph.a, x)
     if isinstance(graph, HybridGraph):
         return spmm_hybrid(graph, x)
+    if isinstance(graph, BlockSparseGraph):
+        return spmm_bsr(graph, x)
+    if isinstance(graph, CSRGraph):
+        return spmm_csr(graph, x)
     if isinstance(graph, SparseGraph):
         return spmm_coo_segment(graph.row, graph.col, graph.val, x, graph.n_nodes)
     raise TypeError(f"no SpMM for graph container {type(graph).__name__}")

@@ -75,8 +75,9 @@ class MeshHybridAllGather:
         device,
     ) -> "MeshHybridAllGather":
         """Build rank ``shard``'s share on ``device`` from the (degree-sorted)
-        host COO of the whole graph. ``store_bf16=False`` keeps f32 tiles for
-        the plain path; K1 refuses them."""
+        host COO of the whole graph. ``store_bf16=False`` keeps f32 tiles
+        (the plain path; on the card K1's f32 mode, counted on
+        ``bsr_spmm_f32``)."""
         row = np.asarray(row, dtype=np.int64)
         col = np.asarray(col, dtype=np.int64)
         val = np.asarray(val, dtype=np.float64)

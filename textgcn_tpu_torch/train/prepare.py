@@ -50,11 +50,14 @@ class PreparedData:
 
 def apply_spmm_format(pre: PreparedData, fmt: str = "auto") -> PreparedData:
     """Convert ``pre.graph`` to the requested SpMM format
-    (:func:`textgcn_tpu_torch.graph.format.convert_graph`).
+    (:func:`textgcn_tpu_torch.graph.format.convert_graph`: ``segment``,
+    ``dense``, ``bsr``, ``onehot``, ``hybrid``, or ``auto`` priced by the
+    H100 cost model).
 
-    ``hybrid`` relabels nodes (degree sort); features, labels and split
-    indices are permuted with it, so training is unchanged:
-    ``P Â Pᵀ (P x) = P (Â x)``. No-op when the graph is already converted.
+    Only ``hybrid``, or an ``auto`` that picks it, relabels nodes (degree
+    sort); features, labels and split indices are permuted with it, so
+    training is unchanged: ``P Â Pᵀ (P x) = P (Â x)``. No-op when the graph
+    is already converted.
     """
     if not isinstance(pre.graph, SparseGraph) or fmt == "segment":
         return pre

@@ -1,12 +1,17 @@
-"""Multi-seed training runner and its human/machine reports.
+"""Multi-seed training runner, resume and checkpoint evaluation, and their
+human/machine reports.
 
 Port of ``textgcn_tpu/train/run.py`` (``run_experiment`` on the topic or
 doc-word graph, on one device for every model family with GAT's own
 layouts and ``sgc_pre``'s precompute, and sharded over ``n_shards`` devices
-for the GCN; ``generate_seeds``, ``aggregate``, ``write_reports``). The reports keep
-the JAX package's schema: ``{ds}_{family}_training_results.json`` (with full
-per-epoch histories and hyperparameters, and ``"sharding"`` for a sharded
-run) and ``.txt``. The summary also names the device it ran on.
+for the GCN; ``resume_training``, ``evaluate_checkpoint``,
+``generate_seeds``, ``aggregate``, ``write_reports``). The three entry
+points share one preparation (:func:`_prepare_for_training`: the checks,
+the data, the graph format, the precompute), so a resumed or evaluated run
+cannot drift from a fresh one. The reports keep the JAX package's schema:
+``{ds}_{family}_training_results.json`` (with full per-epoch histories and
+hyperparameters, and ``"sharding"`` for a sharded run) and ``.txt``. The
+summary also names the device it ran on.
 """
 from __future__ import annotations
 
@@ -20,10 +25,11 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from textgcn_tpu_torch.graph.format import DENSE_MAX_NODES
+from textgcn_tpu_torch.graph.format import DENSE_MAX_NODES, MachineModel, gat_auto_format
 from textgcn_tpu_torch.models.sgc import sgc_precompute
 from textgcn_tpu_torch.parallel.launch import HostData, run_sharded_seeds
 from textgcn_tpu_torch.parallel.trainer import check_sharded
+from textgcn_tpu_torch.train.checkpoint import restore_checkpoint
 from textgcn_tpu_torch.train.prepare import (
     PreparedData,
     apply_attention_format,
@@ -37,32 +43,29 @@ from textgcn_tpu_torch.utils.profiling import device_memory
 
 # --spmm spellings GAT takes: onehot / hybrid = the attention-kernel layout
 # without / with the degree sort, dense = the dense log-adjacency, auto =
-# dense up to DENSE_MAX_NODES, segment = the plain PyTorch oracle
+# dense while its priced peak fits (graph.format.gat_auto_format), else
+# hybrid, segment = the plain PyTorch oracle
 GAT_FORMATS = ("auto", "segment", "dense", "onehot", "hybrid")
 
 
-def check_model_format(model: str, spmm: str) -> None:
-    """Raise for a pairing of model family and graph format that the port
-    does not run yet (before any data is read)."""
-    if model != "gat" and spmm == "onehot":
+def check_sharded_checkpoints(n_shards: Optional[int], **flags) -> None:
+    """Raise, before any data is read, for a checkpoint flag (``save_model``,
+    ``save_state``, ``resume``, ``load_model``) set on a sharded run."""
+    given = sorted(k for k, v in flags.items() if v)
+    if n_shards is not None and given:
         raise NotImplementedError(
-            f"--spmm onehot for --model {model} is not ported yet (ROADMAP A.4: "
-            "a bare residual CSR through K2); choose hybrid, segment, dense or auto"
+            f"{', '.join('--' + k for k in given)} with --shards: sharded "
+            "checkpoints are not ported yet (ROADMAP A.11)"
         )
 
 
-def apply_gat_format(pre: PreparedData, fmt: str) -> PreparedData:
-    """Convert ``pre.graph`` to the GAT layout that ``fmt`` names."""
+def apply_gat_format(pre: PreparedData, fmt: str, mm: Optional[MachineModel] = None) -> PreparedData:
+    """Convert ``pre.graph`` to the GAT layout that ``fmt`` names (``auto``
+    priced with ``mm``, the H100 defaults when None)."""
+    if fmt == "auto":
+        fmt = gat_auto_format(pre.graph.n_nodes, mm, dense_max_nodes=DENSE_MAX_NODES)
     if fmt in ("onehot", "hybrid"):
         return apply_attention_format(pre, degree_sort=fmt == "hybrid")
-    if fmt == "auto":
-        if pre.graph.n_nodes > DENSE_MAX_NODES:
-            raise NotImplementedError(
-                f"GAT --spmm auto above {DENSE_MAX_NODES} nodes needs the GPU "
-                "cost model (ROADMAP A.4); choose --spmm hybrid, onehot, "
-                "segment or dense"
-            )
-        fmt = "dense"
     if fmt == "dense":
         return apply_dense_attention_format(pre)
     if fmt != "segment":
@@ -115,6 +118,53 @@ def device_name(device: torch.device) -> str:
     return torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
 
 
+def _prepare_for_training(
+    dataset: str,
+    graph_family: str,
+    data_root: str,
+    config: TrainConfig,
+    pre_data: Optional[PreparedData],
+    *,
+    device: torch.device,
+    n_shards: Optional[int] = None,
+    partition: str = "halo",
+) -> PreparedData:
+    """The one preparation under :func:`run_experiment`,
+    :func:`resume_training` and :func:`evaluate_checkpoint`: the sharded and
+    graph-family checks (before any data is read), the data, and, for one
+    device, the family's graph format and ``sgc_pre``'s precompute. A
+    sharded run gets the unformatted data: each rank builds its shard."""
+    if n_shards is not None:
+        check_sharded(config.model, config.spmm, partition)
+    check_graph_family(graph_family)
+    if pre_data is None:
+        pre_data = prepare_data(dataset, graph_family, data_root, device=device)
+    if n_shards is not None:
+        return pre_data
+    if config.model == "gat":
+        pre_data = apply_gat_format(pre_data, config.spmm)
+    else:
+        pre_data = apply_spmm_format(pre_data, config.spmm)
+    if config.model == "sgc_pre":
+        pre_data = apply_sgc_precompute(pre_data, device=device)
+    return pre_data
+
+
+def _make_trainer(pre: PreparedData, cfg: TrainConfig, device: torch.device) -> Trainer:
+    """The one construction site of a single-device Trainer."""
+    return Trainer(
+        pre.graph,
+        pre.features,
+        pre.labels.target,
+        pre.labels.train_idx,
+        pre.labels.test_idx,
+        pre.labels.n_classes,
+        config=cfg,
+        device=device,
+        perm=pre.perm,
+    )
+
+
 def run_experiment(
     dataset: str,
     times: int = 1,
@@ -127,11 +177,18 @@ def run_experiment(
     verbose: bool = True,
     n_shards: Optional[int] = None,
     partition: str = "halo",
+    save_model: Optional[str] = None,
+    save_state: Optional[str] = None,
     *,
     device,
 ) -> Dict[str, Any]:
     """Train ``times`` seeds on ``dataset`` on ``device``; write reports;
     return the summary.
+
+    ``save_model``: a checkpoint directory for the best-accuracy run's
+    params (:meth:`Trainer.save`); ``save_state``: one for its resumable
+    state (:meth:`Trainer.save_training_state`, continued by
+    :func:`resume_training`). Not with ``n_shards`` (ROADMAP A.11).
 
     ``n_shards``: train row-sharded over that many ranks
     (:mod:`textgcn_tpu_torch.parallel`), rank ``r`` on ``cuda:r`` with NCCL
@@ -140,15 +197,14 @@ def run_experiment(
     :func:`~textgcn_tpu_torch.parallel.trainer.check_sharded` for what runs.
     """
     device = torch.device(device)
-    if n_shards is not None:
-        check_sharded(config.model, config.spmm, partition)
-    check_model_format(config.model, config.spmm)
-    check_graph_family(graph_family)
-    if pre_data is None:
-        pre_data = prepare_data(dataset, graph_family, data_root, device=device)
+    check_sharded_checkpoints(n_shards, save_model=save_model, save_state=save_state)
+    pre_data = _prepare_for_training(
+        dataset, graph_family, data_root, config, pre_data,
+        device=device, n_shards=n_shards, partition=partition,
+    )
+    seeds = seeds or generate_seeds(times)
     if n_shards is not None:
         # prepared once; each rank builds its own shard from the host arrays
-        seeds = seeds or generate_seeds(times)
         cuda = device.type == "cuda"
         runs = run_sharded_seeds(
             HostData.from_prepared(pre_data), seeds, config, n_shards,
@@ -159,31 +215,17 @@ def run_experiment(
         )
         sharding = {"n_shards": n_shards, "partition": partition, "kernel": config.spmm}
         return _summarize(dataset, graph_family, output_dir, config, runs, device, sharding)
-    if config.model == "gat":
-        pre_data = apply_gat_format(pre_data, config.spmm)
-    else:
-        pre_data = apply_spmm_format(pre_data, config.spmm)
-    if config.model == "sgc_pre":
-        pre_data = apply_sgc_precompute(pre_data, device=device)
-    seeds = seeds or generate_seeds(times)
 
     runs: List[Dict[str, Any]] = []
+    best_acc, best = -1.0, None
     for i, seed in enumerate(seeds):
-        cfg = dataclasses.replace(config, seed=seed)
-        trainer = Trainer(
-            pre_data.graph,
-            pre_data.features,
-            pre_data.labels.target,
-            pre_data.labels.train_idx,
-            pre_data.labels.test_idx,
-            pre_data.labels.n_classes,
-            config=cfg,
-            device=device,
-        )
+        trainer = _make_trainer(pre_data, dataclasses.replace(config, seed=seed), device)
         trainer.fit(verbose=verbose)
         test_desc = trainer.test()
         if verbose:
             print(f"[run {i + 1}/{len(seeds)} seed={seed}] {test_desc}")
+        if test_desc["acc"] > best_acc:
+            best_acc, best = test_desc["acc"], trainer
         runs.append(
             {
                 "seed": seed,
@@ -192,12 +234,92 @@ def run_experiment(
                 "history": trainer.history,
             }
         )
+    extra = {}
+    if save_model:
+        extra["checkpoint"] = best.save(save_model)
+        if verbose:
+            print(f"saved best-run checkpoint (acc={best_acc:.4f}) to {extra['checkpoint']}")
+    if save_state:
+        extra["resumable_checkpoint"] = best.save_training_state(save_state)
+        if verbose:
+            print(f"saved resumable training state to {extra['resumable_checkpoint']}")
+    return _summarize(dataset, graph_family, output_dir, config, runs, device, extra=extra)
 
-    return _summarize(dataset, graph_family, output_dir, config, runs, device)
+
+def resume_training(
+    dataset: str,
+    resume_dir: str,
+    graph_family: str = "topic",
+    data_root: str = "data",
+    output_dir: str = "results",
+    config: TrainConfig = TrainConfig(),
+    pre_data: Optional[PreparedData] = None,
+    verbose: bool = True,
+    save_model: Optional[str] = None,
+    save_state: Optional[str] = None,
+    *,
+    device,
+) -> Dict[str, Any]:
+    """Continue an interrupted single-seed run from a resumable checkpoint
+    (``save_training_state``, ``cli train --save_state``). The seed is read
+    from the checkpoint, so the train/val split and the dropout draws go on
+    as they were; the resumed run gives the uninterrupted run's bits on the
+    same device. Preparation and the trainer are :func:`run_experiment`'s.
+    ``save_model`` / ``save_state`` save the resumed run as there."""
+    device = torch.device(device)
+    saved_seed = int(restore_checkpoint(resume_dir)["metadata"]["seed"])
+    config = dataclasses.replace(config, seed=saved_seed)
+    pre_data = _prepare_for_training(
+        dataset, graph_family, data_root, config, pre_data, device=device
+    )
+    trainer = _make_trainer(pre_data, config, device)
+    trainer.fit(verbose=verbose, resume_from=resume_dir)
+    test_desc = trainer.test()
+    if verbose:
+        print(f"[resumed seed={saved_seed}] {test_desc}")
+    run = {
+        "seed": saved_seed,
+        "test": test_desc,
+        "epochs_run": len(trainer.history),
+        "history": trainer.history,
+    }
+    extra = {"resumed_from": resume_dir}
+    if save_model:
+        extra["checkpoint"] = trainer.save(save_model)
+    if save_state:
+        extra["resumable_checkpoint"] = trainer.save_training_state(save_state)
+    return _summarize(dataset, graph_family, output_dir, config, [run], device, extra=extra)
 
 
-def _summarize(dataset, graph_family, output_dir, config, runs, device, sharding=None):
-    """The run summary (JAX schema), written as the reports and returned."""
+def evaluate_checkpoint(
+    dataset: str,
+    checkpoint_path: str,
+    graph_family: str = "topic",
+    data_root: str = "data",
+    pre_data: Optional[PreparedData] = None,
+    spmm: str = "auto",
+    model: str = "gcn",
+    *,
+    device,
+) -> Dict[str, float]:
+    """Restore params from a checkpoint and evaluate them on the test split
+    (the ``--load_model`` path), on the layout ``spmm`` gives; a checkpoint
+    of another family, or of another node order on identity features, is
+    refused."""
+    device = torch.device(device)
+    config = TrainConfig(model=model, spmm=spmm)
+    pre_data = _prepare_for_training(
+        dataset, graph_family, data_root, config, pre_data, device=device
+    )
+    trainer = _make_trainer(pre_data, config, device)
+    trainer.load(checkpoint_path)
+    return trainer.evaluate(trainer.test_idx, prefix="test")
+
+
+def _summarize(dataset, graph_family, output_dir, config, runs, device, sharding=None,
+               extra=None):
+    """The run summary (JAX schema), written as the reports and returned;
+    ``extra`` adds keys (the checkpoints' paths, ``resumed_from``)."""
     accs = [r["test"]["acc"] for r in runs]
     f1s = [r["test"]["macro_f1"] for r in runs]
     summary = {
@@ -216,6 +338,7 @@ def _summarize(dataset, graph_family, output_dir, config, runs, device, sharding
     }
     if sharding is not None:
         summary["sharding"] = sharding
+    summary.update(extra or {})
     write_reports(summary, output_dir)
     return summary
 
