@@ -75,10 +75,12 @@ drives the port's paths: on R8 doc-word, then on R8's topic graph:
 
 - The single-card train with every flag of the JAX CLI: "machine" runs
   ``probe_machine`` beside the committed ``MachineModel``; "bsr f32" holds
-  K1's f32 mode (B4's f32 mode, ``bsr_spmm_f32``) on the unsorted R8
-  doc-word tile stack (F' = 208, 16) and, in "bsr f32 topic", on R8 topic's
-  (208, 112, 16) against the plain version (within F32_TILE_TOL of its
-  largest output, two launches bit-equal); "onehot" holds K2 from zero on
+  K1's f32 mode (B4's f32 mode, ``bsr_spmm_f32``, 3xTF32 on the tensor
+  cores) on the unsorted R8 doc-word tile stack (F' = 208, 16) and, in
+  "bsr f32 topic", on R8 topic's (208, 112, 16) against the plain version
+  (within F32_TILE_TOL of its largest output) and against an f64 oracle (at
+  most F64_ERR_RATIO times the plain f32 version's error), two launches
+  bit-equal, its bound counted as three TF32 products; "onehot" holds K2 from zero on
   the whole R8 doc-word CSR; "auto" times every eligible format's pass on
   R8 doc-word, mr topic and mr doc-word and requires the cost model's pick
   within AUTO_SLACK (or AUTO_ABS_MS) of the fastest, and "auto gat" the
@@ -86,9 +88,11 @@ drives the port's paths: on R8 doc-word, then on R8's topic graph:
   mr topic on auto (JAX's committed seeds, within 0.01 of its mean), the
   R8 doc-word GCN on auto, bsr and onehot (>= 0.95), the GAT on auto, the
   R8 topic GCN on bsr and onehot on the bench seeds (within 0.01 of
-  segment per seed), "checkpoint" (a resumed run's losses bit-equal to a
-  straight run's, ``--load_model`` its test accuracy exactly) and
-  "experiment r8_docword". These phases draw from a generator of their own,
+  segment per seed), "checkpoint" (on --spmm hybrid and on --spmm segment:
+  a resumed run's losses bit-equal to a straight run's, ``--load_model``
+  its test accuracy exactly), "experiment r8_docword", and in the topic
+  slice "segment determinism" (two same-seed --spmm segment runs of the
+  GCN and of the GAT give bit-equal losses). These phases draw from a generator of their own,
   so the earlier phases' inputs are unchanged.
 
 Every kernel's record also carries its bound on the card (the larger of its
@@ -186,19 +190,25 @@ BOUND_FINDING = 0.02
 # formulas, the weights' text written with repr
 DOCWORD_RTOL = 1e-12
 ARTIFACT_DIRS = ("data", "experiments", "results")
-# K1's f32 mode vs plain: f32 products of the same inputs, f32 sums of up to
-# a block-row's 128 * tiles terms in another order (here within 2e-5 of the
-# largest output; TF32 would miss it by two orders)
+# K1's f32 mode vs plain: the kernel's 3xTF32 products (big*big + big*small
+# + small*big of each operand's two TF32 parts, f32 sums) against f32
+# products summed in another order, over up to a block-row's 128 * tiles
+# terms: within 2e-5 of the largest output. A numpy emulation on graph-like
+# rows (tests/test_torch_tf32.py) puts 3xTF32 near plain f32 against the
+# f64 product and single-pass TF32 more than 10x beyond this limit
 F32_TILE_TOL = 2e-5
+# ... and against the f64 oracle (the plain version on f64 inputs), the
+# kernel's error at most this many times the plain f32 version's
+F64_ERR_RATIO = 4
 # auto: the pick's device time within 25% of the fastest measured format's,
 # or within 0.02 ms of it (the committed constants are wrong otherwise)
 AUTO_SLACK, AUTO_ABS_MS = 0.25, 0.02
 # mr's topic graph: experiments/mr.yaml's 50 topics beside its 10,662 docs
 MR_TOPICS = 50
-# H100 SXM peaks (NVIDIA's data sheet): HBM rate, dense bf16 tensor
-# cores, f32 outside them
+# H100 SXM peaks (NVIDIA's data sheet): HBM rate, dense bf16 and TF32
+# tensor cores, f32 outside them
 HBM_BYTES_PER_S = 3.35e12
-PEAK_BF16, PEAK_F32 = 989e12, 67e12
+PEAK_BF16, PEAK_TF32, PEAK_F32 = 989e12, 495e12, 67e12
 
 
 def log(phase, msg):
@@ -1046,21 +1056,26 @@ def pad16(f):
 
 
 def bsr_f32_phase(tag, b, gen, widths, records, yard):
-    """bsr f32: K1's f32 mode (B4's f32 mode) on the bare tile stack ``b``
-    (no degree sort) against ``bsr_spmm_plain`` at the feature widths
-    ``widths`` (F' = ``widths`` rounded up to 16): max abs err within
-    F32_TILE_TOL of max |plain|, two launches bit-equal, a call and device
-    time, the plain version's, the bound (f32 operations or bytes) and
-    ``torch.sparse.mm`` on the f32 CSR of the same matrix."""
+    """bsr f32: K1's f32 mode (B4's f32 mode, 3xTF32 on the tensor cores) on
+    the bare tile stack ``b`` (no degree sort) against ``bsr_spmm_plain`` at
+    the feature widths ``widths`` (F' = ``widths`` rounded up to 16): max abs
+    err within F32_TILE_TOL of max |plain|; against the f64 oracle
+    (``bsr_spmm_plain`` on f64 inputs) at most F64_ERR_RATIO times the plain
+    f32 version's error; two launches bit-equal; a call and device time, the
+    plain version's, the bound (three TF32 products' operations, or bytes)
+    beside the FFMA bound of one f32 product, and ``torch.sparse.mm`` on the
+    f32 CSR of the same matrix."""
     from textgcn_tpu_torch.ops.bsr_spmm import bsr_spmm, bsr_spmm_f32, bsr_spmm_plain
 
     n_pad = b.n_block_rows * b.bm
     sp = b.split
+    n_items = b.n_block_rows + (0 if sp is None else sp.n_seg - sp.n_long)
     log(tag, f"bare f32 tile stack (no degree sort): {b.nnzb} tiles "
         f"({nbytes(b.blocks) / 1e6:.1f} MB) holding {b.n_edges} edges in {b.n_block_rows} "
         f"block-rows, max {int(torch.diff(b.tile_ptr.long()).max())} tiles a block-row; "
         f"T = 16: {0 if sp is None else sp.n_long} block-rows cut into "
-        f"{0 if sp is None else sp.n_seg} segments")
+        f"{0 if sp is None else sp.n_seg} segments; {n_items} work items on "
+        f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs")
     for f in widths:
         fp = pad16(f)
         xp = torch.zeros((n_pad, fp), device=b.blocks.device)
@@ -1070,26 +1085,36 @@ def bsr_f32_phase(tag, b, gen, widths, records, yard):
         if not torch.equal(got, bsr_spmm_f32(*args, split=sp)):
             raise AssertionError(f"{tag}: two f32 launches differ at F'={fp}")
         want = bsr_spmm_plain(*args)
+        exact = bsr_spmm_plain(b.blocks.double(), b.tile_ptr, b.block_cols, xp.double())
         torch.cuda.synchronize()
         err, scale = float((got - want).abs().max()), float(want.abs().max())
+        e64, p64 = (float((t.double() - exact).abs().max()) for t in (got, want))
+        del got, want, exact
         if err > F32_TILE_TOL * scale:
             raise AssertionError(f"{tag}: F'={fp} max abs err {err:.3e} > {F32_TILE_TOL} * {scale:.3e}")
-        del got, want
+        if e64 > F64_ERR_RATIO * p64:
+            raise AssertionError(f"{tag}: F'={fp} error against f64 {e64:.3e} > {F64_ERR_RATIO} x "
+                                 f"the plain f32 version's {p64:.3e}")
         ms, dev_ms = both_ms(lambda: bsr_spmm_f32(*args, split=sp))
         plain_ms = cuda_ms(lambda: bsr_spmm_plain(*args))
         n_bytes = (nbytes(b.blocks, b.tile_ptr, b.block_cols)
                    + rows_read(b.block_cols, 128 * fp, 4) + n_pad * fp * 4)
-        bnd = bound(n_bytes, 2 * b.nnzb * 128 * 128 * fp, PEAK_F32)
+        flops = 2 * b.nnzb * 128 * 128 * fp
+        bnd = bound(n_bytes, 3 * flops, PEAK_TF32)
+        ffma = bound(n_bytes, flops, PEAK_F32)
         a = tiles_csr(b, n_pad)
         lib = both_ms(lambda: torch.sparse.mm(a, xp))
         del a
         records.setdefault("bsr_spmm_f32", []).append((err, ms, dev_ms, plain_ms))
         yard.setdefault("bsr_spmm_f32", (*bnd, *lib))
         log(tag, f"F'={fp}: max abs err {err:.3e} (limit {F32_TILE_TOL} * max|plain| = "
-            f"{F32_TILE_TOL * scale:.3e}; f32 products, sums in another order); two launches "
-            f"bit-equal; kernel {ms:.4f} ms a call ({dev_ms:.4f} device), plain "
-            f"{plain_ms:.4f} ms, bound {bnd[0]:.4f} ms by {bnd[1]}, torch.sparse.mm "
-            f"{lib[0]:.4f} ms a call ({lib[1]:.4f} device)")
+            f"{F32_TILE_TOL * scale:.3e}; 3xTF32 against f32 products, sums in another "
+            f"order); against the f64 oracle {e64:.3e}, the plain f32 version's {p64:.3e} "
+            f"(x{e64 / max(p64, 1e-30):.2f}, limit x{F64_ERR_RATIO}); two launches bit-equal; "
+            f"kernel {ms:.4f} ms a call ({dev_ms:.4f} device), plain {plain_ms:.4f} ms, bound "
+            f"{bnd[0]:.4f} ms by {bnd[1]} (3xTF32 at {PEAK_TF32 / 1e12:.0f} TFLOP/s; FFMA "
+            f"bound {ffma[0]:.4f} ms by {ffma[1]}), {3 * flops / (dev_ms * 1e9):.1f} TFLOP/s "
+            f"of TF32 products; torch.sparse.mm {lib[0]:.4f} ms a call ({lib[1]:.4f} device)")
 
 
 def onehot_phase(graph, gen, records):
@@ -1333,46 +1358,73 @@ def formats_training_phase(cli, counters, tmp, picks, gat_picks):
 
 def checkpoint_phase(cli, counters, tmp):
     """checkpoint: R8 doc-word GCN on --spmm hybrid (no atomics: its kernels
-    give the same bits run to run). A straight 20-epoch run saved with
-    --save_model; 10 epochs saved with --save_state, then --resume to 20:
-    the 20 train losses must equal the straight run's bit for bit; the
-    saved params through --load_model (and ``evaluate_checkpoint``, the
-    function it calls) must give the straight run's test accuracy exactly.
-    Everything is written under ``tmp``. Returns [(launches, K2 record)] of
-    the three runs."""
+    give the same bits run to run) and on --spmm segment (its scatter-add is
+    ``index_put_(accumulate=True)`` on the card, the same bits run to run).
+    For each, a straight 20-epoch run saved with --save_model; 10 epochs
+    saved with --save_state, then --resume to 20: the 20 train losses must
+    equal the straight run's bit for bit; the saved params through
+    --load_model (and ``evaluate_checkpoint``, the function it calls) must
+    give the straight run's test accuracy exactly. Everything is written
+    under ``tmp``. Returns [(launches, K2 record)] of the runs."""
     from textgcn_tpu_torch.train.run import evaluate_checkpoint
 
-    flags = ["--graph", "docword", "--spmm", "hybrid", "--early_stopping", "1000",
-             "--seeds", str(SEED)]
-    model_dir, state_dir = os.path.join(tmp, "model"), os.path.join(tmp, "state")
-    straight, l1, s_wall = run_cli(cli, [*flags, "--max_epoch", "20", "--save_model", model_dir],
-                                   counters, "docword")
-    first, l2, f_wall = run_cli(cli, [*flags, "--max_epoch", "10", "--save_state", state_dir],
-                                counters, "docword")
-    resumed, l3, r_wall = run_cli(cli, ["--graph", "docword", "--spmm", "hybrid",
-                                        "--early_stopping", "1000", "--max_epoch", "20",
-                                        "--resume", state_dir], counters, "docword")
-    for launches in (l1, l2, l3):
-        if min(launches[k] for k in kernel_need("hybrid")) < 1:
-            raise AssertionError(f"a kernel of the checkpoint runs never launched: {launches}")
-    losses = [h["train_loss"] for s in (first, resumed) for h in s["runs"][0]["history"]]
-    want = [h["train_loss"] for h in straight["runs"][0]["history"]]
-    acc = straight["runs"][0]["test"]["acc"]
-    out = io.StringIO()
-    with contextlib.redirect_stdout(out):
-        rc = cli.main(["train", "--dataset", "R8", "--graph", "docword", "--spmm", "hybrid",
-                       "--load_model", model_dir])
-    loaded = evaluate_checkpoint("R8", model_dir, graph_family="docword", spmm="hybrid",
-                                 device="cuda")["acc"]
-    log("checkpoint", f"R8 doc-word GCN hybrid, seed {SEED}: straight 20 epochs ({s_wall:.1f} "
-        f"s), 10 epochs + --save_state ({f_wall:.1f} s), --resume to 20 ({r_wall:.1f} s, seed "
-        f"{resumed['runs'][0]['seed']} from the checkpoint): {len(losses)} train losses, "
-        f"bit-equal to the straight run's: {losses == want}; --load_model: "
-        f"{out.getvalue().strip()!r} (rc {rc}), evaluate_checkpoint acc {loaded!r} vs the "
-        f"run's {acc!r}: equal {loaded == acc}")
-    if losses != want or rc != 0 or loaded != acc or f"acc={acc:.4f}" not in out.getvalue():
-        raise AssertionError("a resumed run or a loaded checkpoint differs from the straight run")
-    return [(launches, "row_reduce") for launches in (l1, l2, l3)]
+    paths = []
+    for spmm in ("hybrid", "segment"):
+        flags = ["--graph", "docword", "--spmm", spmm, "--early_stopping", "1000"]
+        model_dir, state_dir = (os.path.join(tmp, f"{d}_{spmm}") for d in ("model", "state"))
+        straight, l1, s_wall = run_cli(cli, [*flags, "--seeds", str(SEED), "--max_epoch", "20",
+                                             "--save_model", model_dir], counters, "docword")
+        first, l2, f_wall = run_cli(cli, [*flags, "--seeds", str(SEED), "--max_epoch", "10",
+                                          "--save_state", state_dir], counters, "docword")
+        resumed, l3, r_wall = run_cli(cli, [*flags, "--max_epoch", "20", "--resume", state_dir],
+                                      counters, "docword")
+        need = kernel_need(spmm)
+        for launches in (l1, l2, l3):
+            if need and min(launches[k] for k in need) < 1:
+                raise AssertionError(f"a kernel of the checkpoint runs never launched: {launches}")
+        losses = [h["train_loss"] for s in (first, resumed) for h in s["runs"][0]["history"]]
+        want = [h["train_loss"] for h in straight["runs"][0]["history"]]
+        acc = straight["runs"][0]["test"]["acc"]
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(["train", "--dataset", "R8", "--graph", "docword", "--spmm", spmm,
+                           "--load_model", model_dir])
+        loaded = evaluate_checkpoint("R8", model_dir, graph_family="docword", spmm=spmm,
+                                     device="cuda")["acc"]
+        log("checkpoint", f"R8 doc-word GCN {spmm}, seed {SEED}: straight 20 epochs "
+            f"({s_wall:.1f} s), 10 epochs + --save_state ({f_wall:.1f} s), --resume to 20 "
+            f"({r_wall:.1f} s, seed {resumed['runs'][0]['seed']} from the checkpoint): "
+            f"{len(losses)} train losses, bit-equal to the straight run's: {losses == want}; "
+            f"--load_model: {out.getvalue().strip()!r} (rc {rc}), evaluate_checkpoint acc "
+            f"{loaded!r} vs the run's {acc!r}: equal {loaded == acc}")
+        if losses != want or rc != 0 or loaded != acc or f"acc={acc:.4f}" not in out.getvalue():
+            raise AssertionError(f"{spmm}: a resumed run or a loaded checkpoint differs from "
+                                 "the straight run")
+        paths += [(launches, "row_reduce") for launches in (l1, l2, l3)]
+    return paths
+
+
+def segment_determinism_phase(cli, counters, root):
+    """segment determinism: two same-seed ``--spmm segment`` runs of 20
+    epochs (dropout on) on R8 topic, for the GCN and for the GAT, must give
+    bit-equal train and val losses (the scatter-adds are
+    ``index_put_(accumulate=True)`` on the card, not ``index_add_``'s
+    atomics)."""
+    for family in ("gcn", "gat"):
+        runs = []
+        for _ in range(2):
+            summary, _, wall_s = run_cli(
+                cli, ["--data_root", root, "--model", family, "--spmm", "segment", "--seeds",
+                      str(HYBRID_SEED), "--max_epoch", "20", "--early_stopping", "1000"],
+                counters, "topic")
+            hist = summary["runs"][0]["history"]
+            runs.append(([h["train_loss"] for h in hist], [h["val_loss"] for h in hist], wall_s))
+        (t1, v1, w1), (t2, v2, w2) = runs
+        log("segment determinism", f"R8 topic {family} --spmm segment, seed {HYBRID_SEED}, "
+            f"{len(t1)} epochs twice ({w1:.1f} s, {w2:.1f} s): train losses bit-equal "
+            f"{t1 == t2}, val losses bit-equal {v1 == v2}; last train loss {t1[-1]!r}")
+        if len(t1) != 20 or t1 != t2 or v1 != v2:
+            raise AssertionError(f"two same-seed segment runs of the topic {family} differ")
 
 
 def artifact_snapshot():
@@ -2026,6 +2078,7 @@ def main() -> int:
         lda_phase(dev, roots)
         topic_hybrid, topic_gat, topic_formats = topic_training_phases(
             cli, counters, roots["fresh"], residual)
+        segment_determinism_phase(cli, counters, roots["fresh"])
         new_paths += topic_formats
 
     # 22-27. the build slice: R8's topic graph built on the card, trained,

@@ -246,8 +246,8 @@ def test_restore_best_hands_back_the_best_epoch(tiny_root, tmp_path):
     assert summary["hyperparameters"]["restore_best"] is True
     with open("results/R8_topic_training_results.json", encoding="utf-8") as f:
         ref = json.load(f)["hyperparameters"]  # written by the JAX package
-    # the port has no epoch_block (it runs no lax.scan of epochs)
-    assert set(summary["hyperparameters"]) == set(ref) - {"epoch_block"}
+    # every JAX hyperparameter, epoch_block too (accepted, no effect)
+    assert set(summary["hyperparameters"]) == set(ref)
 
 
 def _cli_on_cpu(monkeypatch):

@@ -218,11 +218,13 @@ def test_bsr_spmm_kernel_splits_long_block_rows(cuda_dev, wrapper, f):
 @pytest.mark.cuda
 @pytest.mark.parametrize("f", [16, 112, 208, 256])
 def test_bsr_spmm_f32_kernel_splits_long_block_rows(cuda_dev, f):
-    """K1's f32 mode over the same block-rows (f32 tiles and features,
-    through ``bsr_spmm``, which counts its launches on ``bsr_spmm_f32``):
-    against the plain version within 2e-5 of the largest output (f32
-    products, sums in another order), two launches bit-equal, without a
-    table too; a mix of f32 and bf16 is refused."""
+    """K1's f32 mode (3xTF32 on the tensor cores) over the same block-rows
+    (f32 tiles and features, through ``bsr_spmm``, which counts its launches
+    on ``bsr_spmm_f32``): 23 work items, fewer than the card's SMs, so the
+    kernel also cuts them into row slabs. Against the plain version within
+    2e-5 of the largest output; against the f64 oracle (the plain version
+    on f64 inputs) at most 4x the plain f32 version's error; two launches
+    bit-equal, without a table too; a mix of f32 and bf16 is refused."""
     tiles, tp, cols, x = _long_block_rows(cuda_dev, f)
     tiles, x = tiles.float() * (1 + torch.rand_like(tiles.float()) / 7), x.float()
     split = tile_split(tp)
@@ -235,10 +237,88 @@ def test_bsr_spmm_f32_kernel_splits_long_block_rows(cuda_dev, f):
     want = bsr_spmm_plain(tiles, tp, cols, x)
     scale = float(want.abs().max())
     assert float((got - want).abs().max()) <= 2e-5 * scale
+    exact = bsr_spmm_plain(tiles.double(), tp, cols, x.double())
+    assert exact.dtype == torch.float64
+    err64, plain64 = (float((t.double() - exact).abs().max()) for t in (got, want))
+    assert err64 <= 4 * plain64
     assert float((bsr_spmm_f32(tiles, tp, cols, x) - want).abs().max()) <= 2e-5 * scale
     with pytest.raises(TypeError, match="f32 tiles with f32 features"):
         bsr_spmm(tiles, tp, cols, x.to(torch.bfloat16), split=split)
     assert _build.load().textgcn_bsr_spmm_f32_segment_tiles() == SEGMENT_TILES
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [16, 112, 208])
+def test_bsr_spmm_f32_kernel_bits_do_not_depend_on_the_grid(cuda_dev, f):
+    """A block-row's result whether the call has fewer work items than SMs
+    (each item cut into row slabs) or more (one block an item a feature
+    slab): the hub block-row of the long stack alone (its 8 segments and
+    itself: 9 items), and inside a stack of 300 one-tile block-rows
+    besides. Above 64 features both grids run the same products: the same
+    bits. At most 64 features the larger grid runs the narrow layout (the
+    tile as the register operand, x as the shared one), which splits other
+    operands: within 2e-5 of the largest output."""
+    tiles, tp, cols, x = _long_block_rows(cuda_dev, f)
+    tiles, x = tiles.float(), x.float()
+    t0, t1 = int(tp[7]), int(tp[8])
+    hub, hub_cols = tiles[t0:t1], cols[t0:t1]
+    one_ptr = torch.tensor([0, t1 - t0], dtype=torch.int32, device=cuda_dev)
+    alone = bsr_spmm_f32(hub, one_ptr, hub_cols.contiguous(), x, split=tile_split(one_ptr))
+    extra = 300
+    big_tiles = torch.cat([hub, tiles[:1].expand(extra, 128, 128)]).contiguous()
+    big_cols = torch.cat([hub_cols, cols[:1].expand(extra)]).contiguous()
+    big_ptr = torch.cat([one_ptr, (t1 - t0) + torch.arange(1, extra + 1, device=cuda_dev,
+                                                           dtype=torch.int32)])
+    inside = bsr_spmm_f32(big_tiles, big_ptr, big_cols, x, split=tile_split(big_ptr))
+    torch.cuda.synchronize()
+    assert torch.cuda.get_device_properties(cuda_dev).multi_processor_count < extra
+    if f > 64:
+        assert torch.equal(alone, inside[:128])
+    else:
+        assert float((alone - inside[:128]).abs().max()) <= 2e-5 * float(alone.abs().max())
+    first = bsr_spmm_plain(tiles[:1], torch.tensor([0, 1], dtype=torch.int32, device=cuda_dev),
+                           cols[:1], x)
+    assert float((inside[128:256] - first).abs().max()) <= 2e-5 * float(first.abs().max())
+
+
+@pytest.mark.cuda
+def test_segment_sums_on_cuda_give_the_same_bits_every_call(cuda_dev):
+    """``--spmm segment`` on the card: ``spmm_coo_segment`` (and its
+    transpose backward) and the GAT segment layer's forward and gradients
+    give the same bits on every call (the scatter-add is
+    ``index_put_(accumulate=True)`` there; ``index_add_`` adds with
+    atomics), and match the CPU's."""
+    from textgcn_tpu_torch.graph.structs import SparseGraph
+    from textgcn_tpu_torch.models import gat as tgat
+    from textgcn_tpu_torch.ops.spmm import spmm_coo_segment
+
+    r, c, v, n = _graph(seed=4)
+    g = SparseGraph.from_coo(r, c, v, n, device=cuda_dev)
+    gen = torch.Generator(device=cuda_dev).manual_seed(0)
+    x = torch.randn((n, 200), generator=gen, device=cuda_dev)
+    cot = torch.randn((n, 200), generator=gen, device=cuda_dev)
+
+    def segment():
+        xr = x.clone().requires_grad_(True)
+        y = spmm_coo_segment(g.row, g.col, g.val, xr, n)
+        y.backward(cot)
+        return y.detach(), xr.grad
+
+    def gat_layer():
+        es, ed = x[:, 0].clone().requires_grad_(True), x[:, 1].clone().requires_grad_(True)
+        h = x.clone().requires_grad_(True)
+        out = tgat.gat_attention_segment(g, es, ed, h)
+        out.backward(cot)
+        return out.detach(), es.grad, ed.grad, h.grad
+
+    for fn in (segment, gat_layer):
+        first, second = fn(), fn()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(first, second))
+    y, gx = segment()
+    gc = SparseGraph.from_coo(r, c, v, n, device=CPU)
+    want = spmm_coo_segment(gc.row, gc.col, gc.val, x.cpu(), n)
+    torch.testing.assert_close(y.cpu(), want, rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.cuda

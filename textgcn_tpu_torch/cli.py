@@ -155,6 +155,7 @@ def cmd_train(args) -> int:
         max_epoch=args.max_epoch,
         early_stopping=args.early_stopping,
         val_ratio=args.val_ratio,
+        epoch_block=args.epoch_block,
         spmm=args.spmm,
         model=args.model,
     )
@@ -239,6 +240,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--early_stopping", type=int, default=10)
     p.add_argument("--val_ratio", type=float, default=0.1)
     p.add_argument(
+        "--epoch_block",
+        type=int,
+        default=10,
+        help="epochs per block, the JAX package's compiled lax.scan block (1 = "
+        "dispatch per epoch); accepted with no effect here: results are "
+        "bit-identical across block sizes",
+    )
+    p.add_argument(
         "--seed", type=int, default=None,
         help="master seed for the runs' seeds (default: fresh random seeds)",
     )
@@ -262,7 +271,8 @@ def build_parser() -> argparse.ArgumentParser:
         default="auto",
         choices=list(SPMM_FORMATS),
         help="graph format. Every family but GAT: segment = gather + "
-        "index_add_ (plain PyTorch, the oracle); dense = one [N, N] matmul; "
+        "a scatter-add (plain PyTorch, the oracle; the same bits every run, "
+        "also on CUDA); dense = one [N, N] matmul; "
         "bsr = the whole graph as 128x128 f32 tiles on the tile kernel's f32 "
         "mode (f32-exact; for graphs whose edges cluster); onehot = the whole "
         "graph as one CSR on the residual kernel (bf16 features, f32 sums); "

@@ -11,8 +11,9 @@ The sparse side runs on one of three layouts, chosen by the graph container
 (:func:`gat_forward`):
 
 - :class:`~textgcn_tpu_torch.graph.structs.SparseGraph`: the segment
-  layout in plain PyTorch (gather, segment softmax, ``index_add_``); the
-  oracle, and ``--spmm segment``.
+  layout in plain PyTorch (gather, segment softmax, scatter-add: the same
+  bits every call, :mod:`textgcn_tpu_torch.ops.scatter`); the oracle, and
+  ``--spmm segment``.
 - :class:`DenseAttentionGraph`: the dense bf16 log-adjacency in plain
   PyTorch, with ``torch.matmul`` for the [N, N] @ [N, F] product that the
   JAX package leaves to XLA.
@@ -39,6 +40,7 @@ from textgcn_tpu_torch.models.family import (  # noqa: F401 (params_from_jax)
     FamilyModule, dropout as _dropout, init_layer, params_from_jax,
 )
 from textgcn_tpu_torch.ops.attention import AttentionGraph, check_coalesced, det_exp, gat_attention
+from textgcn_tpu_torch.ops.scatter import add_rows
 
 Params = Dict[str, torch.Tensor]
 LAYERS = ("gat1", "gat2")
@@ -102,7 +104,7 @@ def segment_softmax(logits: torch.Tensor, row: torch.Tensor, n_nodes: int) -> to
         mx.scatter_reduce_(0, row, logits, "amax")
         shift = torch.where(torch.isfinite(mx), mx, 0.0)[row]
     expd = torch.where(torch.isfinite(logits), det_exp(logits - shift), 0.0)
-    denom = logits.new_zeros(n_nodes + 1).index_add(0, row, expd)
+    denom = add_rows(n_nodes + 1, row, expd)
     return expd / torch.clamp(denom[row], min=1e-30)
 
 
@@ -119,7 +121,7 @@ def gat_attention_segment(
     e = F.leaky_relu(gs + gd, negative_slope) + torch.log(graph.val)
     att = segment_softmax(e, graph.row, n)
     hp = torch.cat([h, h.new_zeros((1, h.shape[1]))])
-    out = h.new_zeros((n + 1, h.shape[1])).index_add(0, graph.row, att[:, None] * hp[graph.col])
+    out = add_rows(n + 1, graph.row, att[:, None] * hp[graph.col])
     return out[:n]
 
 

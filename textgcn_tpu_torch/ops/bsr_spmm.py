@@ -4,7 +4,7 @@ leg, and the whole graph under ``--spmm bsr``).
 Ports ``textgcn_tpu/ops/pallas_spmm.py``. The kernels are hand-written CUDA
 for Hopper (``sm_90a``): ``csrc/bsr_spmm.cu`` for bf16 tiles and features
 (the tensor cores), ``csrc/bsr_spmm_f32.cu`` for f32 tiles and features (K1's
-f32 mode, on the CUDA cores). :func:`bsr_spmm` takes either pair and refuses
+f32 mode, on the tensor cores in 3xTF32). :func:`bsr_spmm` takes either pair and refuses
 a mix, as the JAX package's f32 path refuses bf16 tiles.
 
 Source note:
@@ -45,14 +45,24 @@ Source note:
   ``ldmatrix`` issue of 8 warps an SM), so the call is ~3.5x its byte
   bound; ``wgmma`` from shared memory is the next step (PERF.md, ROADMAP).
 - The f32 mode (:func:`bsr_spmm_f32`) replaces ``_bsr_kernel`` on f32
-  blocks (``spmm_bsr(bf16=False)``, the JAX package's ``--spmm bsr``): f32
-  products and f32 sums, never TF32 (``--spmm bsr`` is the package's
-  f32-exact format). A 64 KiB f32 tile carries 2*128*128*F' flops, 104 a
-  byte at F'=208, above the f32 ridge (~20), so the FMAs bound it: 67
-  TFLOP/s on the CUDA cores. It keeps K1's layout, its split table at the
-  same T and its second pass; the tile and its feature slab are staged in
-  32-column chunks through a ``cp.async`` ring, and each thread holds an
-  8-row micro-tile of the output in registers. Its launches count on
+  blocks (``spmm_bsr(bf16=False)``, the JAX package's ``--spmm bsr``, f32
+  products with f32 accumulation). It runs on the tensor cores in 3xTF32
+  (``wgmma``): each operand is split into a TF32 big part and a TF32
+  remainder, and big*big + big*small + small*big of each 32-deep stage is
+  summed from zero into a partial that an f32 add joins to the accumulator
+  (the tensor cores' own accumulation truncates, which over a block-row's
+  thousands of steps drifted far past plain f32 on the card). The dropped
+  small*small is 2^-22 of a product, so the result stays f32-accurate; one
+  TF32 product (about 3 decimal digits) would not, and is not used. Bound:
+  three TF32 products at 495 TFLOP/s (0.458 ms on R8 doc-word's 11,091
+  unsorted tiles at F'=208), or the tile bytes at small F' (0.218 ms at
+  16). A producer warpgroup streams each tile chunk and its rows of x into
+  a ring in shared memory and splits the operand the consumers read from
+  there; two consumer warpgroups split theirs in registers and run the
+  products. The kernel keeps K1's work items, its split table at the same
+  T and its second pass (no atomics, two launches bit-equal); when a call
+  has fewer work items than the card has SMs (R8 topic), each item is also
+  cut into row slabs, so short stacks fill the card. Its launches count on
   :func:`bsr_spmm_f32`, whichever wrapper was called.
 """
 from __future__ import annotations
@@ -85,18 +95,20 @@ def bsr_spmm_plain(tiles, tile_ptr, tile_col, x, split=None):
     (any tile shape or dtype; ``split`` is accepted and ignored).
 
     Multiplies each tile with its feature rows in f32 (bf16 inputs are exact
-    in f32) and sums the products into their block-rows. The matrix may be
+    in f32), or in f64 when the tiles or ``x`` are f64 (the f32 mode's
+    oracle), and sums the products into their block-rows. The matrix may be
     rectangular: ``x`` has one 128-row block per block-column.
     """
     n_block_rows = tile_ptr.numel() - 1
     _, bm, bn = tiles.shape
     f = x.shape[1]
+    dt = torch.promote_types(torch.promote_types(tiles.dtype, x.dtype), torch.float32)
     rows = torch.repeat_interleave(
         torch.arange(n_block_rows, device=x.device), torch.diff(tile_ptr.long())
     )
-    xb = x.float().reshape(-1, bn, f)[tile_col.long()]
-    prod = torch.bmm(tiles.float(), xb)
-    out = torch.zeros(n_block_rows, bm, f, dtype=torch.float32, device=x.device)
+    xb = x.to(dt).reshape(-1, bn, f)[tile_col.long()]
+    prod = torch.bmm(tiles.to(dt), xb)
+    out = torch.zeros(n_block_rows, bm, f, dtype=dt, device=x.device)
     out.index_add_(0, rows, prod)
     return out.reshape(n_block_rows * bm, f)
 
@@ -188,7 +200,7 @@ def bsr_spmm(tiles, tile_ptr, tile_col, x, split=None):
 def bsr_spmm_f32(tiles, tile_ptr, tile_col, x, split=None):
     """:func:`bsr_spmm` on f32 tiles and f32 features: K1's f32 mode (B4,
     ``textgcn_tpu/ops/pallas_spmm.py`` ``_bsr_kernel`` on f32 blocks), f32
-    products and sums on the CUDA cores. Its launches are counted here,
+    accurate in 3xTF32 on the tensor cores. Its launches are counted here,
     also when :func:`bsr_spmm` dispatches to it."""
     if x.device.type == "cuda" and tiles.dtype != torch.float32:
         raise TypeError(f"bsr_spmm_f32: takes f32 tiles, got {tiles.dtype}")

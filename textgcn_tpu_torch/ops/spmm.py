@@ -3,9 +3,11 @@
 Port of ``textgcn_tpu/ops/spmm.py`` (the dispatcher, the dense path and the
 segment-sum oracle):
 
-- :func:`spmm_coo_segment`: gather, scale, ``index_add_``; differentiable in
-  ``x`` with the transpose pass as its backward. The correctness oracle and
-  the ``--spmm segment`` path. Plain PyTorch, as the JAX version is plain XLA.
+- :func:`spmm_coo_segment`: gather, scale, and a scatter-add
+  (:func:`~textgcn_tpu_torch.ops.scatter.add_rows_`: the same bits every
+  call, also on CUDA); differentiable in ``x`` with the transpose pass as
+  its backward. The correctness oracle and the ``--spmm segment`` path.
+  Plain PyTorch, as the JAX version is plain XLA.
 - :func:`spmm_dense`: one ``torch.matmul`` (the JAX package leaves it to XLA).
 - :func:`spmm` dispatches on the container type; ``HybridGraph`` goes to
   :func:`textgcn_tpu_torch.graph.reorder.spmm_hybrid` and its two kernels,
@@ -21,6 +23,7 @@ from textgcn_tpu_torch.graph.reorder import (
     CSRGraph, HybridGraph, spmm_bsr, spmm_csr, spmm_hybrid,
 )
 from textgcn_tpu_torch.graph.structs import BlockSparseGraph, DenseGraph, SparseGraph
+from textgcn_tpu_torch.ops.scatter import add_rows_
 from textgcn_tpu_torch.ops.streamed_sorted import SortedStreamGraph
 
 
@@ -29,8 +32,7 @@ def _spmm_coo(row, col, val, x, n_nodes):
     # dropped segment
     xp = torch.cat([x, x.new_zeros((1, x.shape[1]))])
     gathered = xp[col] * val[:, None].to(x.dtype)
-    out = x.new_zeros((n_nodes + 1, x.shape[1]))
-    return out.index_add_(0, row, gathered)[:n_nodes]
+    return add_rows_(x.new_zeros((n_nodes + 1, x.shape[1])), row, gathered)[:n_nodes]
 
 
 class _SpmmCooSegment(torch.autograd.Function):

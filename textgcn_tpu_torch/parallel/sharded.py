@@ -9,7 +9,8 @@ all-gathers the rows and reduces onto the local ones:
 - a :class:`~textgcn_tpu_torch.parallel.mesh_kernels.MeshHybridAllGather`
   goes through K1 and K2 (:func:`spmm_mesh_hybrid`);
 - a :class:`~textgcn_tpu_torch.parallel.partition.ShardCOO` goes through
-  :func:`spmm_sharded`: plain PyTorch gather and ``index_add_``, the oracle
+  :func:`spmm_sharded`: plain PyTorch gather and scatter-add (the same
+  bits every call, :mod:`textgcn_tpu_torch.ops.scatter`), the oracle
   and the ``kernel="segment"`` path. Its backward is the true transpose
   (every rank scatters ``A_pᵀ g_p`` over all rows, one all-reduce), so it
   also checks the symmetric shortcut of the hybrid's backward.
@@ -25,6 +26,7 @@ from typing import Optional
 import torch
 
 from textgcn_tpu_torch.models.gcn import Params
+from textgcn_tpu_torch.ops.scatter import add_rows_
 from textgcn_tpu_torch.parallel.distributed import all_gather_rows, all_reduce_sum
 from textgcn_tpu_torch.parallel.mesh_kernels import MeshHybridAllGather, spmm_mesh_hybrid
 from textgcn_tpu_torch.parallel.partition import ShardCOO
@@ -32,7 +34,7 @@ from textgcn_tpu_torch.parallel.partition import ShardCOO
 
 def _local_spmm(s: ShardCOO, x_full: torch.Tensor) -> torch.Tensor:
     out = x_full.new_zeros((s.rows_per_shard, x_full.shape[1]))
-    return out.index_add_(0, s.row, x_full[s.col] * s.val[:, None].to(x_full.dtype))
+    return add_rows_(out, s.row, x_full[s.col] * s.val[:, None].to(x_full.dtype))
 
 
 class _SpmmSharded(torch.autograd.Function):
@@ -45,7 +47,7 @@ class _SpmmSharded(torch.autograd.Function):
     def backward(ctx, g):
         s = ctx.s
         part = g.new_zeros((s.n_pad, g.shape[1]))
-        part.index_add_(0, s.col, g[s.row] * s.val[:, None].to(g.dtype))
+        add_rows_(part, s.col, g[s.row] * s.val[:, None].to(g.dtype))
         all_reduce_sum(part, ctx.group)
         r0 = s.shard * s.rows_per_shard
         return None, part[r0 : r0 + s.rows_per_shard], None

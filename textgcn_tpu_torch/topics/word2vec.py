@@ -20,12 +20,9 @@ negatives in one call (numpy gives the same values as one call a step) and
 uploads the epoch's batches once. The last batch of an epoch is padded to
 ``batch_size`` by wrapping around (``np.resize``).
 
-The scatter-adds (:func:`_add_rows`) take each device's deterministic
-PyTorch op, so a fit from a seed gives the same bits every time, with no
-global switch: on CUDA ``index_put_(accumulate=True)``, which sorts the
-indices and sums each index's rows in order (``index_add_`` there adds with
-float atomics); on the CPU ``index_add_``, which adds the rows in order
-(``index_put_`` there accumulates in parallel).
+The scatter-adds take :func:`textgcn_tpu_torch.ops.scatter.add_rows_`,
+each device's deterministic PyTorch op, so a fit from a seed gives the same
+bits every time.
 """
 from __future__ import annotations
 
@@ -36,14 +33,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-
-def _add_rows(w: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor) -> None:
-    """``w[idx[i]] += rows[i]`` for every i, duplicates summed, the same
-    bits on every call."""
-    if w.is_cuda:
-        w.index_put_((idx,), rows, accumulate=True)
-    else:
-        w.index_add_(0, idx, rows)
+from textgcn_tpu_torch.ops.scatter import add_rows_
 
 
 def _cbow_step(
@@ -71,12 +61,12 @@ def _cbow_step(
     gt = gscore[:, :, None] * h[:, None, :]  # [B, 1+N, D]
     gctx = (gh / denom)[:, None, :] * ctx_mask[:, :, None]  # [B, C, D]
     d = w_in.shape[1]
-    _add_rows(w_out, tgt.reshape(-1), (-lr * gt).reshape(-1, d))
+    add_rows_(w_out, tgt.reshape(-1), (-lr * gt).reshape(-1, d))
     # the padded context slots (index 0, mask 0) add signed zeros, which
     # change no value: leave them out, or CUDA's sorted scatter walks tens
     # of thousands of them in one run
     real = ctx_mask.reshape(-1) > 0
-    _add_rows(w_in, contexts.reshape(-1)[real], (-lr * gctx).reshape(-1, d)[real])
+    add_rows_(w_in, contexts.reshape(-1)[real], (-lr * gctx).reshape(-1, d)[real])
     return torch.where(lbl > 0, -F.logsigmoid(score), -F.logsigmoid(-score)).sum()
 
 

@@ -22,9 +22,13 @@ Port of ``textgcn_tpu/train/trainer.py`` (``TrainConfig``, ``EarlyStopping``,
   node-indexed (identity features), under another node order, is refused
   (the JAX package evaluates misaligned rows without a word).
 
-The epoch loop is a plain Python loop. The JAX trainer runs blocks of epochs
-in one ``lax.scan`` to spread the round-trips of a remote TPU; the port has no
-such link to amortize, so it has no ``epoch_block``.
+The epoch loop is a plain Python loop. The JAX trainer runs blocks of
+``epoch_block`` epochs in one ``lax.scan`` to spread the round-trips of a
+remote TPU, and its results are bit-identical across block sizes. The port
+takes ``TrainConfig.epoch_block`` (and ``cli train --epoch_block``) with the
+same default and no effect on the run: its results are the same bits for
+every block size. A CUDA graph of a block of train steps may later make it
+the captured block (ROADMAP A.3).
 """
 from __future__ import annotations
 
@@ -61,6 +65,10 @@ class TrainConfig:
     # hand back the params of the lowest-val-loss epoch after fit, not the
     # last epoch's (off by default, as in the reference)
     restore_best: bool = False
+    # epochs a block (1 = one at a time): the JAX trainer's lax.scan block,
+    # accepted with no effect on the run (the results are bit-identical
+    # across block sizes there and here)
+    epoch_block: int = 10
     # SpMM graph format (textgcn_tpu_torch.graph.format.SPMM_FORMATS, and
     # onehot for GAT), applied by run_experiment before the Trainer is built
     spmm: str = "auto"

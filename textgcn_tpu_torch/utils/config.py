@@ -36,11 +36,11 @@ class BuildConfig:
 class TrainSection:
     """The ``train`` section.
 
-    ``epoch_block`` is accepted and has no effect: in the JAX package it
-    sets how many epochs one compiled ``lax.scan`` block dispatches, which
-    changes dispatch only (its results are bit-identical across block
-    sizes). The port's counterpart would be a CUDA graph of the train step
-    (ROADMAP A.3). ``shards`` / ``partition`` train the GCN row-sharded, as
+    ``epoch_block`` goes to ``TrainConfig.epoch_block``, which has no effect
+    on the run: in the JAX package it sets how many epochs one compiled
+    ``lax.scan`` block dispatches, which changes dispatch only (its results
+    are bit-identical across block sizes). The port's counterpart would be a
+    CUDA graph of the train step (ROADMAP A.3). ``shards`` / ``partition`` train the GCN row-sharded, as
     ``cli train --shards`` does (``halo`` raises until it is ported).
     """
 
@@ -69,6 +69,7 @@ class TrainSection:
             max_epoch=self.max_epoch,
             early_stopping=self.early_stopping,
             val_ratio=self.val_ratio,
+            epoch_block=self.epoch_block,
             spmm=self.spmm,
             model=self.model,
         )
