@@ -28,12 +28,17 @@ drives the port's paths: on R8 doc-word, then on R8's topic graph:
 - Streaming (beyond memory), at the JAX package's baseline scale config
   (10M nodes, 500M symmetric edges): generates the lattice stream on the
   card into a chunk cache, holds K2 in its per-chunk role (B11) and a whole
-  pass against the plain version and checks the pass's symmetry, trains the
-  streamed GCN (F=128, H=16, C=8, bf16) for ten steps with K2's launches
-  counted, holds one step's loss and gradients against the plain version
-  and against a step whose device cache holds only half the chunks (the
-  rest stream in from pinned host memory on every pass), and streams the
-  R8 doc-word graph from pinned host chunks.
+  pass against the plain version and checks the pass's symmetry; for each
+  family with a streamed step (GCN, SGC, APPNP, SAGE, GIN, GCNII; F=128,
+  H=16, C=8, bf16, the JAX package's depths) holds one step's loss and
+  gradients against the same step on the plain version and trains ten
+  Adam steps with K2's launches counted (exactly ten times the family's
+  passes a step times the chunks); holds a GCN step against one whose
+  device cache holds only half the chunks (the rest stream in from pinned
+  host memory on every pass), streams the R8 doc-word graph from pinned
+  host chunks, and trains R8 doc-word from one seed through the streamed
+  GCN step over those chunks and through the resident Trainer: their test
+  accuracies must agree within 0.01.
 - Sharded GCN (B10): at 4 shards of R8 doc-word, in this process, holds each
   rank's tile leg (K1 on its rectangular block with the block's split
   table, as ``bsr_leg``; two launches must give the same bits) and its
@@ -155,6 +160,12 @@ SLOPE = 0.2
 # JAX package's streamed_train_perf (bench.py) config
 STREAM_N, STREAM_DEG = 10_000_000, 50
 STREAM_F, STREAM_H, STREAM_C, STREAM_STEPS = 128, 16, 8, 10
+# streamed passes a step of each family at the JAX package's depths (SGC k =
+# 2, APPNP k = 10, GCNII K = 8): one forward and one backward a propagation
+STREAM_PASSES = {"gcn": 4, "sgc": 4, "appnp": 20, "sage": 4, "gin": 4, "gcnii": 16}
+# the streamed GCN's R8 doc-word test accuracy vs the resident Trainer's from
+# the same seed: the seed-noise bar of PERF.md section 2
+ACC_SEED_NOISE = 0.01
 # <A x, y> vs <x, A y> with positive x, y: f32 row sums of 50 positive terms
 # (each within 50 * 2^-24 relative), inner products summed in f64
 SYM_TOL = 1e-5
@@ -370,9 +381,140 @@ def pinned_copies(chunks):
     return out
 
 
-def stream_phases(dev, gen, records, yard, r8_graph):
+def stream_init(family, dev, opt_cls, lr):
+    """A family's streamed parameters at the smoke's widths, drawn from one
+    seed, and ``opt_cls`` over them."""
+    from textgcn_tpu_torch.train import streamed as st
+
+    params, _ = st.init_streamed(
+        torch.Generator(device=dev).manual_seed(SEED + 3), STREAM_F, STREAM_H, STREAM_C,
+        device=dev, family=family,
+    )
+    return params, opt_cls(params.values(), lr=lr)
+
+
+def stream_train_phase(family, dev, data):
+    """One family's streamed step on the cached lattice ``data``: one step's
+    loss and gradients on K2 against the same step on the plain reduce (SGD
+    with lr 0 keeps the weights), then STREAM_STEPS Adam steps with K2's
+    launches counted. Returns (K2's launches in those steps, the K2 step's
+    loss, its gradients)."""
+    from textgcn_tpu_torch.ops.row_reduce import row_reduce, row_reduce_plain
+    from textgcn_tpu_torch.train import streamed as st
+
+    src, n_chunks, n, n_edges, x, y, mask = data
+    tag = "stream train" if family == "gcn" else f"stream {family}"
+    factory = st.STREAMED_SEGMENTED_FACTORIES[family]
+    t_phase = time.perf_counter()
+    res = []
+    for reduce in (row_reduce, row_reduce_plain):
+        params, opt = stream_init(family, dev, torch.optim.SGD, 0.0)
+        step = factory(st.make_sorted_stream(src, reduce), n, opt)
+        loss, step_s = wall(lambda: float(step(params, x, y, mask)))
+        res.append((loss, {k: p.grad for k, p in params.items()}, step_s))
+    (loss_k, grads_k, _), (loss_p, grads_p, plain_step_s) = res
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    grad_rel = {
+        k: float((grads_k[k] - grads_p[k]).abs().max() / grads_p[k].abs().max())
+        for k in grads_p
+    }
+    if not (loss_rel <= STEP_LOSS_TOL and max(grad_rel.values()) <= STEP_GRAD_TOL):
+        raise AssertionError(f"{tag}: the step on K2 vs plain: loss rel {loss_rel:.3e}, "
+                             f"grads {grad_rel}")
+    del res, grads_p, params, opt, step
+
+    params, opt = stream_init(family, dev, torch.optim.Adam, 0.02)
+    step = factory(st.make_sorted_stream(src), n, opt)
+    row_reduce.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for _ in range(STREAM_STEPS):
+        loss, dt = wall(lambda: float(step(params, x, y, mask)))
+        losses.append(loss)
+        times.append(dt)
+    launches = row_reduce.launches
+    peak = torch.cuda.max_memory_allocated()
+    if not all(math.isfinite(v) for v in losses) or not losses[-1] < 0.9 * losses[0]:
+        raise AssertionError(f"{tag}: the streamed {family} did not train: losses {losses}")
+    want = STREAM_STEPS * STREAM_PASSES[family] * n_chunks
+    if launches != want:
+        raise AssertionError(f"{tag}: K2 launched {launches} times in the streamed run, "
+                             f"want {want}")
+    mean_s = sum(times[1:]) / (STREAM_STEPS - 1)
+    # the JAX bench's record of its streamed SGC step (bench.py)
+    rate = f"; edges_per_s_fwdbwd {4 * n_edges / mean_s:.6e}" if family == "sgc" else ""
+    log(tag, f"{family} F={STREAM_F} H={STREAM_H} C={STREAM_C} bf16, "
+        f"{STREAM_PASSES[family]} passes a step, on {n} nodes / {n_edges} edges, "
+        f"Adam lr 0.02: losses {', '.join(f'{v:.6g}' for v in losses)}; step 1 "
+        f"{times[0]:.3f} s, steps 2-{STREAM_STEPS} mean {mean_s:.4f} s/step{rate}; "
+        f"K2 launches {launches}; peak memory {peak} bytes allocated (x, labels, "
+        f"chunk cache, activations); one step on K2 vs plain: loss rel "
+        f"{loss_rel:.3e} (tol {STEP_LOSS_TOL}), grads rel to max "
+        f"{', '.join(f'{k} {v:.3e}' for k, v in grad_rel.items())} (tol "
+        f"{STEP_GRAD_TOL}); plain step {plain_step_s:.3f} s; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return launches, loss_k, grads_k
+
+
+def stream_accuracy_phase(dev, r8_graph, labels, sg):
+    """R8 doc-word trained twice from one seed for the Trainer's epoch count,
+    without dropout, val split or early stop (the streamed step's
+    conventions): the streamed GCN step over the pinned host chunks ``sg``
+    with identity features as a bf16 table, and the resident Trainer on the
+    segment format. Their test accuracies must agree within ACC_SEED_NOISE."""
+    from textgcn_tpu_torch.ops.streamed_sorted import spmm_streamed_sorted_hostfed
+    from textgcn_tpu_torch.train import streamed as st
+    from textgcn_tpu_torch.train.metrics import accuracy
+    from textgcn_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    t_phase = time.perf_counter()
+    cfg = TrainConfig(dropout=0.0, val_ratio=0.0, early_stopping=TrainConfig.max_epoch + 1,
+                      seed=SEED, model="gcn")
+    n, n_docs = sg.n_nodes, len(labels.target)
+    target = torch.as_tensor(labels.target, device=dev)
+    test_idx = torch.as_tensor(labels.test_idx, device=dev)
+    y = torch.zeros(n, dtype=torch.int64, device=dev)
+    y[:n_docs] = target
+    mask = torch.zeros(n, device=dev)
+    mask[torch.as_tensor(labels.train_idx, device=dev)] = 1.0
+    x = torch.eye(n, dtype=torch.bfloat16, device=dev)
+    params, opt = st.init_streamed(
+        torch.Generator(device=dev).manual_seed(cfg.seed), n, cfg.n_hidden,
+        labels.n_classes, device=dev, lr=cfg.lr,
+    )
+    stream = st.make_sorted_stream(sg.chunks)
+    step = st.make_streamed_train_step_segmented(stream, n, opt)
+    (losses, stream_s) = wall(lambda: [step(params, x, y, mask) for _ in range(cfg.max_epoch)])
+    with torch.no_grad():
+        # the step's forward: s1 and s2 rounded to the stream dtype
+        s1 = (x.float() @ params["gc1.w"].bfloat16().float()).bfloat16()
+        a1 = spmm_streamed_sorted_hostfed(sg.chunks, s1)
+        s2 = (torch.relu(a1 + params["gc1.b"]) @ params["gc2.w"]).bfloat16()
+        logits = spmm_streamed_sorted_hostfed(sg.chunks, s2) + params["gc2.b"]
+        acc_stream = float(accuracy(logits[test_idx], target[test_idx]))
+    del x, s1, a1, s2, logits, params, opt, step
+
+    t = Trainer(r8_graph, None, labels.target, labels.train_idx, labels.test_idx,
+                labels.n_classes, config=cfg, device=dev)
+    fit = t.fit(verbose=False)
+    acc_res = t.evaluate(t.test_idx)["acc"]
+    gap = abs(acc_stream - acc_res)
+    log("stream accuracy", f"R8 doc-word GCN, seed {cfg.seed}, {cfg.max_epoch} epochs, "
+        f"H={cfg.n_hidden}, dropout 0, no val split, no early stop: streamed step over "
+        f"{sg.n_chunks} pinned host chunks (bf16 identity features, bf16 stream) test "
+        f"acc {acc_stream:.4f} (final train loss {float(losses[-1]):.4f}, {stream_s:.1f} s); "
+        f"resident Trainer (segment, f32) test acc {acc_res:.4f} (final train loss "
+        f"{t.history[-1]['train_loss']:.4f}, {fit['epochs_run']} epochs, "
+        f"{fit['train_time']:.1f} s); gap {gap:.4f} (tol {ACC_SEED_NOISE}); phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    if fit["epochs_run"] != cfg.max_epoch or not gap <= ACC_SEED_NOISE:
+        raise AssertionError(f"streamed vs resident R8 accuracy {acc_stream} vs {acc_res} "
+                             f"after {fit['epochs_run']} epochs")
+
+
+def stream_phases(dev, gen, records, yard, r8_graph, r8_labels):
     """The streamed (beyond-memory) slice; returns K2's launches in the
-    streamed train run."""
+    streamed train runs of the six families."""
     from textgcn_tpu_torch.graph.format import convert_graph
     from textgcn_tpu_torch.ops.row_reduce import row_reduce, row_reduce_plain
     from textgcn_tpu_torch.ops.spmm import spmm, spmm_coo_segment
@@ -458,71 +600,21 @@ def stream_phases(dev, gen, records, yard, r8_graph):
         f"ms at F=16, {1000 * plain8_s:.1f} ms at F=8 (host clock); phase "
         f"{time.perf_counter() - t_phase:.1f} s")
 
-    # 13. stream train: the segmented GCN step on the cached stream
-    t_phase = time.perf_counter()
+    # 13. stream train: the segmented GCN step on the cached stream, then
+    # each other family's ("stream sgc", ..., "stream gcnii")
     y = torch.randint(0, STREAM_C, (n,), generator=gen, device=dev)
     # the features carry the label, as the JAX package's streamed train test
     x = torch.randn((n, STREAM_F), generator=gen, device=dev, dtype=torch.bfloat16).mul_(0.1)
     x += (torch.arange(STREAM_F, device=dev) % STREAM_C == y[:, None]).to(torch.bfloat16)
     mask = (torch.rand(n, generator=gen, device=dev) < 0.5).float()
-
-    def init(opt_cls, lr):
-        params, _ = st.init_streamed(
-            torch.Generator(device=dev).manual_seed(SEED + 3), STREAM_F,
-            STREAM_H, STREAM_C, device=dev,
-        )
-        return params, opt_cls(params.values(), lr=lr)
-
-    # one step's loss and gradients (SGD with lr 0 keeps the weights) on K2
-    # and on the plain reduce, outside the counted run
-    res = []
-    for reduce in (row_reduce, row_reduce_plain):
-        params, opt = init(torch.optim.SGD, 0.0)
-        step = st.make_streamed_train_step_segmented(
-            st.make_sorted_stream(src, reduce), n, opt
-        )
-        (loss, step_s) = wall(lambda: float(step(params, x, y, mask)))
-        res.append((loss, {k: p.grad for k, p in params.items()}, step_s))
-    (loss_k, grads_k, _), (loss_p, grads_p, plain_step_s) = res
-    grads_k0 = {k: g.clone() for k, g in grads_k.items()}
-    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
-    grad_rel = {
-        k: float((grads_k[k] - grads_p[k]).abs().max() / grads_p[k].abs().max())
-        for k in grads_p
-    }
-    if not (loss_rel <= STEP_LOSS_TOL and max(grad_rel.values()) <= STEP_GRAD_TOL):
-        raise AssertionError(f"streamed step on K2 vs plain: loss rel {loss_rel:.3e}, "
-                             f"grads {grad_rel}")
-    del res, grads_k, grads_p
-
-    params, opt = init(torch.optim.Adam, 0.02)
-    step = st.make_streamed_train_step_segmented(st.make_sorted_stream(src), n, opt)
-    row_reduce.launches = 0
-    torch.cuda.reset_peak_memory_stats()
-    losses, times = [], []
-    for _ in range(STREAM_STEPS):
-        loss, dt = wall(lambda: float(step(params, x, y, mask)))
-        losses.append(loss)
-        times.append(dt)
-    launches = row_reduce.launches
-    peak = torch.cuda.max_memory_allocated()
-    if not all(math.isfinite(v) for v in losses) or not losses[-1] < 0.9 * losses[0]:
-        raise AssertionError(f"streamed GCN did not train: losses {losses}")
-    if launches != STREAM_STEPS * 4 * n_chunks:
-        raise AssertionError(f"K2 launched {launches} times in the streamed run")
+    data = (src, n_chunks, n, lattice.n_edges, x, y, mask)
+    launches, loss_k, grads_k0 = stream_train_phase("gcn", dev, data)
     host, pin_s = wall(lambda: pinned_copies(list(src)))
+    for family in STREAM_PASSES:
+        if family != "gcn":
+            launches += stream_train_phase(family, dev, data)[0]
     total_bytes = src.cached_bytes
-    log("stream train", f"GCN F={STREAM_F} H={STREAM_H} C={STREAM_C} bf16 on "
-        f"{n} nodes / {lattice.n_edges} edges, Adam lr 0.02: losses "
-        f"{', '.join(f'{v:.4f}' for v in losses)}; step 1 {times[0]:.3f} s, steps "
-        f"2-{STREAM_STEPS} mean {sum(times[1:]) / (STREAM_STEPS - 1):.3f} s/step; "
-        f"K2 launches {launches}; peak memory {peak} bytes allocated (x, labels, "
-        f"chunk cache, activations); one step on K2 vs plain: loss rel "
-        f"{loss_rel:.3e} (tol {STEP_LOSS_TOL}), grads rel to max "
-        f"{', '.join(f'{k} {v:.3e}' for k, v in grad_rel.items())} (tol "
-        f"{STEP_GRAD_TOL}); plain step {plain_step_s:.3f} s; phase "
-        f"{time.perf_counter() - t_phase:.1f} s")
-    del params, opt, step, src
+    del src, data
 
     # 14. stream beyond: the device cache holds half the chunks' bytes, the
     # rest are copied in from pinned host memory on each of the step's passes
@@ -530,7 +622,7 @@ def stream_phases(dev, gen, records, yard, r8_graph):
     torch.cuda.empty_cache()
     budget = total_bytes // 2
     part = ss.CachedChunkSource(host.__getitem__, n_chunks, budget, dev)
-    params, opt = init(torch.optim.SGD, 0.0)
+    params, opt = stream_init("gcn", dev, torch.optim.SGD, 0.0)
     step = st.make_streamed_train_step_segmented(st.make_sorted_stream(part), n, opt)
     torch.cuda.reset_peak_memory_stats()
     steps = []
@@ -590,6 +682,10 @@ def stream_phases(dev, gen, records, yard, r8_graph):
         f"CachedChunkSource host loads over two passes {loads[0]} (full "
         f"budget), {loads[1]} (zero budget); phase "
         f"{time.perf_counter() - t_phase:.1f} s")
+    del x, got, want, src
+
+    # 15b. stream accuracy: the streamed GCN step and the resident Trainer
+    stream_accuracy_phase(dev, r8_graph, r8_labels, sg)
     return launches
 
 
@@ -2048,7 +2144,7 @@ def main() -> int:
 
     # 8b. the attention_spmm path (B6), fwd+bwd, its launches counted
     spmm_launches = attention_spmm_path(att, ag, gen, counters)
-    r8_graph = pre.graph
+    r8_graph, r8_labels = pre.graph, pre.labels
     del ag, pre, pre_att
 
     # 9. the GAT main path, through the CLI
@@ -2068,8 +2164,8 @@ def main() -> int:
         new_paths = formats_training_phase(cli, counters, tmp, picks, gat_picks)
         new_paths += checkpoint_phase(cli, counters, tmp)
 
-    # 10-15. the streamed slice at the baseline scale config
-    stream_launches = stream_phases(dev, gen, records, yard, r8_graph)
+    # 10-15. the streamed slice at the baseline scale config, every family
+    stream_launches = stream_phases(dev, gen, records, yard, r8_graph, r8_labels)
 
     # 16-21. the topic slice: its data, the E-step, and every family trained
     with tempfile.TemporaryDirectory() as tmp:

@@ -16,12 +16,14 @@ import torch
 import jax
 import jax.numpy as jnp
 
+import textgcn_tpu.models as jax_models
 from textgcn_tpu.ops import streamed_sorted as jss
 from textgcn_tpu.train import streamed as jst
 
 from textgcn_tpu_torch import cli
 from textgcn_tpu_torch.graph.format import convert_graph
 from textgcn_tpu_torch.graph.structs import SparseGraph
+from textgcn_tpu_torch.models import MODELS
 from textgcn_tpu_torch.models.gcn import params_from_jax
 from textgcn_tpu_torch.ops import streamed_sorted as ss
 from textgcn_tpu_torch.ops.spmm import spmm
@@ -360,20 +362,34 @@ def _jax_rounding_reduce(row_ptr, col, val, x, base, split=None):
     return base.index_add_(0, rows, (x[col.long()] * val.to(x.dtype)[:, None]).float())
 
 
-def _one_step(dtype, j_opt, t_opt_cls, t_lr, reduce=ss.row_reduce):
-    """One step of the JAX segmented GCN step on the JAX sorted stream and of
-    the port's on the converted chunks, from the same weights."""
+# family -> the hyperparameters of both steps (APPNP and GCNII at depth 3, as
+# the JAX package's own streamed tests; the JAX init takes GCNII's depth too)
+FAMILY_HYPER = {
+    "gcn": {}, "sgc": {}, "appnp": {"k": 3}, "sage": {}, "gin": {}, "gcnii": {"k": 3},
+}
+FAMILIES = list(FAMILY_HYPER)
+NEW_FAMILIES = FAMILIES[1:]
+# streamed passes a step at the JAX package's depths (init_streamed's)
+PASSES = {"gcn": 4, "sgc": 4, "appnp": 20, "sage": 4, "gin": 4, "gcnii": 16}
+
+
+def _one_step(dtype, j_opt, t_opt_cls, t_lr, reduce=ss.row_reduce, family="gcn"):
+    """One step of a family's JAX segmented step on the JAX sorted stream and
+    of the port's on the converted chunks, from the same weights."""
     edge_fn, spec, chunks, _ = _port_chunks_of_jax_lattice()
     f, h, c = 12, 6, 3
+    hyper = FAMILY_HYPER[family]
     xj, yj, mj, xt, yt, mt = _train_inputs(f, c, dtype)
-    jparams, _, _ = jst.init_streamed(jax.random.PRNGKey(0), f, h, c)
+    j_init = jax_models.MODELS[family][0]
+    jparams = j_init(jax.random.PRNGKey(0), f, h, c, **(hyper if family == "gcnii" else {}))
     j_state = j_opt.init(jparams)
 
     def stream_fn(v):
         return jss.spmm_streamed_sorted(edge_fn, v, N_CHUNKS, spec, interpret=True)[:, : v.shape[1]]
 
-    j_step = jst.make_streamed_train_step_segmented(
-        None, N_PAD, N_CHUNKS, optimizer=j_opt, stream_dtype=dtype, stream_fn=stream_fn
+    j_step = jst.STREAMED_SEGMENTED_FACTORIES[family](
+        None, N_PAD, N_CHUNKS, optimizer=j_opt, stream_dtype=dtype, stream_fn=stream_fn,
+        **hyper,
     )
     jp2, _, jloss = j_step(jax.tree_util.tree_map(jnp.copy, jparams), j_state, xj, yj, mj)
     params = params_from_jax(jax.tree_util.tree_map(np.asarray, jparams), device="cpu")
@@ -381,24 +397,51 @@ def _one_step(dtype, j_opt, t_opt_cls, t_lr, reduce=ss.row_reduce):
         p.requires_grad_(True)
     opt = t_opt_cls(params.values(), lr=t_lr)
     sd = torch.float32 if dtype == jnp.float32 else torch.bfloat16
-    step = st.make_streamed_train_step_segmented(st.make_sorted_stream(chunks, reduce), N_PAD, opt, sd)
+    step = st.STREAMED_SEGMENTED_FACTORIES[family](
+        st.make_sorted_stream(chunks, reduce), N_PAD, opt, stream_dtype=sd, **hyper
+    )
     tloss = step(params, xt, yt, mt)
     return jparams, jp2, float(jloss), params, float(tloss)
 
 
-def test_segmented_step_matches_jax_f32():
+def _leaves(jparams):
+    """(port key, JAX leaf path) of every parameter."""
+    return [(f"{layer}.{leaf}", (layer, leaf)) for layer, leaves in jparams.items() for leaf in leaves]
+
+
+def _check_adam_f32(family):
     """Adam, f32 stream: loss at rtol 1e-5, parameters after one step at the
     JAX package's own sorted-stream tolerance."""
-    _, jp2, jloss, params, tloss = _one_step(
-        jnp.float32, optax.adam(0.02), torch.optim.Adam, 0.02
+    jparams, jp2, jloss, params, tloss = _one_step(
+        jnp.float32, optax.adam(0.02), torch.optim.Adam, 0.02, family=family
     )
     np.testing.assert_allclose(tloss, jloss, rtol=1e-5)
-    for layer in ("gc1", "gc2"):
-        for k in ("w", "b"):
-            np.testing.assert_allclose(
-                params[f"{layer}.{k}"].detach().numpy(), np.asarray(jp2[layer][k]),
-                rtol=2e-3, atol=2e-4, err_msg=f"{layer}.{k}",
-            )
+    for key, (layer, leaf) in _leaves(jparams):
+        np.testing.assert_allclose(
+            params[key].detach().numpy(), np.asarray(jp2[layer][leaf]),
+            rtol=2e-3, atol=2e-4, err_msg=key,
+        )
+
+
+def _check_sgd_bf16(family, rounding, loss_rtol, grad_rel):
+    """bf16 features and stream, SGD with lr 1 (the step is the gradient):
+    loss at ``loss_rtol``, every gradient within ``grad_rel`` of its largest
+    entry. ``rounding`` "jax" reduces with the JAX stream's roundings, "k2"
+    with the port's own reduce."""
+    jparams, jp2, jloss, params, tloss = _one_step(
+        jnp.bfloat16, optax.sgd(1.0), torch.optim.SGD, 1.0,
+        _jax_rounding_reduce if rounding == "jax" else ss.row_reduce, family=family,
+    )
+    np.testing.assert_allclose(tloss, jloss, rtol=loss_rtol)
+    for key, (layer, leaf) in _leaves(jparams):
+        jg = np.asarray(jparams[layer][leaf]) - np.asarray(jp2[layer][leaf])
+        tg = params[key].grad.numpy()
+        assert np.abs(tg - jg).max() <= grad_rel * np.abs(jg).max(), key
+
+
+def test_segmented_step_matches_jax_f32():
+    """The GCN's step: Adam, f32 stream (:func:`_check_adam_f32`)."""
+    _check_adam_f32("gcn")
 
 
 @pytest.mark.parametrize("rounding", ["jax", "k2"])
@@ -411,22 +454,44 @@ def test_segmented_step_gradients_match_jax_bf16(rounding):
     then rounds to another bf16 value, or crosses the relu, moves a whole
     node's share of a gradient: loss to 1e-3, gradients to 0.1 of their
     largest entry (measured: 1.2e-4 and 5.2e-2)."""
-    jax_rounding = rounding == "jax"
-    jparams, jp2, jloss, params, tloss = _one_step(
-        jnp.bfloat16, optax.sgd(1.0), torch.optim.SGD, 1.0,
-        _jax_rounding_reduce if jax_rounding else ss.row_reduce,
-    )
-    np.testing.assert_allclose(tloss, jloss, rtol=1e-5 if jax_rounding else 1e-3)
-    for layer in ("gc1", "gc2"):
-        for k in ("w", "b"):
-            jg = np.asarray(jparams[layer][k]) - np.asarray(jp2[layer][k])
-            tg = params[f"{layer}.{k}"].grad.numpy()
-            bound = (1e-5 if jax_rounding else 1e-1) * np.abs(jg).max()
-            assert np.abs(tg - jg).max() <= bound, f"{layer}.{k}"
+    if rounding == "jax":
+        _check_sgd_bf16("gcn", "jax", 1e-5, 1e-5)
+    else:
+        _check_sgd_bf16("gcn", "k2", 1e-3, 1e-1)
 
 
-@pytest.mark.parametrize("budget_chunks", [0, 2])
-def test_segmented_step_through_a_cache_below_the_graph_matches_resident(budget_chunks):
+def test_streamed_factories_have_the_jax_keys():
+    assert list(st.STREAMED_SEGMENTED_FACTORIES) == list(jst.STREAMED_SEGMENTED_FACTORIES)
+    assert set(PASSES) == set(st.STREAMED_SEGMENTED_FACTORIES)
+
+
+@pytest.mark.parametrize("family", NEW_FAMILIES)
+def test_family_step_matches_jax_f32(family):
+    """Each other family's step against the JAX factory's: Adam, f32
+    stream, as the GCN's."""
+    _check_adam_f32(family)
+
+
+@pytest.mark.parametrize("family", NEW_FAMILIES)
+@pytest.mark.parametrize("rounding", ["jax", "k2"])
+def test_family_step_gradients_match_jax_bf16(family, rounding):
+    """Each other family's step against the JAX factory's in bf16, SGD with
+    lr 1. With the JAX stream's roundings: loss and gradients to 1e-5, as
+    the GCN's (measured: 2.3e-7 at most). With the port's own reduce the
+    JAX stream's bf16 edge weights and products are what differ: each edge
+    term of a pass moves by up to 2^-8 of its size. SGC, SAGE and GIN put
+    logits several times the GCN's through the passes, and the loss, near
+    linear in logits of that size, moves by up to that share: loss to 4e-3
+    (2^-8; measured 1.3e-3 at most, SAGE, past the GCN's 1e-3), gradients to
+    2e-2 of their largest entry (measured 5.8e-3 at most; no relu crossing
+    here moves a node's share as the GCN's 5.2e-2 does)."""
+    if rounding == "jax":
+        _check_sgd_bf16(family, "jax", 1e-5, 1e-5)
+    else:
+        _check_sgd_bf16(family, "k2", 4e-3, 2e-2)
+
+
+def _through_a_cache(family, budget_chunks):
     """A CachedChunkSource whose byte budget holds fewer chunks than the
     graph has: the rest stream from host chunks on every pass, and the step's
     loss and gradients equal the resident step's."""
@@ -437,22 +502,37 @@ def test_segmented_step_through_a_cache_below_the_graph_matches_resident(budget_
     xj, yj, mj, xt, yt, mt = _train_inputs(f, c, jnp.bfloat16)
     res = []
     for chunks in (host, ss.CachedChunkSource(host.__getitem__, len(host), budget, "cpu")):
-        params, _ = st.init_streamed(torch.Generator().manual_seed(3), f, h, c, device="cpu")
+        params, _ = st.init_streamed(
+            torch.Generator().manual_seed(3), f, h, c, device="cpu", family=family
+        )
         opt = torch.optim.SGD(params.values(), lr=0.0)
-        step = st.make_streamed_train_step_segmented(st.make_sorted_stream(chunks), N_PAD, opt)
+        step = st.STREAMED_SEGMENTED_FACTORIES[family](st.make_sorted_stream(chunks), N_PAD, opt)
         res.append((float(step(params, xt, yt, mt)), {k: p.grad for k, p in params.items()}))
     (loss_r, grads_r), (loss_c, grads_c) = res
     assert loss_c == loss_r
     for k in grads_r:
         assert torch.equal(grads_c[k], grads_r[k]), k
-    # four passes per step: the first loads every chunk, the other three
-    # load the chunks the budget did not hold
+    # the step's first pass loads every chunk, each other pass the chunks
+    # the budget did not hold
     src = chunks
     assert src.cached_bytes == budget
-    assert src.host_loads == N_CHUNKS + 3 * (N_CHUNKS - budget_chunks)
+    assert src.host_loads == N_CHUNKS + (PASSES[family] - 1) * (N_CHUNKS - budget_chunks)
 
 
-def test_segmented_step_trains_in_bf16():
+@pytest.mark.parametrize("budget_chunks", [0, 2])
+def test_segmented_step_through_a_cache_below_the_graph_matches_resident(budget_chunks):
+    """The GCN's step (:func:`_through_a_cache`): four passes a step."""
+    _through_a_cache("gcn", budget_chunks)
+
+
+@pytest.mark.parametrize("family", NEW_FAMILIES)
+@pytest.mark.parametrize("budget_chunks", [0, 2])
+def test_family_step_through_a_cache_below_the_graph_matches_resident(family, budget_chunks):
+    """Each other family's step at its default depth (:func:`_through_a_cache`)."""
+    _through_a_cache(family, budget_chunks)
+
+
+def _trains_in_bf16(family):
     """Ten bf16 steps on the port's lattice, features carrying the label,
     lower the loss below 0.9 of the first."""
     lat = ss.make_lattice_stream(N_CHUNKS, W_SC, W, CELL_E, seed=5, device="cpu")
@@ -461,8 +541,10 @@ def test_segmented_step_trains_in_bf16():
     rng = np.random.default_rng(6)
     y = rng.integers(0, c, N_PAD)
     x = rng.normal(size=(N_PAD, f)) * 0.1 + np.eye(c)[y][:, np.arange(f) % c]
-    params, opt = st.init_streamed(torch.Generator().manual_seed(7), f, h, c, device="cpu")
-    step = st.make_streamed_train_step_segmented(st.make_sorted_stream(src), N_PAD, opt)
+    params, opt = st.init_streamed(
+        torch.Generator().manual_seed(7), f, h, c, device="cpu", family=family
+    )
+    step = st.STREAMED_SEGMENTED_FACTORIES[family](st.make_sorted_stream(src), N_PAD, opt)
     xt = torch.tensor(x, dtype=torch.bfloat16)
     yt, mt = torch.from_numpy(y), torch.ones(N_PAD)
     losses = [float(step(params, xt, yt, mt)) for _ in range(10)]
@@ -471,3 +553,33 @@ def test_segmented_step_trains_in_bf16():
     assert src.host_loads == len(lat)  # generated once, then served from the cache
     with pytest.raises(ValueError, match="rows"):
         step(params, xt[:-1], yt[:-1], mt[:-1])
+
+
+def test_segmented_step_trains_in_bf16():
+    """The GCN (:func:`_trains_in_bf16`)."""
+    _trains_in_bf16("gcn")
+
+
+@pytest.mark.parametrize("family", NEW_FAMILIES)
+def test_family_step_trains_in_bf16(family):
+    """Each other family at its default depth (:func:`_trains_in_bf16`)."""
+    _trains_in_bf16(family)
+
+
+def test_init_streamed_gives_each_family_its_init():
+    """``init_streamed(family=...)`` draws the family's module init from the
+    generator, requiring grad, with Adam at the trainer's settings; the
+    default is the GCN's, and a family without a streamed step is refused."""
+    for family in FAMILIES:
+        params, opt = st.init_streamed(
+            torch.Generator().manual_seed(1), 12, 6, 3, device="cpu", family=family
+        )
+        want = MODELS[family].init_params(torch.Generator().manual_seed(1), 12, 6, 3, device="cpu")
+        assert params.keys() == want.keys()
+        for k in want:
+            assert params[k].requires_grad and torch.equal(params[k].detach(), want[k]), k
+        assert opt.defaults["lr"] == 0.02 and opt.defaults["betas"] == (0.9, 0.999)
+    default, _ = st.init_streamed(torch.Generator().manual_seed(1), 12, 6, 3, device="cpu")
+    assert set(default) == {"gc1.w", "gc1.b", "gc2.w", "gc2.b"}
+    with pytest.raises(ValueError, match="no streamed step"):
+        st.init_streamed(torch.Generator(), 12, 6, 3, device="cpu", family="gat")

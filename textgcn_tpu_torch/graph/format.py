@@ -16,9 +16,11 @@ onehot      the whole graph as one row-sorted CSR through K2 from zero
 hybrid      degree-sort permutation, then tiles with >= 24 edges go to the
             tile kernel K1 (bf16) and the other edges to K2.
 streamed    host-resident row-range chunks of a row-sorted CSR, streamed
-            through K2 (``SortedStreamGraph``): forward passes only; the
-            Trainer refuses it (ROADMAP A.12). Not in ``SPMM_FORMATS``, so
-            the CLI does not offer it.
+            through K2 (``SortedStreamGraph``): forward passes; the Trainer
+            refuses it, as the JAX Trainer cannot train it either, and the
+            streamed steps train its chunks
+            (``train/streamed.py`` ``STREAMED_SEGMENTED_FACTORIES``, ROADMAP
+            A.12). Not in ``SPMM_FORMATS``, so the CLI does not offer it.
 auto        dense up to ``DENSE_MAX_NODES`` nodes; above, the cheapest
             estimate of :func:`estimate_format_costs` with the H100's
             measured constants (:class:`MachineModel`): dense, segment,

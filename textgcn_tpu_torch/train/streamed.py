@@ -1,26 +1,37 @@
-"""Beyond-memory training: the two-layer GCN's train step (forward,
-backward, Adam) over a symmetric edge stream that is never resident.
+"""Beyond-memory training: the train steps (forward, backward, Adam) of the
+six non-GAT families over a symmetric edge stream that is never resident.
 
-Port of the GCN part of ``textgcn_tpu/train/streamed.py``. Both
-aggregations go through a stream node (:mod:`textgcn_tpu_torch.train.streamtape`)
-over a sorted chunk source (:mod:`textgcn_tpu_torch.ops.streamed_sorted`), so
-neither direction holds the edge list or an [E, F] residual. Features stay
-bf16 at scale; sums are f32. The model is ``models/gcn.py``'s math with
-masked cross-entropy and Adam, without dropout and without a val split (the
-JAX streamed step's conventions).
+Port of ``textgcn_tpu/train/streamed.py``: the tape-built segmented steps of
+the GCN, SGC, APPNP, GraphSAGE, GIN and GCNII
+(:data:`STREAMED_SEGMENTED_FACTORIES`, the JAX registry's keys). Every
+aggregation goes through a stream node
+(:mod:`textgcn_tpu_torch.train.streamtape`) over a sorted chunk source
+(:mod:`textgcn_tpu_torch.ops.streamed_sorted`), so neither direction holds
+the edge list or an [E, F] residual. Features stay bf16 at scale; sums are
+f32. The models are ``models/*.py``'s math with masked cross-entropy and
+Adam, without dropout and without a val split (the JAX streamed steps'
+conventions).
 
-Dtypes at each point, as in the JAX ``make_streamed_train_step_segmented``:
+Each step follows its JAX function's dtypes and gradients. The pieces that
+read the wide ``x`` ([10M, 128] bf16 at the baseline scale config) are
+``autograd.Function`` pieces that save ``x`` by reference and widen it a
+block of rows at a time (:func:`_mm_f32`, :func:`_mm_t_f32`), so its f32 copy never
+becomes an autograd residual: the counterpart of the JAX ``tape.custom``
+nodes. The narrow pieces are plain autograd, whose casts give the JAX
+``jax.vjp`` pieces' cotangent dtypes (a bf16 value's cotangent is bf16, and
+fan-out cotangents meet in their value's dtype).
+
+GCN dtypes, as in the JAX ``make_streamed_train_step_segmented``:
 ``s1 = x W1`` in the stream dtype ``sd`` (an f32 product, cast once),
 ``a1 = Â s1`` f32, ``s2 = relu(a1 + b1) W2`` in ``sd``, ``a2 = Â s2`` f32,
 the loss f32. ``dW1 = xᵀ g`` is an f32 product of the bf16 operands, as the
 JAX hand-written backward computes it.
 
-Not ported: the monolithic ``make_streamed_train_step`` /
-``streamed_gcn_forward`` and ``symmetrize_edge_fn`` (XLA's whole-step
-compile over the unsorted stream); the pre-tape hand steps; the
+Not ported: the monolithic ``make_streamed_{,sgc_,appnp_}train_step`` and
+``streamed_{gcn,sgc,appnp}_forward``, and ``symmetrize_edge_fn`` (XLA's
+whole-step compile over the unsorted stream); the pre-tape hand steps; the
 ``_make_padded_stream`` 128-lane pad (a TPU gather-granule fix; an odd
-width pads one column inside ``spmm_streamed_sorted``); the other streamed
-families (SGC, APPNP, SAGE, GIN, GCNII; ROADMAP A.10).
+width pads one column inside ``spmm_streamed_sorted``).
 """
 from __future__ import annotations
 
@@ -30,7 +41,13 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
-from textgcn_tpu_torch.models.gcn import gcn_init
+from textgcn_tpu_torch.models import MODELS
+from textgcn_tpu_torch.models.appnp import DEFAULT_ALPHA as APPNP_ALPHA, DEFAULT_K as APPNP_K
+from textgcn_tpu_torch.models.gcnii import (
+    DEFAULT_ALPHA as GCNII_ALPHA, DEFAULT_K as GCNII_K, DEFAULT_LAMBDA as GCNII_LAMBDA,
+    gcnii_betas,
+)
+from textgcn_tpu_torch.models.sgc import DEFAULT_K as SGC_K
 from textgcn_tpu_torch.ops.row_reduce import row_reduce
 from textgcn_tpu_torch.ops.streamed_sorted import spmm_streamed_sorted_hostfed
 from textgcn_tpu_torch.train.streamtape import make_tape_step
@@ -76,10 +93,42 @@ class _Project(torch.autograd.Function):
         return None, _mm_t_f32(x, g.to(x.dtype)), None
 
 
+class _ReluLayer(torch.autograd.Function):
+    """``relu(x @ w' + extra + b)`` with an f32 product of ``x`` and ``w' =
+    w.to(x.dtype)`` (``cast_w``) or of ``x`` widened to f32 and ``w`` as it
+    is; ``extra`` (an f32 [N, H] term) may be None. Differentiable in ``w``,
+    ``b`` and ``extra``: ``dpre = g`` where the output is positive, ``dw =
+    xᵀ dpre.to(x.dtype)`` in f32, ``db = Σ dpre``, ``dextra = dpre`` (the
+    JAX ``_mlp_bwd_impl``'s first layer, ``_layer1_bwd_impl``,
+    ``_fc_in_bwd_impl``). ``x`` is saved by reference, and the [N, H]
+    output, which its consumers keep alive anyway, in place of ``pre``."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, extra, cast_w):
+        pre = _mm_f32(x, w.to(x.dtype) if cast_w else w)
+        if extra is not None:
+            pre = pre + extra
+        out = torch.relu(pre + b)
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, out = ctx.saved_tensors
+        dpre = torch.where(out > 0, g, 0.0)
+        dextra = dpre if ctx.needs_input_grad[3] else None
+        return None, _mm_t_f32(x, dpre.to(x.dtype)), dpre.sum(0), dextra, None
+
+
 def _masked_ce(logits, y, mask):
     logp = F.log_softmax(logits, dim=-1)
     nll = -logp.gather(1, y[:, None].long())[:, 0]
     return (nll * mask).sum() / mask.sum()
+
+
+def _check_rows(x, n_nodes):
+    if x.shape[0] != n_nodes:
+        raise ValueError(f"x has {x.shape[0]} rows, the stream {n_nodes}")
 
 
 def make_sorted_stream(chunks, reduce=row_reduce):
@@ -103,13 +152,14 @@ def make_streamed_train_step_segmented(
     parameters (:func:`init_streamed`). Returns ``step(params, x, y, mask)
     -> loss``: ``params`` the flat ``gcn_init`` dict, ``x`` [n_nodes, F]
     (bf16 at scale), ``y`` int labels, ``mask`` f32 weights of the loss.
-    Four streamed passes per step: two forward, two in the backward.
+    Four streamed passes per step: two forward, two in the backward. The
+    other families' steps take and return the same, with their family's
+    parameters.
     """
     sd = stream_dtype
 
     def build(tape, params, x, y, mask):
-        if x.shape[0] != n_nodes:
-            raise ValueError(f"x has {x.shape[0]} rows, the stream {n_nodes}")
+        _check_rows(x, n_nodes)
         s1 = _Project.apply(x, params["gc1.w"], sd)
         a1 = tape.stream_node(s1)
         s2 = (torch.relu(a1 + params["gc1.b"]) @ params["gc2.w"]).to(sd)
@@ -119,13 +169,148 @@ def make_streamed_train_step_segmented(
     return make_tape_step(build, stream, optimizer, sd)
 
 
+def make_streamed_sgc_train_step_segmented(
+    stream, n_nodes: int, optimizer, k: int = SGC_K, stream_dtype=torch.bfloat16
+):
+    """The streamed SGC step (the JAX ``make_streamed_sgc_train_step_segmented``):
+    ``z = (x W).to(sd)`` through :class:`_Project`, ``k`` chained stream
+    nodes, ``masked_ce(z + b)``. ``2k`` streamed passes per step at width C."""
+    sd = stream_dtype
+
+    def build(tape, params, x, y, mask):
+        _check_rows(x, n_nodes)
+        z = _Project.apply(x, params["lin.w"], sd)
+        for _ in range(k):
+            z = tape.stream_node(z)
+        return _masked_ce(z + params["lin.b"], y, mask)
+
+    return make_tape_step(build, stream, optimizer, sd)
+
+
+def make_streamed_appnp_train_step_segmented(
+    stream, n_nodes: int, optimizer, alpha: float = APPNP_ALPHA, k: int = APPNP_K,
+    stream_dtype=torch.bfloat16,
+):
+    """The streamed APPNP step (the JAX ``make_streamed_appnp_train_step_segmented``):
+    the MLP ``h = relu(x W1 + b1) W2 + b2`` (f32; its first layer a
+    :class:`_ReluLayer`, so ``dW1 = xᵀ dpre.to(x.dtype)``), then ``k`` times
+    ``z = (1-α)·Â z + α·h``; ``h`` fans out into every iteration and its
+    cotangents add up in f32. ``2k`` streamed passes per step at width C."""
+    sd = stream_dtype
+
+    def build(tape, params, x, y, mask):
+        _check_rows(x, n_nodes)
+        h1 = _ReluLayer.apply(x, params["fc1.w"], params["fc1.b"], None, True)
+        h = h1 @ params["fc2.w"] + params["fc2.b"]
+        z = h
+        for _ in range(k):
+            z = (1.0 - alpha) * tape.stream_node(z) + alpha * h
+        return _masked_ce(z, y, mask)
+
+    return make_tape_step(build, stream, optimizer, sd)
+
+
+def make_streamed_sage_train_step_segmented(
+    stream, n_nodes: int, optimizer, stream_dtype=torch.bfloat16
+):
+    """The streamed GraphSAGE step (the JAX
+    ``make_streamed_sage_train_step_segmented``): ``n1 = Â (x Wn1).to(sd)``,
+    ``h = relu(x Ws1 + n1 + b1)`` (a :class:`_ReluLayer`: ``dn1 = dpre`` in
+    f32), ``n2 = Â (h Wn2).to(sd)``, ``masked_ce(h Ws2 + n2 + b2)``; ``h``
+    fans out to both legs of layer 2. Four streamed passes per step, at
+    widths H and C."""
+    sd = stream_dtype
+
+    def build(tape, params, x, y, mask):
+        _check_rows(x, n_nodes)
+        n1 = tape.stream_node(_Project.apply(x, params["sage1.w_neigh"], sd))
+        h = _ReluLayer.apply(x, params["sage1.w_self"], params["sage1.b"], n1, True)
+        n2 = tape.stream_node((h @ params["sage2.w_neigh"]).to(sd))
+        return _masked_ce(h @ params["sage2.w_self"] + n2 + params["sage2.b"], y, mask)
+
+    return make_tape_step(build, stream, optimizer, sd)
+
+
+def make_streamed_gin_train_step_segmented(
+    stream, n_nodes: int, optimizer, stream_dtype=torch.bfloat16
+):
+    """The streamed GIN step (the JAX ``make_streamed_gin_train_step_segmented``),
+    with the reassociated aggregation ``(1+ε)(v W) + Â (v W)`` so that every
+    pass runs at width H or C: ``s1 = (x W1).to(sd)``, ``a1 = Â s1``, ``s2 =
+    (relu(relu((1+ε1) s1 + a1 + b1) W2 + b2) Whead).to(sd)``, ``a2 = Â s2``,
+    ``masked_ce((1+ε2) s2 + a2 + b)``. Autograd gives the JAX ``_mid_bwd_impl``'s
+    casts: ``dε1 = Σ dz1·s1``, ``s1``'s cotangent ``((1+ε1) dz1)`` rounded to
+    bf16 where it meets the stream node's, ``a1``'s in f32; ``s2``'s two
+    cotangents meet in bf16. ``s1`` is kept for the backward (the JAX step
+    recomputes it from ``x`` to save 0.3 GB on a 16 GB chip; the values are
+    the same). Four streamed passes per step."""
+    sd = stream_dtype
+
+    def build(tape, params, x, y, mask):
+        _check_rows(x, n_nodes)
+        s1 = _Project.apply(x, params["gin1.w1"], sd)
+        a1 = tape.stream_node(s1)
+        z1 = (1.0 + params["gin1.eps"]) * s1.float() + a1 + params["gin1.b1"]
+        h2 = torch.relu(torch.relu(z1) @ params["gin1.w2"] + params["gin1.b2"])
+        s2 = (h2 @ params["gin2.w"]).to(sd)
+        a2 = tape.stream_node(s2)
+        logits = (1.0 + params["gin2.eps"]) * s2.float() + a2 + params["gin2.b"]
+        return _masked_ce(logits, y, mask)
+
+    return make_tape_step(build, stream, optimizer, sd)
+
+
+def make_streamed_gcnii_train_step_segmented(
+    stream, n_nodes: int, optimizer, k: int = GCNII_K, alpha: float = GCNII_ALPHA,
+    lam: float = GCNII_LAMBDA, stream_dtype=torch.bfloat16,
+):
+    """The streamed GCNII step (the JAX ``make_streamed_gcnii_train_step_segmented``):
+    ``h0 = relu(x W + b)`` with ``x`` widened to f32 and ``W`` not cast (the
+    JAX ``fc_in`` promotes ``x``; its backward still rounds ``dpre`` to
+    ``x.dtype`` for ``dW``), then ``k`` layers ``s = (1-α)·Â h + α·h0``, ``h
+    = relu((1-β_l) s + β_l s W_l)`` with ``W_l = deep.w[l]`` and ``β_l =
+    log(λ/l + 1)``, then ``masked_ce(h Wout + bout)``; ``h0`` fans out into
+    every layer. ``2k`` streamed passes per step at width H."""
+    sd = stream_dtype
+    betas = [float(b) for b in gcnii_betas(k, lam)]
+
+    def build(tape, params, x, y, mask):
+        _check_rows(x, n_nodes)
+        h0 = _ReluLayer.apply(x, params["fc_in.w"], params["fc_in.b"], None, False)
+        h = h0
+        for l, beta in enumerate(betas):
+            s = (1.0 - alpha) * tape.stream_node(h) + alpha * h0
+            h = torch.relu((1.0 - beta) * s + beta * (s @ params["deep.w"][l]))
+        return _masked_ce(h @ params["fc_out.w"] + params["fc_out.b"], y, mask)
+
+    return make_tape_step(build, stream, optimizer, sd)
+
+
+# family name -> streamed step factory, the JAX registry's keys
+STREAMED_SEGMENTED_FACTORIES = {
+    "gcn": make_streamed_train_step_segmented,
+    "sgc": make_streamed_sgc_train_step_segmented,
+    "appnp": make_streamed_appnp_train_step_segmented,
+    "sage": make_streamed_sage_train_step_segmented,
+    "gin": make_streamed_gin_train_step_segmented,
+    "gcnii": make_streamed_gcnii_train_step_segmented,
+}
+
+
 def init_streamed(
     generator: torch.Generator, n_feat: int, n_hidden: int, n_class: int,
-    *, device, lr: float = 0.02,
+    *, device, lr: float = 0.02, family: str = "gcn",
 ) -> Tuple[Dict[str, torch.Tensor], torch.optim.Optimizer]:
-    """``(params, optimizer)`` for the streamed step: ``gcn_init``'s
-    parameters (requiring grad) and Adam with the trainer's settings."""
-    params = gcn_init(generator, n_feat, n_hidden, n_class, device=device)
+    """``(params, optimizer)`` for the streamed step of ``family`` (a key of
+    :data:`STREAMED_SEGMENTED_FACTORIES`): the family's ``*_init``
+    parameters with its defaults (requiring grad) and Adam with the
+    trainer's settings."""
+    if family not in STREAMED_SEGMENTED_FACTORIES:
+        raise ValueError(
+            f"no streamed step for {family!r}; choose one of "
+            f"{sorted(STREAMED_SEGMENTED_FACTORIES)}"
+        )
+    params = MODELS[family].init_params(generator, n_feat, n_hidden, n_class, device=device)
     for p in params.values():
         p.requires_grad_(True)
     opt = torch.optim.Adam(params.values(), lr=lr, betas=(0.9, 0.999), eps=1e-8)

@@ -151,9 +151,11 @@ def model_class(model: str, graph) -> type:
     if isinstance(graph, SortedStreamGraph):
         raise NotImplementedError(
             "the graph exceeds the resident budget, so --spmm auto chose the "
-            "host-streamed format; training it through the Trainer is not "
-            "ported yet (ROADMAP A.12: the streamed steps of the families). "
-            "Choose a resident --spmm, or train through train/streamed.py"
+            "host-streamed format, which the Trainer does not train (nor does "
+            "the JAX Trainer: its step is one compiled program, and a host "
+            "stream is kept out of any). Choose a resident --spmm, or train "
+            "through the streamed steps of train/streamed.py "
+            "(STREAMED_SEGMENTED_FACTORIES, ROADMAP A.12)"
         )
     if model == "gat" and not isinstance(
         graph, (SparseGraph, AttentionGraph, DenseAttentionGraph)
