@@ -49,7 +49,27 @@ drives the port's paths: on R8 doc-word, then on R8's topic graph:
   CLI (an NCCL group of one), and 4 ranks on this one card through the
   library (gloo, which carries CUDA tensors; NCCL refuses two ranks on one
   GPU): ``bsr_leg`` and K2 must run on rank 0 and test accuracy must reach
-  0.95 in both.
+  0.95 in both. Then the one-hot mesh layouts at 4 ranks of R8 doc-word,
+  F=200 ("mesh onehot"): each layout's per-shard rate at P = 1 in this
+  process (the JAX bench's ``mesh_kernel_perf`` keys), and on 4 gloo ranks
+  on this card each rank's all-gather pass (K2 from zero) and halo pass (K2
+  onto the accumulator, a bucket a ring step) against their plain
+  versions, two passes bit-equal, K2's launches and ms a pass; the
+  all-gather shards put together must give the single-device ``--spmm
+  onehot`` pass's bits and the halo shards match it within K2's tolerance.
+  "train sharded halo" trains R8 doc-word on 4 gloo ranks under
+  halo-segment, halo-onehot and allgather-onehot (test accuracy >= 0.95 in
+  each; K2 on rank 0 under the one-hot kernels only), and ``train --shards
+  1`` with no ``--partition`` and no ``--spmm`` must report partition halo
+  and kernel segment (the JAX defaults) and reach 0.95.
+- Learnable edges ("edge ops", "edge gcn"): ``edge_logit_base`` (``rowsum``
+  over both CSRs with their tables) and ``spmm_onehot_ew`` (K2 from zero
+  forward and as dx over the transpose CSR, ``sddmm`` for dval) forward
+  and backward on the degree-sorted R8 attention graph at F=200, each
+  kernel against its plain version on the inputs the op gave it, two runs
+  bit-equal, their launches counted; then ten Adam steps of
+  ``gcn_edge_forward`` on R8 doc-word at n_hidden 200: the loss must fall
+  and ``edge_logit`` move off 0.
 
 - Topic slice (TopicGCN on R8's topic graph, from copies of the committed
   artifacts in a temporary directory; the checkout's theta cache is read,
@@ -104,8 +124,10 @@ Every kernel's record also carries its bound on the card (the larger of its
 bytes over the memory rate and its operations over the peak rate, from this
 run's inputs) and the time of one PyTorch call that computes the same
 function, where there is one. K2's record is split by role: ``row_reduce``
-(the residual leg, B2) and ``row_reduce_dx`` (from zero, B3: GAT's dx and
-the ``--spmm onehot`` runs); B11 is
+(with a base, B2: the residual leg and the halo one-hot buckets) and
+``row_reduce_dx`` (from zero, B3: GAT's dx, the ``--spmm onehot`` runs, the
+all-gather one-hot shards and ``spmm_onehot_ew``); ``sddmm`` and
+``rowsum`` add the learnable-edge ops' launches; B11 is
 ``sorted_chunk_add``; ``attn_stats`` is B5 and ``softmax_stats`` B6 (one
 kernel, two modes, each with its own count). ``ms``, ``plain_ms`` and
 ``library_ms`` are CUDA events around 20 back-to-back calls (the host's
@@ -838,16 +860,18 @@ def run_cli(cli, args, counters, graph, dataset="R8"):
     return summary, launches, wall_s
 
 
-def train_via_cli(cli, model, flags, acc_min, counters, need):
+def train_via_cli(cli, model, flags, acc_min, counters, need, sharding=None):
     """Train R8 doc-word once through the port's CLI with every launch count
-    set to 0 just before; check the run and return the counts (summed over
-    each kernel's wrappers) read just after."""
+    set to 0 just before; check the run (a sharded run's report must carry
+    ``sharding``) and return the counts (summed over each kernel's wrappers)
+    read just after."""
     summary, launches, wall_s = run_cli(
         cli, ["--graph", "docword", *flags, "--times", "1", "--seed", str(SEED)],
         counters, "docword",
     )
-    if "--shards" in flags and summary.get("sharding", {}).get("kernel") != "hybrid":
-        raise AssertionError(f"a sharded run's report lacks its sharding: {summary.get('sharding')}")
+    if summary.get("sharding") != sharding:
+        raise AssertionError(f"the run's report has sharding {summary.get('sharding')}, "
+                             f"expected {sharding}")
     if need and min(launches[k] for k in need) < 1:
         raise AssertionError(f"a kernel of the {model} path never launched: {launches}")
     run = summary["runs"][0]
@@ -904,6 +928,288 @@ def train_sharded_ranks(pre, counters, run1):
     if test["acc"] < ACC_MIN:
         raise AssertionError(f"sharded x{SHARDS} test accuracy {test['acc']:.4f} < {ACC_MIN}")
     return launches
+
+
+def edge_ops_phase(att, ag, gen, records, counters):
+    """The learnable-edge ops on the degree-sorted R8 doc-word attention
+    graph at F=200: ``edge_logit_base`` (rowsum over each CSR with its
+    table in the backward) and ``spmm_onehot_ew`` (K2 from zero forward and,
+    over the transpose CSR, as dx; ``sddmm`` for dval), forward and backward
+    with every launch count set to 0 just before; each kernel's output held
+    against its plain version on the same inputs, two runs bit-equal.
+    Returns the counts read just after."""
+    from textgcn_tpu_torch.ops.row_reduce import row_reduce_plain
+
+    dev, n, f = ag.row.device, ag.n_nodes, 200
+    es = torch.randn(n, generator=gen, device=dev)
+    ed = torch.randn(n, generator=gen, device=dev)
+    g_e = torch.randn(ag.n_edges, generator=gen, device=dev)
+    # learnable edge values as the learnable-edge GCN gives them: Â's
+    # values times exp(edge_logit), the logits drawn near 0
+    val = torch.exp(ag.logval + 0.1 * torch.randn(ag.n_edges, generator=gen, device=dev))
+    x = torch.randn((n, f), generator=gen, device=dev)
+    cot = torch.randn((n, f), generator=gen, device=dev)
+
+    def run():
+        a, b = es.clone().requires_grad_(True), ed.clone().requires_grad_(True)
+        base = att.edge_logit_base(ag, a, b)
+        base.backward(g_e)
+        v, xx = val.clone().requires_grad_(True), x.clone().requires_grad_(True)
+        out = att.spmm_onehot_ew(ag, v, xx)
+        out.backward(cot)
+        return base.detach(), a.grad, b.grad, out.detach(), v.grad, xx.grad
+
+    for fns in counters.values():
+        for fn in fns:
+            fn.launches = 0
+    t0 = time.perf_counter()
+    got = run()
+    torch.cuda.synchronize()
+    first_ms = 1e3 * (time.perf_counter() - t0)
+    launches = {k: sum(fn.launches for fn in fns) for k, fns in counters.items()}
+    if min(launches[k] for k in ("rowsum", "row_reduce", "sddmm")) < 1:
+        raise AssertionError(f"a kernel of the edge ops never launched: {launches}")
+    if not all(map(torch.equal, got, run())):
+        raise AssertionError("two runs of the edge ops differ")
+    base, des, ded, out, dval, dx = got
+    x16, g16 = att.features_bf16(x), att.features_bf16(cot)
+    # each kernel against its plain version on the inputs the op gave it
+    errs = {
+        "base": compare(base, es[ag.row.long()] + ed[ag.col.long()], 0.0)[0],
+        "des (rowsum)": compare(des, att.rowsum_plain(ag.row_ptr, g_e), ATT_TOL)[0],
+        "ded (rowsum)": compare(
+            ded, att.rowsum_plain(ag.row_ptr_t, g_e.index_select(0, ag.perm_t)), ATT_TOL)[0],
+        "out (K2)": compare(out, row_reduce_plain(ag.row_ptr, ag.col, val, x16), K2_TOL)[0],
+        "dx (K2)": compare(dx, row_reduce_plain(
+            ag.row_ptr_t, ag.col_t, val.index_select(0, ag.perm_t), g16), K2_TOL)[0],
+        "dval (sddmm)": compare(
+            dval, att.sddmm_plain(ag.row_ptr, ag.col, g16, x16), ATT_TOL)[0],
+    }
+    # errors only: the records' times come from the phases that time them
+    for name, err in (("rowsum", max(errs["des (rowsum)"], errs["ded (rowsum)"])),
+                      ("row_reduce_dx", max(errs["out (K2)"], errs["dx (K2)"])),
+                      ("sddmm", errs["dval (sddmm)"])):
+        records.setdefault(name, []).append((err, None, None, None))
+    a, v = es.clone().requires_grad_(True), val.clone().requires_grad_(True)
+    elb_ms = cuda_ms(lambda: att.edge_logit_base(ag, a, ed).backward(g_e), reps=5)
+    ew_ms = cuda_ms(lambda: att.spmm_onehot_ew(ag, v, x).backward(cot), reps=5)
+    log("edge ops", f"R8 doc-word attention graph, F={f}: edge_logit_base fwd+bwd "
+        f"{elb_ms:.4f} ms, spmm_onehot_ew fwd+bwd {ew_ms:.4f} ms (a call, CUDA events; "
+        f"the first run {first_ms:.1f} ms on the host clock); max abs err vs plain "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+        + f"; tol rowsum and sddmm {ATT_TOL}, K2 {K2_TOL} *(1+|ref|), the base exact; two "
+        f"runs bit-equal; launches {launches}")
+    return launches
+
+
+def edge_gcn_phase(graph, labels, dev, steps=10):
+    """The learnable-edge GCN (``gcn_edge_forward``, the segment path, no
+    hand kernel) on R8 doc-word at the JAX width (n_hidden 200): ``steps``
+    Adam steps of the masked cross-entropy from a seeded init; the loss must
+    fall and ``edge_logit`` move off 0."""
+    import torch.nn.functional as F
+
+    from textgcn_tpu_torch.models.gcn import gcn_edge_forward, gcn_edge_init
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    p = gcn_edge_init(gen, graph, graph.n_nodes, 200, labels.n_classes, device=dev)
+    p = {k: v.requires_grad_(True) for k, v in p.items()}
+    opt = torch.optim.Adam(p.values(), lr=0.02)
+    tr = torch.as_tensor(np.asarray(labels.train_idx), device=dev)
+    y = torch.as_tensor(np.asarray(labels.target), device=dev)[tr]
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        logits = gcn_edge_forward(p, graph, None, train=True, generator=gen)
+        loss = F.cross_entropy(logits[tr], y)
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+        losses.append(float(loss.detach()))
+    step_s = (time.perf_counter() - t0) / steps
+    moved = float(p["edge_logit"].detach().abs().max())
+    log("edge gcn", f"gcn_edge_forward on R8 doc-word ({graph.n_edges} edges), n_hidden 200, "
+        f"{steps} Adam steps (lr 0.02, dropout 0.5): loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
+        f"max |edge_logit| {moved:.4e}, {1e3 * step_s:.1f} ms a step (host clock), peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    if not (all(map(math.isfinite, losses)) and losses[-1] < losses[0] and moved > 0):
+        raise AssertionError(f"the learnable-edge GCN did not train: {losses}, {moved}")
+
+
+def mesh_onehot_rank(rank, world, device, row, col, val, n, f, reps):
+    """One of SHARDS gloo ranks on the card: its all-gather and halo one-hot
+    passes (K2) against the same passes through K2's plain version, two
+    passes bit-equal; K2's launches a pass and the pass's ms (CUDA events
+    over ``reps`` passes after a barrier; the four ranks share the card and
+    gloo stages the ring's blocks through the host). Rank 0 returns every
+    rank's numbers and the outputs gathered over the ranks."""
+    import torch.distributed as dist
+
+    from textgcn_tpu_torch.ops.row_reduce import row_reduce, row_reduce_plain
+    from textgcn_tpu_torch.parallel.distributed import all_gather_rows
+    from textgcn_tpu_torch.parallel.mesh_kernels import (
+        MeshOneHotAllGather, MeshOneHotHalo, allgather_onehot_pass, halo_onehot_pass,
+        shard_onehot_pass,
+    )
+
+    mag = MeshOneHotAllGather.from_coo(row, col, val, n, world, rank, device=device)
+    mhalo = MeshOneHotHalo.from_coo(row, col, val, n, world, rank, device=device)
+    rps = mag.rows_per_shard
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    x_full = torch.zeros((mag.n_pad, f), device=device)
+    x_full[:n] = torch.randn((n, f), generator=gen, device=device)
+    x_local = x_full[rank * rps:(rank + 1) * rps].contiguous()
+    passes = {
+        "allgather_onehot": (lambda: allgather_onehot_pass(mag, x_local),
+                             lambda: shard_onehot_pass(mag, x_full, reduce=row_reduce_plain)),
+        "halo_onehot": (lambda: halo_onehot_pass(mhalo, x_local),
+                        lambda: halo_onehot_pass(mhalo, x_local, reduce=row_reduce_plain)),
+    }
+    res = {}
+    for name, (fn, plain) in passes.items():
+        before = row_reduce.launches
+        y = fn()
+        launches = row_reduce.launches - before
+        if not torch.equal(y, fn()):
+            raise AssertionError(f"rank {rank}: two {name} passes differ")
+        err, _ = compare(y, plain(), K2_TOL)
+        torch.cuda.synchronize()
+        dist.barrier()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        mine = torch.tensor([err, launches, start.elapsed_time(end) / reps], dtype=torch.float64)
+        every = all_gather_rows(mine[None]).tolist()
+        res[name] = {"per_rank": every, "out": all_gather_rows(y)}
+    mine = torch.tensor([[0 if b is None else b.n_edges for b in mhalo.buckets]
+                         + [0 if b is None or b.split is None else b.split.n_seg
+                            for b in mhalo.buckets]])
+    every = all_gather_rows(mine).tolist()
+    res["bucket_edges"] = [r[:world] for r in every]
+    res["splits"] = [r[world:] for r in every]
+    return res if rank == 0 else None
+
+
+def mesh_onehot_phase(graph, records):
+    """B.1 and B.2 on R8 doc-word at F=200 (no degree sort): the per-shard
+    rate of each one-hot layout at P = 1 in this process (the JAX bench's
+    ``mesh_kernel_perf`` keys ``halo_onehot``, ``allgather_onehot``), then
+    SHARDS gloo ranks on this card (rank 0 here): each rank's passes against
+    their plain version and K2's launches a pass, the all-gather shards put
+    together bit-equal to the single-device ``--spmm onehot`` pass, the halo
+    shards within K2_TOL of it (a bucket a step)."""
+    from textgcn_tpu_torch.graph.reorder import CSRGraph, csr_pass
+    from textgcn_tpu_torch.parallel.launch import spawn_ranks
+    from textgcn_tpu_torch.parallel.mesh_kernels import (
+        MeshOneHotAllGather, MeshOneHotHalo, halo_onehot_pass, shard_onehot_pass,
+    )
+
+    f, dev = 200, graph.val.device
+    row, col, val = graph.coo_numpy()
+    n, e = graph.n_nodes, graph.n_edges
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    x = torch.randn((n, f), generator=gen, device=dev)
+    bench = {}
+    for key, cls, fn in (("halo_onehot", MeshOneHotHalo, halo_onehot_pass),
+                         ("allgather_onehot", MeshOneHotAllGather, shard_onehot_pass)):
+        mg = cls.from_coo(row, col, val, n, 1, 0, device=dev)
+        ms = cuda_ms(lambda: fn(mg, x))
+        bench[key] = {"pass_ms": ms, "edges_per_s_per_shard": e / (ms / 1e3)}
+    log("mesh onehot", f"P=1 per-shard rate (the JAX bench's mesh_kernel_perf): "
+        f"{json.dumps(bench)}")
+    t0 = time.perf_counter()
+    res = spawn_ranks(mesh_onehot_rank, SHARDS, (row, col, val, n, f, 20), backend="gloo",
+                      devices=["cuda:0"] * SHARDS, timeout_s=600.0)
+    wall_s = time.perf_counter() - t0
+    # the ranks drew their features from the same seed: x
+    single = csr_pass(CSRGraph.from_coo(row, col, val, n, symmetric=True, device=dev), x)
+    ag_out, halo_out = res["allgather_onehot"]["out"], res["halo_onehot"]["out"]
+    if not torch.equal(ag_out[:n], single) or ag_out[n:].any():
+        raise AssertionError("the all-gather one-hot shards put together differ from the "
+                             "single-device onehot pass")
+    herr, _ = compare(halo_out[:n], single, K2_TOL)
+    for name in ("allgather_onehot", "halo_onehot"):
+        per = res[name]["per_rank"]
+        err = max(r[0] for r in per)
+        records.setdefault("row_reduce_dx" if name == "allgather_onehot" else "row_reduce",
+                           []).append((err, None, None, None))
+        log("mesh onehot", f"{SHARDS} gloo ranks on cuda:0, {name}: per rank max abs err vs "
+            f"plain {[f'{r[0]:.3e}' for r in per]} (tol {K2_TOL}*(1+|ref|)), two passes "
+            f"bit-equal, K2 launches a pass {[int(r[1]) for r in per]}, pass ms "
+            f"{[round(r[2], 4) for r in per]} (CUDA events over 20 passes, the four ranks "
+            "sharing the card, gloo staging the ring through the host)")
+    log("mesh onehot", f"halo buckets (p, q), a list a rank: edges {res['bucket_edges']}, "
+        f"split segments {res['splits']}; the {SHARDS} all-gather shards put together vs the single-device "
+        f"onehot pass: bit-equal; halo shards vs it: max abs err {herr:.3e} (tol {K2_TOL}"
+        f"*(1+|ref|): a bucket a step); {wall_s:.1f} s with spawn")
+
+
+def train_halo_rank(rank, world, device, data, seed, combos):
+    """One rank of the sharded trainings on the card: the GCN under each
+    (kernel, partition) of ``combos`` from ``seed``, every launch count set
+    to 0 just before each (rank 0 runs in the calling process, so its counts
+    are the smoke's). Rank 0 returns [(run, launches, wall s), ...]."""
+    from textgcn_tpu_torch.ops import attention as att
+    from textgcn_tpu_torch.ops.bsr_spmm import bsr_leg, bsr_spmm
+    from textgcn_tpu_torch.ops.row_reduce import row_reduce
+    from textgcn_tpu_torch.parallel.trainer import ShardedTrainer
+    from textgcn_tpu_torch.train.trainer import TrainConfig
+
+    fns = {"row_reduce": row_reduce, "bsr_leg": bsr_leg, "bsr_spmm": bsr_spmm,
+           "rowsum": att.rowsum, "sddmm": att.sddmm}
+    out = []
+    for kernel, partition in combos:
+        for fn in fns.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        t = ShardedTrainer(
+            data.graph(), data.features, data.target, data.train_idx, data.test_idx,
+            data.n_classes, config=TrainConfig(seed=seed), n_shards=world, rank=rank,
+            device=device, kernel=kernel, partition=partition,
+        )
+        t.fit(verbose=False)
+        run = {"seed": seed, "test": t.test(), "history": t.history}
+        out.append((run, {k: fn.launches for k, fn in fns.items()}, time.perf_counter() - t0))
+    return out if rank == 0 else None
+
+
+def train_sharded_halo_phase(pre):
+    """R8 doc-word on SHARDS gloo ranks on this card under halo-segment,
+    halo-onehot and allgather-onehot (one spawn, the trainer's defaults, one
+    seed): test accuracy >= ACC_MIN in each, K2 launched on rank 0 under the
+    one-hot kernels and no hand kernel under segment. Returns the K2
+    launches (B2: halo buckets, B3: allgather from zero)."""
+    from textgcn_tpu_torch.parallel.launch import HostData, spawn_ranks
+    from textgcn_tpu_torch.train.run import generate_seeds
+
+    combos = [("segment", "halo"), ("onehot", "halo"), ("onehot", "allgather")]
+    t0 = time.perf_counter()
+    results = spawn_ranks(
+        train_halo_rank, SHARDS, (HostData.from_prepared(pre), generate_seeds(1, SEED)[0], combos),
+        backend="gloo", devices=["cuda:0"] * SHARDS, timeout_s=900.0,
+    )
+    k2 = {"row_reduce": 0, "row_reduce_dx": 0}
+    for (kernel, partition), (run, launches, wall_s) in zip(combos, results):
+        hist, test = run["history"], run["test"]
+        if not all(math.isfinite(r[k]) for r in hist for k in ("train_loss", "val_loss")):
+            raise AssertionError(f"non-finite loss under {kernel} {partition}")
+        used = sum(launches.values())
+        if (kernel == "onehot") != (launches["row_reduce"] > 0) or used != launches["row_reduce"]:
+            raise AssertionError(f"{kernel} {partition} launched {launches} on rank 0")
+        if kernel == "onehot":
+            k2["row_reduce" if partition == "halo" else "row_reduce_dx"] += launches["row_reduce"]
+        log("train sharded halo", f"{SHARDS} ranks on cuda:0 (gloo), kernel {kernel}, partition "
+            f"{partition}, seed {run['seed']}: {len(hist)} epochs, train "
+            f"{test['train_time']:.3f} s = {1000 * test['train_time'] / len(hist):.3f} ms/epoch "
+            f"({wall_s:.1f} s with set-up); test acc {test['acc']:.4f}, macro-F1 "
+            f"{test['macro_f1']:.4f}; rank 0 launches {launches}")
+        if test["acc"] < ACC_MIN:
+            raise AssertionError(f"{kernel} {partition} test accuracy {test['acc']:.4f} < {ACC_MIN}")
+    log("train sharded halo", f"{time.perf_counter() - t0:.1f} s with spawn")
+    return k2
 
 
 def topic_roots(tmp):
@@ -1849,8 +2155,9 @@ def main() -> int:
     gen_formats = torch.Generator(device=dev).manual_seed(SEED + 1)
     n_pad = bsr.n_block_rows * bsr.bm
     # kernel name -> [(max abs err, ms, device ms, plain ms), ...]; the first
-    # entry is the one the JSON record reports times from (F=200, the
-    # forward CSR); yard: kernel name -> (bound ms, bound by, library ms,
+    # timed entry is the one the JSON record reports times from (F=200, the
+    # forward CSR; the phases that only check a kernel add (err, None, None,
+    # None)); yard: kernel name -> (bound ms, bound by, library ms,
     # library device ms; None where there is none) for it
     records, yard = {}, {}
 
@@ -1954,10 +2261,22 @@ def main() -> int:
     shard1, run1 = train_via_cli(
         cli, "gcn sharded", ["--spmm", "hybrid", "--shards", "1", "--partition", "allgather"],
         ACC_MIN, counters, need=("bsr_leg", "row_reduce"),
+        sharding={"n_shards": 1, "partition": "allgather", "kernel": "hybrid"},
     )
     # 6c. SHARDS ranks on this one card through the library (gloo: NCCL
     # refuses two ranks on one GPU); rank 0 runs here, so its launches count
     shard4 = train_sharded_ranks(pre, counters, run1)
+    # 6d. the one-hot mesh layouts (B.1, B.2) on SHARDS gloo ranks, and the
+    # sharded GCN under halo-segment, halo-onehot and allgather-onehot
+    mesh_onehot_phase(pre.graph, records)
+    halo_k2 = train_sharded_halo_phase(pre)
+    # 6e. the JAX defaults under --shards: halo + segment (an NCCL group of one)
+    shard1_defaults, _ = train_via_cli(
+        cli, "gcn sharded defaults", ["--shards", "1"], ACC_MIN, counters, need=(),
+        sharding={"n_shards": 1, "partition": "halo", "kernel": "segment"},
+    )
+    if any(shard1_defaults.values()):
+        raise AssertionError(f"--shards with the JAX defaults launched {shard1_defaults}")
 
     # 7. the attention kernels vs plain on the degree-sorted R8 attention graph
     t0 = time.perf_counter()
@@ -2144,6 +2463,12 @@ def main() -> int:
 
     # 8b. the attention_spmm path (B6), fwd+bwd, its launches counted
     spmm_launches = attention_spmm_path(att, ag, gen, counters)
+    # 8c. the learnable-edge ops (rowsum, K2 from zero, sddmm) and the
+    # learnable-edge GCN
+    # (a generator of their own: the later phases' inputs stay as they were)
+    edge_launches = edge_ops_phase(
+        att, ag, torch.Generator(device=dev).manual_seed(SEED + 2), records, counters)
+    edge_gcn_phase(pre.graph, pre.labels, dev)
     r8_graph, r8_labels = pre.graph, pre.labels
     del ag, pre, pre_att
 
@@ -2225,9 +2550,16 @@ def main() -> int:
         for k in launches:
             total[k2 if k == "row_reduce" else k] += p[k]
     total["sorted_chunk_add"] = stream_launches
+    # this slice's routes: the edge ops (K2 from zero is B3's role) and rank
+    # 0 of the sharded trainings (all-gather from zero B3, halo buckets onto
+    # the accumulator B2)
+    for k in ("rowsum", "sddmm"):
+        total[k] += edge_launches[k]
+    total["row_reduce_dx"] += edge_launches["row_reduce"] + halo_k2["row_reduce_dx"]
+    total["row_reduce"] += halo_k2["row_reduce"]
     kernels = []
     for name, (src, replaces) in sources.items():
-        _, ms, device_ms, plain_ms = records[name][0]
+        _, ms, device_ms, plain_ms = next(r for r in records[name] if r[1] is not None)
         bound_ms, bound_by, library_ms, library_device_ms = yard[name]
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,

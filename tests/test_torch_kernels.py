@@ -842,3 +842,38 @@ def test_streamed_step_beyond_the_device_cache_matches_resident(cuda_dev):
         assert torch.equal(grads_c[k], grads_r[k]), k
     assert src.cached_bytes == host[0].nbytes
     assert src.host_loads == len(host) + 3 * (len(host) - 1)
+
+
+@pytest.mark.cuda
+def test_learnable_edge_ops_on_gpu_match_cpu_plain(cuda_dev):
+    """``edge_logit_base`` and ``spmm_onehot_ew`` forward and backward on
+    the kernels (``rowsum`` over both CSRs, K2 from zero forward and as dx,
+    ``sddmm`` for dval) against the same ops on CPU tensors (the plain
+    versions), on the degree-sorted attention graph: f32 sums in another
+    order, 1e-4 relative to each output's largest entry; two GPU runs
+    bit-equal."""
+    ag_cpu, rng = _attention_graph(CPU, seed=9)
+    ag = ag_cpu.to(cuda_dev)
+    n, e = ag.n_nodes, ag.n_edges
+    es, ed = rng.randn(n).astype(np.float32), rng.randn(n).astype(np.float32)
+    g_e = rng.randn(e).astype(np.float32)
+    val = np.exp(ag_cpu.logval.numpy() + 0.1 * rng.randn(e)).astype(np.float32)
+    x, cot = rng.randn(n, 40).astype(np.float32), rng.randn(n, 40).astype(np.float32)
+
+    def run(graph, dev):
+        t = [torch.from_numpy(a).to(dev).requires_grad_(True) for a in (es, ed, val, x)]
+        base = att.edge_logit_base(graph, t[0], t[1])
+        base.backward(torch.from_numpy(g_e).to(dev))
+        out = att.spmm_onehot_ew(graph, t[2], t[3])
+        out.backward(torch.from_numpy(cot).to(dev))
+        return [base.detach(), out.detach()] + [a.grad for a in t]
+
+    launches = (att.rowsum.launches, row_reduce.launches, att.sddmm.launches)
+    got = run(ag, cuda_dev)
+    assert (att.rowsum.launches, row_reduce.launches, att.sddmm.launches) == (
+        launches[0] + 2, launches[1] + 2, launches[2] + 1
+    )
+    assert all(map(torch.equal, got, run(ag, cuda_dev)))
+    for a, b in zip(got, run(ag_cpu, CPU)):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=0,
+                                   atol=1e-4 * float(b.abs().max()))

@@ -117,8 +117,9 @@ def test_run_experiment_config_docword_family_on_the_cpu(tiny_root):
 
 
 def test_run_experiment_config_refuses_halo_and_unknown_keys(tiny_root):
-    """A YAML's ``partition: halo`` with shards raises before training (not
-    ported yet), and an unknown key before any stage runs."""
+    """A YAML's ``partition: halo`` with shards and ``spmm: hybrid`` raises
+    before training (the JAX trainer's gate: the hybrid kernel runs on the
+    allgather partition only), and an unknown key before any stage runs."""
     bad = _write_config(tiny_root, {"dataset": "tiny", "bogus": 1})
     with pytest.raises(ValueError, match="bogus"):
         run_experiment_config(bad, device=CPU)
@@ -127,7 +128,7 @@ def test_run_experiment_config_refuses_halo_and_unknown_keys(tiny_root):
         "dataset": "tiny", "graph": "docword", "build": {"window": 5},
         "train": {"shards": 2, "partition": "halo", "spmm": "hybrid"},
     })
-    with pytest.raises(NotImplementedError, match="halo"):
+    with pytest.raises(ValueError, match="halo"):
         run_experiment_config(halo, device=CPU)
 
 

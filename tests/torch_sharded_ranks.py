@@ -1,4 +1,5 @@
-"""Functions that spawned ranks run for ``tests/test_torch_sharded.py``.
+"""Functions that spawned ranks run for ``tests/test_torch_sharded.py`` and
+``tests/test_torch_halo.py``.
 
 A spawned child imports the module of the function it runs; this one
 imports torch and the port only, never JAX, so a child stays clear of it.
@@ -7,9 +8,13 @@ import numpy as np
 import torch
 
 from textgcn_tpu_torch.parallel.distributed import all_gather_rows
-from textgcn_tpu_torch.parallel.mesh_kernels import MeshHybridAllGather, spmm_mesh_hybrid
+from textgcn_tpu_torch.parallel.halo import HaloPartitionedGraph
+from textgcn_tpu_torch.parallel.mesh_kernels import (
+    MeshHybridAllGather, MeshOneHotAllGather, MeshOneHotHalo, spmm_mesh_hybrid,
+)
 from textgcn_tpu_torch.parallel.partition import ShardCOO, shard_rows
-from textgcn_tpu_torch.parallel.sharded import spmm_sharded
+from textgcn_tpu_torch.parallel.sharded import sharded_spmm, spmm_sharded
+from textgcn_tpu_torch.parallel.trainer import ShardedTrainer
 
 
 def spmm_forward_backward(rank, world, device, row, col, val, n, x, w, min_nnz):
@@ -36,3 +41,53 @@ def fail_on_rank_1(rank, world, device):
     if rank == 1:
         raise ValueError("rank 1 fails on purpose")
     torch.distributed.all_reduce(torch.ones(1))
+
+
+def _fwd_bwd(rank, layout, x, w):
+    """``y = A x`` and ``d/dx sum(y * w)`` on this rank's rows through
+    ``sharded_spmm``, each gathered over the ranks ([n_pad, F] numpy)."""
+    rps = layout.rows_per_shard
+    xs = torch.from_numpy(shard_rows(x, rank, rps)).requires_grad_(True)
+    y = sharded_spmm(layout, xs)
+    (y * torch.from_numpy(shard_rows(w, rank, rps))).sum().backward()
+    return all_gather_rows(y.detach()).numpy(), all_gather_rows(xs.grad).numpy()
+
+
+def halo_and_onehot_passes(rank, world, device, sym, nonsym, x, w):
+    """Forward and backward of the three new layouts on the symmetric COO
+    ``sym`` = (row, col, val, n): the segment ring (``HaloPartitionedGraph``)
+    and the one-hot layouts (``MeshOneHotAllGather``, ``MeshOneHotHalo``);
+    then the segment ring on the non-symmetric COO ``nonsym``, and whether
+    each one-hot layout built ``symmetric=False`` refuses its backward."""
+    out = {}
+    for name, cls in (("halo", HaloPartitionedGraph), ("onehot_allgather", MeshOneHotAllGather),
+                      ("onehot_halo", MeshOneHotHalo)):
+        out[name] = _fwd_bwd(rank, cls.from_coo(*sym, world, rank, device=device), x, w)
+    out["halo_nonsym"] = _fwd_bwd(
+        rank, HaloPartitionedGraph.from_coo(*nonsym, world, rank, device=device), x, w
+    )
+    refused = []
+    for cls in (MeshOneHotAllGather, MeshOneHotHalo):
+        layout = cls.from_coo(*nonsym, world, rank, symmetric=False, device=device)
+        try:
+            _fwd_bwd(rank, layout, x, w)
+            refused.append("no error")
+        except NotImplementedError as e:
+            refused.append(str(e))
+    out["refused"] = refused
+    return out
+
+
+def train_combos(rank, world, device, data, config, combos):
+    """``ShardedTrainer`` on this rank for each (kernel, partition) of
+    ``combos``; rank 0 returns [(history, test), ...]."""
+    runs = []
+    for kernel, partition in combos:
+        t = ShardedTrainer(
+            data.graph(), data.features, data.target, data.train_idx, data.test_idx,
+            data.n_classes, config=config, n_shards=world, rank=rank, device=device,
+            kernel=kernel, partition=partition,
+        )
+        t.fit(verbose=False)
+        runs.append((t.history, t.test()))
+    return runs if rank == 0 else None

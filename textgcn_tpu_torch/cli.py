@@ -30,7 +30,7 @@ import torch
 
 from textgcn_tpu_torch.graph.format import DENSE_MAX_NODES, SPMM_FORMATS
 from textgcn_tpu_torch.models import MODELS
-from textgcn_tpu_torch.parallel.trainer import check_sharded
+from textgcn_tpu_torch.parallel.trainer import check_sharded, sharded_kernel
 from textgcn_tpu_torch.topics.model import LDA_BACKENDS
 from textgcn_tpu_torch.train.run import (
     check_sharded_checkpoints, evaluate_checkpoint, generate_seeds, resume_training,
@@ -135,13 +135,7 @@ def cmd_train(args) -> int:
         resume=args.resume, load_model=args.load_model,
     )
     if args.shards is not None:
-        check_sharded(args.model, args.spmm, args.partition)
-        if args.spmm != "hybrid":
-            raise NotImplementedError(
-                f"--shards with --spmm {args.spmm}: the CLI shards the hybrid "
-                "kernels only (the segment oracle runs through the library; "
-                "ROADMAP A.11 has the one-hot mesh kernel)"
-            )
+        check_sharded(args.model, sharded_kernel(args.spmm), args.partition)
     require_cuda("trains")
     if args.shards is not None and torch.cuda.device_count() < args.shards:
         raise RuntimeError(
@@ -311,15 +305,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--shards", type=int, default=None, metavar="N",
         help="train the GCN row-sharded over N GPUs, one rank each (rank 0 "
-        "in this process, NCCL); needs N visible devices, --spmm hybrid and "
-        "--partition allgather",
+        "in this process, NCCL); needs N visible devices. --spmm auto|segment "
+        "shard the plain segment sums, onehot K2, hybrid K1 and K2 (allgather "
+        "only); other formats raise",
     )
     p.add_argument(
         "--partition", default="halo", choices=["halo", "allgather"],
-        help="sharded aggregation layout: allgather = every rank gathers all "
-        "feature rows, then runs its rows' tiles (K1) and residual (K2); halo "
-        "(the JAX package's default, a feature ring) is not ported yet and "
-        "raises",
+        help="sharded aggregation layout: halo (the default, as in the JAX "
+        "package) = feature blocks rotate around a ring of the ranks while "
+        "each rank adds the edges of the block it holds (memory O(N/P) a "
+        "rank); allgather = every rank gathers all feature rows, then "
+        "reduces its own rows",
     )
     p.add_argument("--quiet", action="store_true")
     p.add_argument(

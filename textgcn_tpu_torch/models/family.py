@@ -45,12 +45,16 @@ def dropout(h: torch.Tensor, p: float, train: bool, generator) -> torch.Tensor:
 
 def params_from_jax(params_np: dict, *, device) -> Params:
     """A JAX family's pytree ``{"layer": {"leaf": array}}`` of numpy arrays
-    → the port's flat f32 parameter dict on ``device``."""
-    return {
-        f"{layer}.{leaf}": torch.tensor(np.asarray(v), dtype=torch.float32, device=device)
-        for layer, leaves in params_np.items()
-        for leaf, v in leaves.items()
-    }
+    → the port's flat f32 parameter dict on ``device``. A top-level array
+    (the learnable-edge GCN's ``edge_logit``) keeps its name."""
+    out = {}
+    for layer, leaves in params_np.items():
+        if not isinstance(leaves, dict):
+            leaves = {None: leaves}
+        for leaf, v in leaves.items():
+            key = layer if leaf is None else f"{layer}.{leaf}"
+            out[key] = torch.tensor(np.asarray(v), dtype=torch.float32, device=device)
+    return out
 
 
 class FamilyModule(nn.Module):

@@ -9,6 +9,12 @@ Parameters are a flat dict ``{"gc1.w", "gc1.b", "gc2.w", "gc2.b"}`` of
 tensors: the functional :func:`gcn_forward` takes it, and it is the
 ``state_dict`` of the :class:`GCN` module
 (:class:`~textgcn_tpu_torch.models.family.FamilyModule`).
+
+:func:`gcn_edge_init` and :func:`gcn_edge_forward` are the JAX module's
+learnable-edge GCN: the same two layers with each edge of Â scaled by
+``exp(edge_logit)``, trained with the weights through
+:func:`~textgcn_tpu_torch.ops.spmm.spmm_coo_segment_ew`. As in JAX they are
+library functions, outside the family registry and the CLI.
 """
 from __future__ import annotations
 
@@ -19,7 +25,9 @@ import torch
 from textgcn_tpu_torch.models.family import (  # noqa: F401 (params_from_jax)
     FamilyModule, Params, dropout as _dropout, init_layer, params_from_jax,
 )
-from textgcn_tpu_torch.ops.spmm import spmm
+from textgcn_tpu_torch.graph.structs import SparseGraph
+from textgcn_tpu_torch.ops.attention import det_exp
+from textgcn_tpu_torch.ops.spmm import spmm, spmm_coo_segment_ew
 
 LAYERS = ("gc1", "gc2")
 
@@ -61,6 +69,47 @@ def gcn_forward(
         h = graph_conv(params["gc1.w"], params["gc1.b"], graph, x)
     h = _dropout(torch.relu(h), dropout, train, generator)
     return graph_conv(params["gc2.w"], params["gc2.b"], graph, h)
+
+
+def gcn_edge_init(
+    generator: torch.Generator, graph, n_feat: int, n_hidden: int, n_class: int, *, device
+) -> Params:
+    """:func:`gcn_init` plus ``edge_logit``, a learnable log-scale for each
+    entry of the graph's padded COO, at 0 (scale 1: the fixed-Â model at
+    init)."""
+    params = gcn_init(generator, n_feat, n_hidden, n_class, device=device)
+    params["edge_logit"] = torch.zeros(graph.row.shape, dtype=torch.float32, device=device)
+    return params
+
+
+def gcn_edge_forward(
+    params: Params,
+    graph,
+    x: Optional[torch.Tensor],
+    *,
+    dropout: float = 0.5,
+    train: bool = False,
+    generator: Optional[torch.Generator] = None,
+) -> torch.Tensor:
+    """:func:`gcn_forward` with learnable edge weights: both layers
+    aggregate over Â's values times ``exp(params["edge_logit"])``, and the
+    logits are differentiable in ``edge_logit`` through the sampled product
+    of :func:`~textgcn_tpu_torch.ops.spmm.spmm_coo_segment_ew`. Needs a
+    :class:`SparseGraph` (the segment path), as in JAX: other layouts hold
+    their values in tiles or CSRs whose order is not the COO's."""
+    if not isinstance(graph, SparseGraph):
+        raise TypeError(
+            "learnable edge weights need a SparseGraph (COO segment path); "
+            f"got {type(graph).__name__}"
+        )
+    val = graph.val * det_exp(params["edge_logit"])
+
+    def agg(support):
+        return spmm_coo_segment_ew(graph.row, graph.col, val, support, graph.n_nodes)
+
+    support = params["gc1.w"] if x is None else x @ params["gc1.w"]
+    h = _dropout(torch.relu(agg(support) + params["gc1.b"]), dropout, train, generator)
+    return agg(h @ params["gc2.w"]) + params["gc2.b"]
 
 
 class GCN(FamilyModule):

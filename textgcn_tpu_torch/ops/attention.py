@@ -44,8 +44,14 @@ order; per-row statistics are one float per row.
 
 Every wrapper runs its plain version for CPU tensors only; for CUDA tensors
 it launches its kernel (building the library on first use) or raises, and
-adds one to its ``.launches`` where it launches. ``edge_logit_base`` and
-``spmm_onehot_ew`` of the JAX module are not ported yet (ROADMAP A.10).
+adds one to its ``.launches`` where it launches.
+
+Besides the two attention ops, two more differentiable ops of the JAX
+module take per-edge values in forward-CSR order (JAX: in plan slots):
+:func:`edge_logit_base` (``es[row] + ed[col]``, with des and ded from
+:func:`rowsum` over the forward and the transpose CSR) and
+:func:`spmm_onehot_ew` (``A @ x`` with learnable edge values: K2 from zero
+forward and, over the transpose CSR, for dx; :func:`sddmm` for dval).
 """
 from __future__ import annotations
 
@@ -584,3 +590,70 @@ def attention_spmm(ag: AttentionGraph, logits, x):
     (JAX ``_attn_bwd``): K2 over the transpose CSR for dx, :func:`sddmm` and
     :func:`rowsum` for dlogits."""
     return _AttentionSpmm.apply(ag, logits, x)
+
+
+class _EdgeLogitBase(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, ag, es, ed):
+        ctx.ag = ag
+        return es.float().index_select(0, ag.row) + ed.float().index_select(0, ag.col)
+
+    @staticmethod
+    def backward(ctx, g):
+        ag = ctx.ag
+        g = g.float().contiguous()
+        des = rowsum(ag.row_ptr, g, split=ag.split)
+        ded = rowsum(ag.row_ptr_t, g.index_select(0, ag.perm_t), split=ag.split_t)
+        return None, des, ded
+
+
+def edge_logit_base(ag: AttentionGraph, es, ed):
+    """``es[row_e] + ed[col_e]`` for every edge of the forward CSR ([E] f32,
+    forward-CSR order), differentiable in ``es`` [n_nodes] and ``ed``
+    [n_cols] with a backward free of scatters, as the JAX function's: des
+    is :func:`rowsum` of the cotangent over the forward CSR (with
+    ``ag.split``), ded :func:`rowsum` over the transpose CSR of the
+    cotangent moved there by ``perm_t`` (with ``ag.split_t``)."""
+    if es.numel() != ag.n_nodes or ed.numel() != ag.n_cols:
+        raise ValueError(
+            f"edge_logit_base: es [{ag.n_nodes}] and ed [{ag.n_cols}] expected, "
+            f"got {tuple(es.shape)} and {tuple(ed.shape)}"
+        )
+    return _EdgeLogitBase.apply(ag, es, ed)
+
+
+class _SpmmOnehotEw(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, ag, val, x):
+        val = val.float().contiguous()
+        x16 = features_bf16(x)
+        ctx.ag = ag
+        ctx.save_for_backward(val, x16)
+        return row_reduce(ag.row_ptr, ag.col, val, x16, split=ag.split)[:, : x.shape[1]]
+
+    @staticmethod
+    def backward(ctx, g):
+        ag = ctx.ag
+        val, x16 = ctx.saved_tensors
+        f = g.shape[1]
+        g16 = features_bf16(g)
+        dx = row_reduce(
+            ag.row_ptr_t, ag.col_t, val.index_select(0, ag.perm_t), g16, split=ag.split_t
+        )
+        dval = sddmm(ag.row_ptr, ag.col, g16, x16, ag.row)
+        return None, dval, dx[:, :f]
+
+
+def spmm_onehot_ew(ag: AttentionGraph, val, x):
+    """``A @ x`` with learnable edge values ``val`` ([E] f32, forward-CSR
+    order), differentiable in ``val`` and ``x`` [n_cols, F]: the port of the
+    JAX ``spmm_onehot_ew``. Forward: K2 from zero over the forward CSR
+    (``ag.split``) on bf16 features; dx: K2 over the transpose CSR with
+    ``val[perm_t]`` (``ag.split_t``); dval: :func:`sddmm` of the bf16
+    cotangent and features. Returns [n_nodes, F] f32."""
+    if val.numel() != ag.n_edges or x.shape[0] != ag.n_cols:
+        raise ValueError(
+            f"spmm_onehot_ew: val [{ag.n_edges}] and x [{ag.n_cols}, F] expected, "
+            f"got {tuple(val.shape)} and {tuple(x.shape)}"
+        )
+    return _SpmmOnehotEw.apply(ag, val, x)

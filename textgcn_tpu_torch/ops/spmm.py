@@ -8,6 +8,9 @@ segment-sum oracle):
   call, also on CUDA); differentiable in ``x`` with the transpose pass as
   its backward. The correctness oracle and the ``--spmm segment`` path.
   Plain PyTorch, as the JAX version is plain XLA.
+- :func:`spmm_coo_segment_ew`: the same sum, also differentiable in the
+  edge values (learnable edge weights): dval is the sampled product
+  ``g[row] . x[col]`` (the JAX package's XLA ``sddmm``), plain PyTorch too.
 - :func:`spmm_dense`: one ``torch.matmul`` (the JAX package leaves it to XLA).
 - :func:`spmm` dispatches on the container type; ``HybridGraph`` goes to
   :func:`textgcn_tpu_torch.graph.reorder.spmm_hybrid` and its two kernels,
@@ -56,6 +59,42 @@ def spmm_coo_segment(row, col, val, x, n_nodes: int):
     autograd never keeps the [E, F] gather product. ``val`` is a constant.
     """
     return _SpmmCooSegment.apply(row, col, val, x, n_nodes)
+
+
+def _sddmm_coo(row, col, g, x):
+    """``g[row[e]] . x[col[e]]`` for every edge, in f32; a padding index
+    (``n_nodes``) reads a zero row, as JAX's ``sddmm`` gathers with a fill."""
+    gp = torch.cat([g, g.new_zeros((1, g.shape[1]))])
+    xp = torch.cat([x, x.new_zeros((1, x.shape[1]))])
+    return (gp[row].float() * xp[col].float()).sum(dim=1)
+
+
+class _SpmmCooSegmentEw(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, row, col, val, x, n_nodes):
+        ctx.save_for_backward(row, col, val, x)
+        ctx.n_nodes = n_nodes
+        return _spmm_coo(row, col, val, x, n_nodes)
+
+    @staticmethod
+    def backward(ctx, g):
+        row, col, val, x = ctx.saved_tensors
+        dval = dx = None
+        if ctx.needs_input_grad[2]:
+            dval = _sddmm_coo(row, col, g, x).to(val.dtype)
+        if ctx.needs_input_grad[3]:
+            dx = _spmm_coo(col, row, val, g, ctx.n_nodes)
+        return None, None, dval, dx, None
+
+
+def spmm_coo_segment_ew(row, col, val, x, n_nodes: int):
+    """:func:`spmm_coo_segment` that is also differentiable in ``val``
+    (port of the JAX ``spmm_coo_segment_ew``, for learnable edge weights).
+
+    The backward keeps ``x`` and pays one sampled product more: ``dval[e] =
+    g[row[e]] . x[col[e]]`` (f32, cast to ``val``'s type; 0 for a padding
+    edge) and ``dx = Aᵀ @ g``, the transpose pass."""
+    return _SpmmCooSegmentEw.apply(row, col, val, x, n_nodes)
 
 
 def spmm_dense(a_dense: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

@@ -1,9 +1,10 @@
-"""Process-group set-up and the two collectives the sharded path uses.
+"""Process-group set-up and the collectives the sharded path uses.
 
 Port of ``textgcn_tpu/parallel/distributed.py``. Where the JAX package joins
 its processes with ``jax.distributed.initialize`` and lets XLA place the
 mesh collectives, the port holds one ``torch.distributed`` rank per device:
-NCCL between GPUs, gloo between CPU processes (the tests).
+NCCL between GPUs, gloo between CPU processes (the tests) or between ranks
+that share one GPU (NCCL refuses two ranks on one device).
 
 :class:`DistributedConfig` reads a launcher's environment: torchrun's
 ``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR`` and ``MASTER_PORT``, else the MPI
@@ -86,3 +87,32 @@ def all_reduce_sum(t: torch.Tensor, group=None) -> torch.Tensor:
     if dist.get_world_size(group) > 1:
         dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
     return t
+
+
+def ring_shift(t: torch.Tensor, step: int, group=None) -> torch.Tensor:
+    """One step of a ring (``jax.lax.ppermute``): send ``t`` to rank ``(r +
+    step) mod P`` of ``group`` and return the tensor that rank ``(r - step)
+    mod P`` sent, of ``t``'s shape and type. The send and the receive are
+    posted together (``batch_isend_irecv``), so no rank waits for another to
+    finish its own exchange first. With one rank it returns ``t``.
+
+    NCCL moves device tensors. gloo's point-to-point ops read and write
+    host memory, so a CUDA tensor on a gloo group is staged through the
+    host: one explicit copy out before the send and one back after the
+    receive. That is a transport, not a fallback: whatever the caller
+    computes on the tensor stays on its device."""
+    world = dist.get_world_size(group)
+    if world == 1:
+        return t
+    rank = dist.get_rank(group)
+    dst, src = (rank + step) % world, (rank - step) % world
+    if group is not None:
+        dst, src = dist.get_global_rank(group, dst), dist.get_global_rank(group, src)
+    staged = t.is_cuda and dist.get_backend(group) == "gloo"
+    send = (t.cpu() if staged else t).contiguous()
+    recv = torch.empty_like(send)
+    for req in dist.batch_isend_irecv([
+        dist.P2POp(dist.isend, send, dst, group), dist.P2POp(dist.irecv, recv, src, group),
+    ]):
+        req.wait()
+    return recv.to(t.device) if staged else recv

@@ -4,16 +4,24 @@ Port of the GCN part of ``textgcn_tpu/parallel/sharded.py``
 (``spmm_sharded``, ``sharded_gcn_forward``). Each rank holds its
 ``rows_per_shard`` rows of the features, activations and logits; dense
 transforms run locally with replicated weights; the sparse aggregation
-all-gathers the rows and reduces onto the local ones:
+brings the other ranks' rows to each rank (all at once, or a block at a
+time around a ring) and reduces onto the local ones. :func:`sharded_spmm`
+dispatches on the rank's layout:
 
-- a :class:`~textgcn_tpu_torch.parallel.mesh_kernels.MeshHybridAllGather`
-  goes through K1 and K2 (:func:`spmm_mesh_hybrid`);
-- a :class:`~textgcn_tpu_torch.parallel.partition.ShardCOO` goes through
-  :func:`spmm_sharded`: plain PyTorch gather and scatter-add (the same
-  bits every call, :mod:`textgcn_tpu_torch.ops.scatter`), the oracle
-  and the ``kernel="segment"`` path. Its backward is the true transpose
-  (every rank scatters ``A_pᵀ g_p`` over all rows, one all-reduce), so it
-  also checks the symmetric shortcut of the hybrid's backward.
+- a :class:`~textgcn_tpu_torch.parallel.partition.ShardCOO` (``kernel=
+  "segment"``, ``partition="allgather"``) goes through :func:`spmm_sharded`:
+  plain PyTorch gather and scatter-add (the same bits every call,
+  :mod:`textgcn_tpu_torch.ops.scatter`), also the oracle. Its backward is
+  the true transpose (every rank scatters ``A_pᵀ g_p`` over all rows, one
+  all-reduce), so it also checks the symmetric shortcut of the kernels'
+  backward;
+- a :class:`~textgcn_tpu_torch.parallel.halo.HaloPartitionedGraph`
+  (``segment`` on ``halo``, the JAX CLI's default) goes through
+  :func:`~textgcn_tpu_torch.parallel.halo.spmm_halo`, the feature ring with
+  the same plain sums and a true-transpose reverse ring as its backward;
+- the hand-kernel layouts (``onehot`` on either partition, ``hybrid`` on
+  ``allgather``) go through
+  :func:`~textgcn_tpu_torch.parallel.mesh_kernels.spmm_mesh_onehot`.
 
 The JAX package gets the cross-shard gradient sums from ``shard_map``'s
 autodiff; here the trainer all-reduces the replicated parameters' gradients
@@ -28,7 +36,10 @@ import torch
 from textgcn_tpu_torch.models.gcn import Params
 from textgcn_tpu_torch.ops.scatter import add_rows_
 from textgcn_tpu_torch.parallel.distributed import all_gather_rows, all_reduce_sum
-from textgcn_tpu_torch.parallel.mesh_kernels import MeshHybridAllGather, spmm_mesh_hybrid
+from textgcn_tpu_torch.parallel.halo import HaloPartitionedGraph, spmm_halo
+from textgcn_tpu_torch.parallel.mesh_kernels import (
+    MeshHybridAllGather, MeshOneHotAllGather, MeshOneHotHalo, spmm_mesh_onehot,
+)
 from textgcn_tpu_torch.parallel.partition import ShardCOO
 
 
@@ -61,10 +72,14 @@ def spmm_sharded(s: ShardCOO, x_local: torch.Tensor, group=None) -> torch.Tensor
 
 
 def sharded_spmm(graph, x_local: torch.Tensor, group=None) -> torch.Tensor:
-    """Dispatch on the shard container: K1 + K2 for the hybrid, the plain
-    segment reduce for a :class:`ShardCOO`."""
-    if isinstance(graph, MeshHybridAllGather):
-        return spmm_mesh_hybrid(graph, x_local, group)
+    """Dispatch on the shard container: the plain segment reduce for a
+    :class:`ShardCOO`, the plain segment ring for a
+    :class:`HaloPartitionedGraph`, the hand kernels for the one-hot and
+    hybrid layouts."""
+    if isinstance(graph, (MeshOneHotAllGather, MeshOneHotHalo, MeshHybridAllGather)):
+        return spmm_mesh_onehot(graph, x_local, group)
+    if isinstance(graph, HaloPartitionedGraph):
+        return spmm_halo(graph, x_local, group)
     if isinstance(graph, ShardCOO):
         return spmm_sharded(graph, x_local, group)
     raise TypeError(f"no sharded SpMM for {type(graph).__name__}")

@@ -1,15 +1,21 @@
 """Full-batch GCN training with the rows sharded over a process group.
 
 Port of ``textgcn_tpu/parallel/trainer.py`` (``ShardedTrainer`` for
-``model="gcn"`` on the all-gather partition, ``masks_for_split``,
-``metrics_from_confusion``) onto ``torch.distributed``. Every rank of the
-group builds one ``ShardedTrainer`` with its own ``rank`` and calls the same
-methods in the same order; each step's collectives pair up across ranks.
+``model="gcn"``, ``masks_for_split``, ``metrics_from_confusion``) onto
+``torch.distributed``. Every rank of the group builds one
+``ShardedTrainer`` with its own ``rank`` and calls the same methods in the
+same order; each step's collectives pair up across ranks.
 
+- ``partition`` is ``"halo"`` (the JAX default: feature blocks travel a
+  ring, :mod:`~textgcn_tpu_torch.parallel.halo`) or ``"allgather"`` (every
+  rank gathers all feature rows). ``kernel`` is ``"segment"`` (the JAX
+  default: plain PyTorch sums), ``"onehot"`` (K2 per rank, or per ring
+  step on the halo buckets; :mod:`~textgcn_tpu_torch.parallel.mesh_kernels`)
+  or ``"hybrid"`` (K1 and K2 per rank, allgather only). The gates are the
+  JAX trainer's (:func:`check_sharded`).
 - ``kernel="hybrid"`` degree-sorts the graph (features, labels and splits
-  are permuted alike, as the JAX trainer does) and aggregates through K1 and
-  K2 per rank (:mod:`~textgcn_tpu_torch.parallel.mesh_kernels`);
-  ``kernel="segment"`` keeps the node order and aggregates in plain PyTorch.
+  are permuted alike, as the JAX trainer does); the other kernels keep the
+  node order.
 - The loss is the global masked mean: each rank sums ``nll`` over its train
   rows and divides by the global train count; the gradients of the
   replicated parameters are summed over the ranks before Adam steps. With
@@ -21,11 +27,11 @@ methods in the same order; each step's collectives pair up across ranks.
 - Init and dropout are drawn, in the single-device port ``Trainer``'s
   order, for all ``n_nodes`` rows from a generator seeded with ``cfg.seed``;
   each rank keeps its rows. A run therefore does not depend on the number
-  of ranks, and follows the single-device hybrid run up to the order of
-  float sums.
+  of ranks, and follows the single-device run of the same kernel up to the
+  order of float sums.
 
-Not ported yet (ROADMAP A.11): the halo partition, the one-hot mesh kernel,
-the other model families, sharded checkpoints and the ``epoch_block`` scan.
+Not ported yet: the other model families sharded (ROADMAP A.11b), sharded
+checkpoints (A.11c) and the ``epoch_block`` scan.
 """
 from __future__ import annotations
 
@@ -40,23 +46,61 @@ from textgcn_tpu_torch.graph.format import permute_rows
 from textgcn_tpu_torch.graph.reorder import degree_sort_permutation
 from textgcn_tpu_torch.models.gcn import LAYERS, Params, gcn_init
 from textgcn_tpu_torch.parallel.distributed import all_reduce_sum
-from textgcn_tpu_torch.parallel.mesh_kernels import MeshHybridAllGather
+from textgcn_tpu_torch.parallel.halo import HaloPartitionedGraph
+from textgcn_tpu_torch.parallel.mesh_kernels import (
+    MeshHybridAllGather, MeshOneHotAllGather, MeshOneHotHalo,
+)
 from textgcn_tpu_torch.parallel.partition import ShardCOO, shard_rows
 from textgcn_tpu_torch.parallel.sharded import sharded_gcn_forward
 from textgcn_tpu_torch.train.prepare import permute_rows_1d_docs
 from textgcn_tpu_torch.train.trainer import EarlyStopping, TrainConfig, train_val_split
 
-SHARDED_KERNELS = ("hybrid", "segment")
+SHARDED_KERNELS = ("segment", "onehot", "hybrid")
+SHARDED_PARTITIONS = ("halo", "allgather")
+# --spmm choices a sharded run takes (JAX's train/run.py gate)
+SHARDED_SPMM = ("auto", "segment", "onehot", "hybrid")
+# (kernel, partition) -> the rank's layout
+_LAYOUTS = {
+    ("segment", "allgather"): ShardCOO,
+    ("segment", "halo"): HaloPartitionedGraph,
+    ("onehot", "allgather"): MeshOneHotAllGather,
+    ("onehot", "halo"): MeshOneHotHalo,
+    ("hybrid", "allgather"): MeshHybridAllGather,
+}
+
+
+def sharded_kernel(spmm: str) -> str:
+    """The mesh kernel that ``--spmm`` names under ``--shards`` (JAX's
+    ``train/run.py``): ``onehot`` and ``hybrid`` themselves, ``auto`` and
+    ``segment`` the plain segment sums; other formats raise."""
+    if spmm not in SHARDED_SPMM:
+        raise ValueError(
+            "with --shards, the sharded path accepts --spmm auto|segment "
+            "(plain per-shard aggregation), onehot (K2 per shard, or per halo "
+            "ring step), or hybrid (degree-sorted per-shard BSR tiles + "
+            "one-hot residual; needs --partition allgather); other "
+            f"single-device formats don't partition (got {spmm!r})"
+        )
+    return spmm if spmm in ("onehot", "hybrid") else "segment"
 
 
 def check_sharded(model: str, kernel: str, partition: str) -> None:
-    """Raise for a sharded configuration the port does not run yet."""
-    if model != "gcn" or kernel not in SHARDED_KERNELS or partition != "allgather":
+    """Raise for a sharded configuration the port does not run: a family
+    other than the GCN (not ported yet), and the JAX trainer's gates on the
+    kernel and the partition."""
+    if model != "gcn":
         raise NotImplementedError(
-            f"sharded training runs --model gcn with --partition allgather and "
-            f"kernel {' | '.join(SHARDED_KERNELS)} so far; got model {model!r}, "
-            f"kernel {kernel!r}, partition {partition!r} (ROADMAP A.11: the halo "
-            "partition, the one-hot mesh kernel and the other families wait)"
+            f"sharded training runs --model gcn so far, got {model!r} (ROADMAP "
+            "A.11b: the other families and GAT sharded)"
+        )
+    if kernel not in SHARDED_KERNELS:
+        raise ValueError(f"unknown mesh kernel: {kernel}")
+    if partition not in SHARDED_PARTITIONS:
+        raise ValueError(f"unknown partition strategy: {partition}")
+    if kernel == "hybrid" and partition != "allgather":
+        raise ValueError(
+            "kernel='hybrid' runs on the allgather partition (the halo ring "
+            "stays one-hot: P^2 BSR buckets would multiply zero-tile padding)"
         )
 
 
@@ -131,7 +175,9 @@ class ShardedTrainer:
     :class:`~textgcn_tpu_torch.graph.structs.SparseGraph` (any device; its
     host COO is read once), ``features`` the host ``[N, F]`` array or None
     for identity features. ``group`` is the process group (default: the
-    default group); ``device`` is this rank's.
+    default group); ``device`` is this rank's. ``partition`` and ``kernel``
+    choose the rank's layout, with the JAX trainer's defaults (``halo``,
+    ``segment``) and gates (:func:`check_sharded`).
     """
 
     def __init__(
@@ -148,8 +194,8 @@ class ShardedTrainer:
         rank: int,
         device,
         group=None,
-        partition: str = "allgather",
-        kernel: str = "hybrid",
+        partition: str = "halo",
+        kernel: str = "segment",
     ):
         check_sharded(config.model, kernel, partition)
         if config.restore_best:
@@ -167,11 +213,9 @@ class ShardedTrainer:
                 features = permute_rows(np.asarray(features, dtype=np.float32), perm)
             target = permute_rows_1d_docs(np.asarray(target), perm)
             train_idx, test_idx = perm[np.asarray(train_idx)], perm[np.asarray(test_idx)]
-            self.graph = MeshHybridAllGather.from_coo(
-                row, col, val, n, n_shards, rank, device=self.device
-            )
-        else:
-            self.graph = ShardCOO.from_coo(row, col, val, n, n_shards, rank, device=self.device)
+        self.graph = _LAYOUTS[kernel, partition].from_coo(
+            row, col, val, n, n_shards, rank, device=self.device
+        )
         self.rps, self.n_pad = self.graph.rows_per_shard, self.graph.n_pad
         self.n_nodes = n
         self.cfg = config

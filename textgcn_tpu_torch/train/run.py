@@ -28,7 +28,7 @@ import torch
 from textgcn_tpu_torch.graph.format import DENSE_MAX_NODES, MachineModel, gat_auto_format
 from textgcn_tpu_torch.models.sgc import sgc_precompute
 from textgcn_tpu_torch.parallel.launch import HostData, run_sharded_seeds
-from textgcn_tpu_torch.parallel.trainer import check_sharded
+from textgcn_tpu_torch.parallel.trainer import check_sharded, sharded_kernel
 from textgcn_tpu_torch.train.checkpoint import restore_checkpoint
 from textgcn_tpu_torch.train.prepare import (
     PreparedData,
@@ -55,7 +55,7 @@ def check_sharded_checkpoints(n_shards: Optional[int], **flags) -> None:
     if n_shards is not None and given:
         raise NotImplementedError(
             f"{', '.join('--' + k for k in given)} with --shards: sharded "
-            "checkpoints are not ported yet (ROADMAP A.11)"
+            "checkpoints are not ported yet (ROADMAP A.11c)"
         )
 
 
@@ -135,7 +135,7 @@ def _prepare_for_training(
     device, the family's graph format and ``sgc_pre``'s precompute. A
     sharded run gets the unformatted data: each rank builds its shard."""
     if n_shards is not None:
-        check_sharded(config.model, config.spmm, partition)
+        check_sharded(config.model, sharded_kernel(config.spmm), partition)
     check_graph_family(graph_family)
     if pre_data is None:
         pre_data = prepare_data(dataset, graph_family, data_root, device=device)
@@ -188,12 +188,15 @@ def run_experiment(
     ``save_model``: a checkpoint directory for the best-accuracy run's
     params (:meth:`Trainer.save`); ``save_state``: one for its resumable
     state (:meth:`Trainer.save_training_state`, continued by
-    :func:`resume_training`). Not with ``n_shards`` (ROADMAP A.11).
+    :func:`resume_training`). Not with ``n_shards`` (ROADMAP A.11c).
 
     ``n_shards``: train row-sharded over that many ranks
     (:mod:`textgcn_tpu_torch.parallel`), rank ``r`` on ``cuda:r`` with NCCL
     for a CUDA ``device``, or on CPU processes with gloo for the CPU. Rank 0
-    runs in this process. The kernel is ``config.spmm``; see
+    runs in this process. ``partition`` is ``halo`` (the JAX default) or
+    ``allgather``; the kernel is what ``config.spmm`` names under
+    ``--shards`` (:func:`~textgcn_tpu_torch.parallel.trainer.sharded_kernel`:
+    ``auto`` is ``segment``, as in JAX); see
     :func:`~textgcn_tpu_torch.parallel.trainer.check_sharded` for what runs.
     """
     device = torch.device(device)
@@ -206,14 +209,15 @@ def run_experiment(
     if n_shards is not None:
         # prepared once; each rank builds its own shard from the host arrays
         cuda = device.type == "cuda"
+        kernel = sharded_kernel(config.spmm)
         runs = run_sharded_seeds(
             HostData.from_prepared(pre_data), seeds, config, n_shards,
-            kernel=config.spmm, partition=partition,
+            kernel=kernel, partition=partition,
             backend="nccl" if cuda else "gloo",
             devices=[f"cuda:{r}" for r in range(n_shards)] if cuda else ["cpu"] * n_shards,
             verbose=verbose,
         )
-        sharding = {"n_shards": n_shards, "partition": partition, "kernel": config.spmm}
+        sharding = {"n_shards": n_shards, "partition": partition, "kernel": kernel}
         return _summarize(dataset, graph_family, output_dir, config, runs, device, sharding)
 
     runs: List[Dict[str, Any]] = []

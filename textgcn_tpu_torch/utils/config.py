@@ -41,7 +41,7 @@ class TrainSection:
     ``lax.scan`` block dispatches, which changes dispatch only (its results
     are bit-identical across block sizes). The port's counterpart would be a
     CUDA graph of the train step (ROADMAP A.3). ``shards`` / ``partition`` train the GCN row-sharded, as
-    ``cli train --shards`` does (``halo`` raises until it is ported).
+    ``cli train --shards`` does (``halo`` by default, as in the JAX package).
     """
 
     times: int = 1
