@@ -61,7 +61,14 @@ drives the port's paths: on R8 doc-word, then on R8's topic graph:
   halo-segment, halo-onehot and allgather-onehot (test accuracy >= 0.95 in
   each; K2 on rank 0 under the one-hot kernels only), and ``train --shards
   1`` with no ``--partition`` and no ``--spmm`` must report partition halo
-  and kernel segment (the JAX defaults) and reach 0.95.
+  and kernel segment (the JAX defaults) and reach 0.95. Route B.3 ("mesh
+  gat"): the attention kernels on each of 4 ranks' rectangular attention
+  graphs of R8 doc-word (JAX node order, F=200), in this process: B5, B7,
+  B8, B9 and K2 as dx against their plain versions on the inputs
+  ``gat_attention`` gives them, two fwd+bwd runs bit-equal, each rank's
+  fwd+bwd ms; the ranks' outputs put together bit-equal to the single-card
+  op on the whole graph, their dx and ded summed (the all-gather's
+  transpose) within ATT_TOL of its gradients.
 - Learnable edges ("edge ops", "edge gcn"): ``edge_logit_base`` (``rowsum``
   over both CSRs with their tables) and ``spmm_onehot_ew`` (K2 from zero
   forward and as dx over the transpose CSR, ``sddmm`` for dval) forward
@@ -82,7 +89,18 @@ drives the port's paths: on R8 doc-word, then on R8's topic graph:
   committed means), the six other families on their committed seeds
   (within 0.01), the GCN on ``--spmm auto`` and every family once on
   ``--spmm hybrid`` (within 0.01 of its segment run at that seed; K1, and
-  for GAT its kernels and K2 as dx, must launch).
+  for GAT its kernels and K2 as dx, must launch). Then every family
+  sharded, one spawn of 4 gloo ranks on the card at seed 7 ("train sharded
+  gat", "train sharded families"): GAT on R8 doc-word under
+  onehot/allgather (acc >= 0.88, its kernels launched on rank 0), GAT on
+  R8 topic under segment/allgather and segment/halo, and SAGE, SGC, APPNP,
+  GIN and GCNII on R8 topic on halo-segment, allgather-segment,
+  halo-onehot, allgather-onehot and allgather-hybrid, each within 0.01 of
+  its single-card segment run at that seed (K2 under onehot, K1 under
+  hybrid, nothing under segment); and ``train --model gat --shards 1
+  --partition allgather --spmm onehot`` on R8 topic ("train sharded
+  cli"): its report names the sharding, the attention kernels launch,
+  within 0.01 of segment.
 - Build slice (the build pipeline on the card, each phase in a temporary
   data root holding copies of the label file and the clean corpus): builds
   R8's topic graph with experiments/r8.yaml's settings (LDA fit and
@@ -1147,11 +1165,12 @@ def mesh_onehot_phase(graph, records):
         f"*(1+|ref|): a bucket a step); {wall_s:.1f} s with spawn")
 
 
-def train_halo_rank(rank, world, device, data, seed, combos):
-    """One rank of the sharded trainings on the card: the GCN under each
-    (kernel, partition) of ``combos`` from ``seed``, every launch count set
-    to 0 just before each (rank 0 runs in the calling process, so its counts
-    are the smoke's). Rank 0 returns [(run, launches, wall s), ...]."""
+def train_jobs_rank(rank, world, device, datasets, seed, jobs):
+    """One rank of sharded trainings on the card: for each job ``(data key,
+    family, kernel, partition)`` the family on ``datasets[key]`` from
+    ``seed``, every launch count set to 0 just before each (rank 0 runs in
+    the calling process, so its counts are the smoke's). Rank 0 returns
+    [(run, launches, wall s, whether its layout has residual edges), ...]."""
     from textgcn_tpu_torch.ops import attention as att
     from textgcn_tpu_torch.ops.bsr_spmm import bsr_leg, bsr_spmm
     from textgcn_tpu_torch.ops.row_reduce import row_reduce
@@ -1159,21 +1178,31 @@ def train_halo_rank(rank, world, device, data, seed, combos):
     from textgcn_tpu_torch.train.trainer import TrainConfig
 
     fns = {"row_reduce": row_reduce, "bsr_leg": bsr_leg, "bsr_spmm": bsr_spmm,
-           "rowsum": att.rowsum, "sddmm": att.sddmm}
+           "attn_stats": att.stats_logits, "softmax_stats": att.softmax_stats,
+           "attn_agg": att.attn_agg, "rowsum": att.rowsum, "sddmm": att.sddmm}
     out = []
-    for kernel, partition in combos:
+    for key, model, kernel, partition in jobs:
+        data = datasets[key]
         for fn in fns.values():
             fn.launches = 0
         t0 = time.perf_counter()
         t = ShardedTrainer(
             data.graph(), data.features, data.target, data.train_idx, data.test_idx,
-            data.n_classes, config=TrainConfig(seed=seed), n_shards=world, rank=rank,
-            device=device, kernel=kernel, partition=partition,
+            data.n_classes, config=TrainConfig(seed=seed, model=model), n_shards=world,
+            rank=rank, device=device, kernel=kernel, partition=partition,
         )
         t.fit(verbose=False)
         run = {"seed": seed, "test": t.test(), "history": t.history}
-        out.append((run, {k: fn.launches for k, fn in fns.items()}, time.perf_counter() - t0))
+        residual = getattr(t.graph, "rest", None) is not None
+        out.append((run, {k: fn.launches for k, fn in fns.items()}, time.perf_counter() - t0,
+                    residual))
     return out if rank == 0 else None
+
+
+def check_run(run, what):
+    """Raise on a non-finite loss in a run's history."""
+    if not all(math.isfinite(r[k]) for r in run["history"] for k in ("train_loss", "val_loss")):
+        raise AssertionError(f"non-finite loss under {what}")
 
 
 def train_sharded_halo_phase(pre):
@@ -1188,14 +1217,15 @@ def train_sharded_halo_phase(pre):
     combos = [("segment", "halo"), ("onehot", "halo"), ("onehot", "allgather")]
     t0 = time.perf_counter()
     results = spawn_ranks(
-        train_halo_rank, SHARDS, (HostData.from_prepared(pre), generate_seeds(1, SEED)[0], combos),
+        train_jobs_rank, SHARDS,
+        ({"docword": HostData.from_prepared(pre)}, generate_seeds(1, SEED)[0],
+         [("docword", "gcn", *c) for c in combos]),
         backend="gloo", devices=["cuda:0"] * SHARDS, timeout_s=900.0,
     )
     k2 = {"row_reduce": 0, "row_reduce_dx": 0}
-    for (kernel, partition), (run, launches, wall_s) in zip(combos, results):
+    for (kernel, partition), (run, launches, wall_s, _) in zip(combos, results):
         hist, test = run["history"], run["test"]
-        if not all(math.isfinite(r[k]) for r in hist for k in ("train_loss", "val_loss")):
-            raise AssertionError(f"non-finite loss under {kernel} {partition}")
+        check_run(run, f"{kernel} {partition}")
         used = sum(launches.values())
         if (kernel == "onehot") != (launches["row_reduce"] > 0) or used != launches["row_reduce"]:
             raise AssertionError(f"{kernel} {partition} launched {launches} on rank 0")
@@ -1210,6 +1240,212 @@ def train_sharded_halo_phase(pre):
             raise AssertionError(f"{kernel} {partition} test accuracy {test['acc']:.4f} < {ACC_MIN}")
     log("train sharded halo", f"{time.perf_counter() - t0:.1f} s with spawn")
     return k2
+
+
+# the kernels of GAT's attention op (route B.3): B5, B7, B8, B9 and K2 as dx
+ATT_NEED = ("attn_stats", "attn_agg", "sddmm", "rowsum", "row_reduce")
+# the sharded families on R8 topic: one (kernel, partition) a family, so
+# that the five combinations are each covered once
+FAMILY_COMBOS = (("sage", "segment", "halo"), ("sgc", "segment", "allgather"),
+                 ("appnp", "onehot", "halo"), ("gin", "onehot", "allgather"),
+                 ("gcnii", "hybrid", "allgather"))
+
+
+def mesh_gat_phase(graph, records):
+    """B.3 on R8 doc-word at F=200 and SHARDS ranks, in this process and in
+    the JAX node order (no degree sort, as the JAX package's kernel-path
+    sharded GAT): for each rank's rectangular attention graph,
+    ``gat_attention`` forward and backward on the kernels (each kernel's
+    launches must rise; two runs give the same bits), and B5, B7, B8, B9
+    and K2 as dx held against their plain versions on the inputs the op
+    gives them; each rank's fwd+bwd ms (a call) beside its edges and its
+    longest row and column. Then the ranks' forward outputs put together
+    must equal the single-card op on the whole attention graph bit for bit,
+    and the sums of their dx and ded (the all-gather's transpose) and their
+    des put together match its gradients within ATT_TOL."""
+    from textgcn_tpu_torch.ops import attention as att
+    from textgcn_tpu_torch.ops.row_reduce import row_reduce, row_reduce_plain
+    from textgcn_tpu_torch.parallel.mesh_attention import MeshAttentionAllGather
+
+    f, dev = 200, graph.val.device
+    row, col, val = graph.coo_numpy()
+    n = graph.n_nodes
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    t0 = time.perf_counter()
+    mgs = [MeshAttentionAllGather.from_coo(row, col, val, n, SHARDS, p, device=dev)
+           for p in range(SHARDS)]
+    build_s = time.perf_counter() - t0
+    n_pad, rps = mgs[0].n_pad, mgs[0].rows_per_shard
+    h = torch.zeros((n_pad, f), device=dev)
+    h[:n] = torch.randn((n, f), generator=gen, device=dev)
+    cot = torch.zeros((n_pad, f), device=dev)
+    cot[:n] = torch.randn((n, f), generator=gen, device=dev)
+    a_src, a_dst = (torch.randn(f, generator=gen, device=dev) / math.sqrt(f) for _ in range(2))
+    es_full, ed_full = h @ a_src, h @ a_dst
+    fns = {"attn_stats": att.stats_logits, "attn_agg": att.attn_agg, "sddmm": att.sddmm,
+           "rowsum": att.rowsum, "row_reduce": row_reduce}
+
+    def fwd_bwd(ag, es, ed, x, g):
+        es, ed, x = (t.clone().requires_grad_(True) for t in (es, ed, x))
+        out = att.gat_attention(ag, es, ed, x, SLOPE)
+        out.backward(g)
+        return out.detach(), es.grad, ed.grad, x.grad
+
+    outs, des_all, ded_sum, dx_sum, per_rank = [], [], 0.0, 0.0, []
+    for p, mg in enumerate(mgs):
+        ag, rows = mg.ag, slice(p * rps, (p + 1) * rps)
+        es, g = es_full[rows].contiguous(), cot[rows].contiguous()
+        args = (ag, es, ed_full, h, g)
+        before = {k: fn.launches for k, fn in fns.items()}
+        got = fwd_bwd(*args)
+        rose = {k: fn.launches - before[k] for k, fn in fns.items()}
+        if min(rose.values()) < 1:
+            raise AssertionError(f"rank {p}: a kernel of route B.3 did not launch: {rose}")
+        if not all(map(torch.equal, got, fwd_bwd(*args))):
+            raise AssertionError(f"rank {p}: two fwd+bwd runs of gat_attention differ")
+        # each kernel against its plain version on the inputs the op gives it
+        s_args = (ag.row_ptr, ag.col, ag.logval, es, ed_full, SLOPE)
+        logits, mx, sm = att.stats_logits(*s_args, split=ag.split)
+        err = {"attn_stats": max(compare(a, b, ATT_TOL)[0] for a, b in
+                                 zip((logits, mx, sm), att.stats_logits_plain(*s_args)))}
+        x16, g16 = att.features_bf16(h), att.features_bf16(g)
+        a_args = (ag.row_ptr, ag.col, logits, mx, sm, x16)
+        err["attn_agg"] = compare(att.attn_agg(*a_args, split=ag.split),
+                                  att.attn_agg_plain(*a_args), ATT_TOL)[0]
+        d_args = (ag.row_ptr, ag.col, g16, x16, ag.row)
+        u = att.sddmm(*d_args)
+        err["sddmm"] = compare(u, att.sddmm_plain(*d_args), ATT_TOL)[0]
+        wt = att.edge_weights(ag, logits, mx, sm)
+        s_row = att.rowsum(ag.row_ptr, wt * u, split=ag.split)
+        err["rowsum"] = compare(s_row, att.rowsum_plain(ag.row_ptr, wt * u), ATT_TOL)[0]
+        base = es.index_select(0, ag.row) + ed_full.index_select(0, ag.col)
+        dbase = (wt * (u - s_row.index_select(0, ag.row))
+                 * torch.where(base >= 0, 1.0, SLOPE)).index_select(0, ag.perm_t)
+        err["rowsum"] = max(err["rowsum"], compare(
+            att.rowsum(ag.row_ptr_t, dbase, split=ag.split_t),
+            att.rowsum_plain(ag.row_ptr_t, dbase), ATT_TOL)[0])
+        k_args = (ag.row_ptr_t, ag.col_t, wt.index_select(0, ag.perm_t), g16)
+        err["row_reduce"] = compare(row_reduce(*k_args, split=ag.split_t),
+                                    row_reduce_plain(*k_args), ATT_TOL)[0]
+        for k, e in err.items():
+            records.setdefault("row_reduce_dx" if k == "row_reduce" else k, []).append(
+                (e, None, None, None))
+        ms = cuda_ms(lambda: fwd_bwd(*args), reps=5)
+        per_rank.append({
+            "rank": p, "edges": ag.n_edges, "longest_row": ag.max_degree,
+            "longest_col": int(torch.diff(ag.row_ptr_t).max()),
+            "split_segments": [0 if t is None else t.n_seg for t in (ag.split, ag.split_t)],
+            "fwd_bwd_ms": ms, "max_abs_err": err, "launches_a_fwd_bwd": rose,
+        })
+        outs.append(got[0])
+        des_all.append(got[1])
+        ded_sum = ded_sum + got[2]
+        dx_sum = dx_sum + got[3]
+    whole = att.AttentionGraph.from_coo(row, col, val, n, device=dev)
+    args1 = (whole, es_full[:n].contiguous(), ed_full[:n].contiguous(), h[:n], cot[:n])
+    out1, des1, ded1, dx1 = fwd_bwd(*args1)
+    stacked = torch.cat(outs)
+    if not torch.equal(stacked[:n], out1) or stacked[n:].any():
+        raise AssertionError("the ranks' gat_attention outputs put together differ from the "
+                             "single-card op's")
+    gerr = [compare(torch.cat(des_all)[:n], des1, ATT_TOL)[0],
+            compare(ded_sum[:n], ded1, ATT_TOL)[0], compare(dx_sum[:n], dx1, ATT_TOL)[0]]
+    single_ms = cuda_ms(lambda: fwd_bwd(*args1), reps=5)
+    log("mesh gat", f"R8 doc-word, {SHARDS} ranks' rectangular attention graphs (JAX node "
+        f"order, built in {build_s:.1f} s), F={f}, each kernel vs plain within tol "
+        f"{ATT_TOL}*(1+|ref|), two fwd+bwd bit-equal; per rank {json.dumps(per_rank)}")
+    log("mesh gat", f"the {SHARDS} ranks' outputs put together vs single-card gat_attention "
+        f"on the whole graph: bit-equal; des, sum of ded, sum of dx vs its gradients: max "
+        f"abs err {gerr[0]:.3e}, {gerr[1]:.3e}, {gerr[2]:.3e} (tol {ATT_TOL}*(1+|ref|)); "
+        f"single-card fwd+bwd {single_ms:.4f} ms a call ({whole.n_edges} edges, longest row "
+        f"{whole.max_degree})")
+
+
+def sharded_trainings_phase(docword, topic, seg):
+    """"train sharded gat" and "train sharded families": one spawn of SHARDS
+    gloo ranks on this card at HYBRID_SEED, every launch count set to 0
+    before each training: GAT on R8 doc-word under onehot/allgather (the
+    attention kernels on each rank's graph: test accuracy >= GAT_ACC_MIN,
+    B5, B7, B8, B9 and K2 launched on rank 0), GAT on R8 topic under
+    segment/allgather and segment/halo, and the five families on R8 topic on
+    FAMILY_COMBOS; each topic run within FAMILY_GAP of the single-card
+    segment run of its family at that seed (``seg``); K2 launched under
+    onehot, K1 under hybrid (K2 there where rank 0's layout has residual
+    edges), nothing under segment. Returns rank 0's launches by job."""
+    from textgcn_tpu_torch.parallel.launch import HostData, spawn_ranks
+
+    jobs = [("docword", "gat", "onehot", "allgather"), ("topic", "gat", "segment", "allgather"),
+            ("topic", "gat", "segment", "halo")] + [("topic", *c) for c in FAMILY_COMBOS]
+    t0 = time.perf_counter()
+    results = spawn_ranks(
+        train_jobs_rank, SHARDS,
+        ({"docword": HostData.from_prepared(docword), "topic": HostData.from_prepared(topic)},
+         HYBRID_SEED, jobs),
+        backend="gloo", devices=["cuda:0"] * SHARDS, timeout_s=900.0,
+    )
+    out = {}
+    for (key, model, kernel, partition), (run, launches, wall_s, residual) in zip(jobs, results):
+        what = f"{model} on R8 {key}, {kernel}/{partition}"
+        check_run(run, what)
+        test, hist = run["test"], run["history"]
+        used = {k: v for k, v in launches.items() if v}
+        if kernel == "segment":
+            need = ()
+        elif model == "gat":
+            need = ATT_NEED
+        elif kernel == "hybrid":
+            need = ("bsr_leg", "row_reduce") if residual else ("bsr_leg",)
+        else:
+            need = ("row_reduce",)
+        if set(used) != set(need):
+            raise AssertionError(f"{what} launched {used} on rank 0, expected {need}")
+        text = (f"{SHARDS} ranks on cuda:0 (gloo), {what}, seed {HYBRID_SEED}: {len(hist)} "
+                f"epochs, train {test['train_time']:.3f} s = "
+                f"{1000 * test['train_time'] / len(hist):.3f} ms/epoch ({wall_s:.1f} s with "
+                f"set-up); test acc {test['acc']:.4f}, macro-F1 {test['macro_f1']:.4f}; rank 0 "
+                f"launches {used}")
+        phase = "train sharded gat" if model == "gat" else "train sharded families"
+        if key == "docword":
+            log(phase, f"{text} (min {GAT_ACC_MIN})")
+            if test["acc"] < GAT_ACC_MIN:
+                raise AssertionError(f"{what}: test accuracy {test['acc']:.4f} < {GAT_ACC_MIN}")
+        else:
+            gap = test["acc"] - seg[model][HYBRID_SEED]
+            log(phase, f"{text}; vs single-card segment at this seed {gap:+.4f} (limit "
+                f"±{FAMILY_GAP})")
+            if abs(gap) > FAMILY_GAP:
+                raise AssertionError(f"{what} is {gap:+.4f} off its single-card segment run")
+        out[key, model, kernel, partition] = launches
+    log("train sharded families", f"{len(jobs)} trainings in one spawn: "
+        f"{time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def sharded_cli_phase(cli, counters, root, seg):
+    """"train sharded cli": ``cli train --dataset R8 --model gat --shards 1
+    --partition allgather --spmm onehot`` on the topic graph (an NCCL group
+    of one) at HYBRID_SEED: the report names its sharding, the attention
+    kernels launch, and test accuracy lands within FAMILY_GAP of the
+    single-card segment GAT at that seed. Returns the launches."""
+    summary, launches, wall_s = run_cli(
+        cli, ["--data_root", root, "--model", "gat", "--spmm", "onehot", "--shards", "1",
+              "--partition", "allgather", "--seeds", str(HYBRID_SEED)], counters, "topic",
+    )
+    want = {"n_shards": 1, "partition": "allgather", "kernel": "onehot"}
+    if summary.get("sharding") != want:
+        raise AssertionError(f"the run reports sharding {summary.get('sharding')}, expected {want}")
+    if min(launches[k] for k in ATT_NEED) < 1:
+        raise AssertionError(f"a kernel of route B.3 never launched in the CLI run: {launches}")
+    run = summary["runs"][0]
+    gap = run["test"]["acc"] - seg["gat"][HYBRID_SEED]
+    log("train sharded cli", f"cli train R8 topic --model gat --shards 1 --partition allgather "
+        f"--spmm onehot seed {HYBRID_SEED}: {run['epochs_run']} epochs, "
+        f"{1000 * run['test']['train_time'] / run['epochs_run']:.3f} ms/epoch, {wall_s:.1f} s "
+        f"with data prep; test acc {run['test']['acc']:.4f}, vs single-card segment {gap:+.4f} "
+        f"(limit ±{FAMILY_GAP}); sharding {summary['sharding']}; launches {launches}")
+    if abs(gap) > FAMILY_GAP:
+        raise AssertionError(f"the sharded CLI GAT is {gap:+.4f} off its single-card segment run")
+    return launches
 
 
 def topic_roots(tmp):
@@ -1400,8 +1636,9 @@ def topic_training_phases(cli, counters, root, residual):
     K2 where the layout has ``residual`` edges; GAT's kernels and K2 as
     dx), and the GCN on --spmm bsr (K1's f32 mode) and onehot (K2 from
     zero) on the bench seeds, each within FAMILY_GAP of segment at every
-    seed. Returns the launches of the hybrid runs (non-GAT, GAT) and
-    [(launches, K2 record)] of the bsr and onehot runs."""
+    seed. Returns the launches of the hybrid runs (non-GAT, GAT),
+    [(launches, K2 record)] of the bsr and onehot runs, and the segment
+    runs' accuracies ({family: {seed: acc}})."""
     seg = {}
     for phase, families in (("train topic gcn/gat", ("gcn", "gat")),
                             ("train topic families", NEW_FAMILIES)):
@@ -1450,7 +1687,7 @@ def topic_training_phases(cli, counters, root, residual):
         if max(map(abs, gaps)) > FAMILY_GAP:
             raise AssertionError(f"topic GCN on --spmm {fmt} is off its segment runs: {gaps}")
         formats.append((launches, "row_reduce_dx" if fmt == "onehot" else "row_reduce"))
-    return {k: sum(v[k] for v in hybrid.values()) for k in gat}, gat, formats
+    return {k: sum(v[k] for v in hybrid.values()) for k in gat}, gat, formats, seg
 
 
 def pad16(f):
@@ -2092,7 +2329,7 @@ def main() -> int:
     )
     from textgcn_tpu_torch.ops.spmm import spmm_coo_segment
     from textgcn_tpu_torch.train.prepare import (
-        apply_attention_format, prepare_docword_data,
+        apply_attention_format, prepare_docword_data, prepare_topic_data,
     )
 
     # the library yardsticks build CSR tensors, a beta API that says so
@@ -2270,6 +2507,8 @@ def main() -> int:
     # sharded GCN under halo-segment, halo-onehot and allgather-onehot
     mesh_onehot_phase(pre.graph, records)
     halo_k2 = train_sharded_halo_phase(pre)
+    # 6d'. route B.3: the attention kernels on each rank's rectangular graph
+    mesh_gat_phase(pre.graph, records)
     # 6e. the JAX defaults under --shards: halo + segment (an NCCL group of one)
     shard1_defaults, _ = train_via_cli(
         cli, "gcn sharded defaults", ["--shards", "1"], ACC_MIN, counters, need=(),
@@ -2469,7 +2708,7 @@ def main() -> int:
     edge_launches = edge_ops_phase(
         att, ag, torch.Generator(device=dev).manual_seed(SEED + 2), records, counters)
     edge_gcn_phase(pre.graph, pre.labels, dev)
-    r8_graph, r8_labels = pre.graph, pre.labels
+    r8_graph, r8_labels, r8_pre = pre.graph, pre.labels, pre
     del ag, pre, pre_att
 
     # 9. the GAT main path, through the CLI
@@ -2497,10 +2736,16 @@ def main() -> int:
         roots = topic_roots(tmp)
         residual = topic_data_phase(dev, gen, records, yard, roots["fresh"], gen_formats)
         lda_phase(dev, roots)
-        topic_hybrid, topic_gat, topic_formats = topic_training_phases(
+        topic_hybrid, topic_gat, topic_formats, seg = topic_training_phases(
             cli, counters, roots["fresh"], residual)
         segment_determinism_phase(cli, counters, roots["fresh"])
         new_paths += topic_formats
+        # every family sharded (GAT on its three layouts) on SHARDS gloo
+        # ranks, and the sharded GAT through the CLI
+        sharded_runs = sharded_trainings_phase(
+            r8_pre, prepare_topic_data("R8", data_root=roots["fresh"], device=dev), seg)
+        sharded_cli = sharded_cli_phase(cli, counters, roots["fresh"], seg)
+    del r8_pre
 
     # 22-27. the build slice: R8's topic graph built on the card, trained,
     # the YAML experiment, mr's doc-word graph, and the checkout untouched
@@ -2557,6 +2802,16 @@ def main() -> int:
         total[k] += edge_launches[k]
     total["row_reduce_dx"] += edge_launches["row_reduce"] + halo_k2["row_reduce_dx"]
     total["row_reduce"] += halo_k2["row_reduce"]
+    # route B.3 and the sharded families: rank 0 of each sharded training
+    # (K2 is dx (B3) under GAT and from zero (B3) on allgather-onehot, onto
+    # the accumulator (B2) on the halo buckets and the hybrid's residual)
+    # and the sharded CLI GAT
+    for (_, model, kernel, partition), run_launches in sharded_runs.items():
+        for k, v in run_launches.items():
+            b3 = k == "row_reduce" and (model == "gat" or (kernel, partition) == ("onehot", "allgather"))
+            total["row_reduce_dx" if b3 else k] += v
+    for k, v in sharded_cli.items():
+        total["row_reduce_dx" if k == "row_reduce" else k] += v
     kernels = []
     for name, (src, replaces) in sources.items():
         _, ms, device_ms, plain_ms = next(r for r in records[name] if r[1] is not None)

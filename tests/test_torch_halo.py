@@ -295,7 +295,7 @@ def trained():
     combos = [("segment", "halo"), ("onehot", "halo"), ("onehot", "allgather")]
     runs = _gloo(
         torch_sharded_ranks.train_combos, 3,
-        (launch.HostData.from_prepared(pt), cfg, combos),
+        (launch.HostData.from_prepared(pt), cfg, [("gcn", *c) for c in combos]),
     )
     return pt, cfg, dict(zip(combos, runs))
 

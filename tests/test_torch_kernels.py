@@ -718,6 +718,34 @@ def test_gat_attention_on_gpu_matches_cpu_plain(cuda_dev):
         torch.testing.assert_close(b, a, rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("shard", [0, 3])
+def test_mesh_gat_attention_rank_on_gpu_matches_cpu_plain(cuda_dev, shard):
+    """Route B.3: one rank's rectangular attention graph (its rows against
+    all ``n_pad`` columns, ``MeshAttentionAllGather``; rank 0 holds the hub
+    rows, split at S) through ``gat_attention`` on the kernels: the output
+    and the gradients of es, ed and the all-gathered features (dx and ded
+    over all columns) equal the plain versions on the CPU (rtol and atol
+    1e-4: f32 sums in another order)."""
+    from textgcn_tpu_torch.parallel.mesh_attention import MeshAttentionAllGather
+
+    r, c, v, n = _graph()
+    res = []
+    for dev in (CPU, cuda_dev):
+        mg = MeshAttentionAllGather.from_coo(r, c, v, n, 4, shard, device=dev)
+        rng = np.random.RandomState(3)
+        ins = [rng.randn(mg.rows_per_shard), rng.randn(mg.n_pad), rng.randn(mg.n_pad, 200)]
+        cot = torch.tensor(rng.randn(mg.rows_per_shard, 200), dtype=torch.float32, device=dev)
+        ts = [torch.tensor(a, dtype=torch.float32, device=dev, requires_grad=True) for a in ins]
+        out = att.gat_attention(mg.ag, *ts, 0.2)
+        out.backward(cot)
+        res.append([out.detach().cpu()] + [t.grad.cpu() for t in ts])
+    if shard == 0:
+        assert mg.ag.split is not None
+    for a, b in zip(*res):
+        torch.testing.assert_close(b, a, rtol=1e-4, atol=1e-4)
+
+
 def _lattice_chunks(dev, seed=0):
     from textgcn_tpu_torch.ops.streamed_sorted import make_lattice_stream
 

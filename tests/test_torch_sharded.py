@@ -388,16 +388,19 @@ def test_distributed_config_from_env():
 
 
 def test_cli_refuses_unported_sharding_and_too_few_gpus(monkeypatch):
-    """``train --shards`` refuses, before the GPU check, what the port does
-    not run: a family other than the GCN (not ported yet, ROADMAP A.11b),
-    and the JAX package's gates (``--spmm bsr`` or ``dense`` do not
-    partition; ``hybrid`` needs ``--partition allgather``). What passes the
-    gates, the JAX defaults (halo, ``--spmm auto`` = segment) among them,
-    needs N GPUs."""
+    """``train --shards`` refuses, before the GPU check, what the JAX
+    package's gates refuse, with ValueError: GAT on ``hybrid`` (the tile leg
+    has no attention form), GAT's attention kernels on the halo partition,
+    ``sgc_pre`` (its precompute removes the graph from training), ``--spmm
+    bsr`` or ``dense`` (they do not partition) and ``hybrid`` on ``halo``.
+    What passes the gates, every family on the JAX defaults (halo, ``--spmm
+    auto`` = segment) among them, needs N GPUs."""
     base = ["train", "--dataset", "R8", "--graph", "docword", "--shards", "4"]
-    with pytest.raises(NotImplementedError, match="A.11b"):
-        cli.main(base + ["--partition", "allgather", "--spmm", "hybrid", "--model", "gat"])
     for flags, match in (
+        (["--partition", "allgather", "--spmm", "hybrid", "--model", "gat"], "no attention form"),
+        (["--partition", "halo", "--spmm", "onehot", "--model", "gat"],
+         "needs the allgather partition"),
+        (["--model", "sgc_pre"], "sgc_pre's precompute"),
         (["--spmm", "bsr"], "don't partition"),
         (["--partition", "allgather", "--spmm", "dense"], "don't partition"),
         (["--partition", "halo", "--spmm", "hybrid"], "allgather partition"),
@@ -408,6 +411,9 @@ def test_cli_refuses_unported_sharding_and_too_few_gpus(monkeypatch):
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
     for flags in (
         [],
+        ["--model", "sage"],
+        ["--model", "gat"],
+        ["--partition", "allgather", "--spmm", "onehot", "--model", "gat"],
         ["--partition", "allgather", "--spmm", "hybrid"],
         ["--partition", "halo", "--spmm", "onehot"],
         ["--partition", "allgather", "--spmm", "segment"],

@@ -1,20 +1,50 @@
-"""Functions that spawned ranks run for ``tests/test_torch_sharded.py`` and
-``tests/test_torch_halo.py``.
+"""Functions that spawned ranks run for ``tests/test_torch_sharded.py``,
+``tests/test_torch_halo.py``, ``tests/test_torch_sharded_families.py`` and
+``tests/test_torch_sharded_gat.py``.
 
 A spawned child imports the module of the function it runs; this one
 imports torch and the port only, never JAX, so a child stays clear of it.
 """
+import contextlib
+import dataclasses
+
 import numpy as np
 import torch
 
-from textgcn_tpu_torch.parallel.distributed import all_gather_rows
+from textgcn_tpu_torch.parallel.distributed import all_gather_rows, all_reduce_sum
 from textgcn_tpu_torch.parallel.halo import HaloPartitionedGraph
+from textgcn_tpu_torch.parallel.mesh_attention import MeshAttentionAllGather
 from textgcn_tpu_torch.parallel.mesh_kernels import (
     MeshHybridAllGather, MeshOneHotAllGather, MeshOneHotHalo, spmm_mesh_hybrid,
 )
 from textgcn_tpu_torch.parallel.partition import ShardCOO, shard_rows
 from textgcn_tpu_torch.parallel.sharded import sharded_spmm, spmm_sharded
-from textgcn_tpu_torch.parallel.trainer import ShardedTrainer
+from textgcn_tpu_torch.parallel.trainer import (
+    SHARDED_MODELS, ShardedTrainer, local_params, node_tables,
+)
+
+@contextlib.contextmanager
+def one_thread():
+    """Run the rank's small tensor work on one CPU thread: the ranks of a
+    spawn (and the other test workers) share the cores, and more threads
+    on tensors this small only contend."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
+
+
+# (kernel, partition) -> layout, with GAT's attention-kernel layout apart
+LAYOUTS = {
+    ("segment", "allgather"): ShardCOO,
+    ("segment", "halo"): HaloPartitionedGraph,
+    ("onehot", "allgather"): MeshOneHotAllGather,
+    ("onehot", "halo"): MeshOneHotHalo,
+    ("hybrid", "allgather"): MeshHybridAllGather,
+    ("attention", "allgather"): MeshAttentionAllGather,
+}
 
 
 def spmm_forward_backward(rank, world, device, row, col, val, n, x, w, min_nnz):
@@ -78,16 +108,53 @@ def halo_and_onehot_passes(rank, world, device, sym, nonsym, x, w):
     return out
 
 
+def family_fwd_bwd(rank, world, device, coo, cases):
+    """For each case ``(name, model, kernel, partition, full, x, w)``: this
+    rank's parameters from the whole model's numpy dict ``full``
+    (``local_params``), the family's sharded forward on the layout of
+    ``(kernel, partition)`` (kernel ``attention``: GAT's kernel layout) with
+    features ``x`` ([n, F], or None for identity features), and the gradients
+    of the masked loss ``sum(logits * w)`` (``w`` [n, C], zero off the mask).
+    Rank 0 returns, for each name, the logits [n, C] gathered over the ranks
+    and the gradients: each node table's rows gathered, each replicated
+    parameter's summed over the ranks."""
+    row, col, val, n = coo
+    out, layouts = {}, {}
+    with one_thread():
+        for name, model, kernel, partition, full, x, w in cases:
+            if (kernel, partition) not in layouts:
+                layouts[kernel, partition] = LAYOUTS[kernel, partition].from_coo(
+                    row, col, val, n, world, rank, device=device
+                )
+            layout = layouts[kernel, partition]
+            rps, identity = layout.rows_per_shard, x is None
+            params = local_params({k: torch.tensor(v) for k, v in full.items()}, model,
+                                  identity, rank, rps)
+            params = {k: v.requires_grad_(True) for k, v in params.items()}
+            x_local = None if identity else torch.from_numpy(shard_rows(x, rank, rps))
+            logits = SHARDED_MODELS[model][1](params, layout, x_local)
+            (logits * torch.from_numpy(shard_rows(w, rank, rps))).sum().backward()
+            tables = node_tables(model) if identity else ()
+            grads = {
+                k: (all_gather_rows(p.grad)[:n] if k in tables else all_reduce_sum(p.grad.clone()))
+                for k, p in params.items()
+            }
+            out[name] = (all_gather_rows(logits.detach())[:n].numpy(),
+                         {k: g.numpy() for k, g in grads.items()})
+    return out if rank == 0 else None
+
+
 def train_combos(rank, world, device, data, config, combos):
-    """``ShardedTrainer`` on this rank for each (kernel, partition) of
-    ``combos``; rank 0 returns [(history, test), ...]."""
+    """``ShardedTrainer`` on this rank for each (model, kernel, partition)
+    of ``combos``; rank 0 returns [(history, test), ...]."""
     runs = []
-    for kernel, partition in combos:
-        t = ShardedTrainer(
-            data.graph(), data.features, data.target, data.train_idx, data.test_idx,
-            data.n_classes, config=config, n_shards=world, rank=rank, device=device,
-            kernel=kernel, partition=partition,
-        )
-        t.fit(verbose=False)
-        runs.append((t.history, t.test()))
+    with one_thread():
+        for model, kernel, partition in combos:
+            t = ShardedTrainer(
+                data.graph(), data.features, data.target, data.train_idx, data.test_idx,
+                data.n_classes, config=dataclasses.replace(config, model=model),
+                n_shards=world, rank=rank, device=device, kernel=kernel, partition=partition,
+            )
+            t.fit(verbose=False)
+            runs.append((t.history, t.test()))
     return runs if rank == 0 else None

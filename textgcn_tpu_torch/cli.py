@@ -12,8 +12,8 @@ Port of ``textgcn_tpu/cli.py``, with its flags and defaults:
 
 ``train`` runs every model family of the JAX registry on the topic graph
 (``--graph topic``, the default, as in the JAX package) or the doc-word
-graph (``--graph docword``), in every ``--spmm`` format of the JAX CLI; the
-GCN also sharded over ``--shards N`` GPUs. ``--seeds`` names the runs'
+graph (``--graph docword``), in every ``--spmm`` format of the JAX CLI; every
+family but ``sgc_pre`` also sharded over ``--shards N`` GPUs. ``--seeds`` names the runs'
 seeds outright. ``--save_model`` / ``--load_model`` save the best run's
 params and evaluate a saved checkpoint; ``--save_state`` / ``--resume``
 save the best run's resumable state and continue it bit for bit. The
@@ -304,10 +304,12 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--shards", type=int, default=None, metavar="N",
-        help="train the GCN row-sharded over N GPUs, one rank each (rank 0 "
-        "in this process, NCCL); needs N visible devices. --spmm auto|segment "
-        "shard the plain segment sums, onehot K2, hybrid K1 and K2 (allgather "
-        "only); other formats raise",
+        help="train the model row-sharded over N GPUs, one rank each (rank 0 "
+        "in this process, NCCL); needs N visible devices. Every family but "
+        "sgc_pre. --spmm auto|segment shard the plain segment sums, onehot K2, "
+        "hybrid K1 and K2 (allgather only); other formats raise. GAT: "
+        "auto|segment the segment softmax (on halo an online softmax over the "
+        "ring), onehot the attention kernels (allgather only); hybrid raises",
     )
     p.add_argument(
         "--partition", default="halo", choices=["halo", "allgather"],

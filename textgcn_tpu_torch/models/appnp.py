@@ -35,6 +35,22 @@ def appnp_init(
     return params
 
 
+def appnp_core(
+    params: Params, agg, x: Optional[torch.Tensor], drop,
+    alpha: float = DEFAULT_ALPHA, k: int = DEFAULT_K,
+) -> torch.Tensor:
+    """The MLP and the K PPR steps over any aggregation ``agg`` (Â ·), with
+    ``drop`` after fc1: the single-device and the sharded forward's one
+    definition."""
+    h = params["fc1.w"] if x is None else x @ params["fc1.w"]
+    h = drop(torch.relu(h + params["fc1.b"]))
+    h = h @ params["fc2.w"] + params["fc2.b"]
+    z = h
+    for _ in range(k):
+        z = (1.0 - alpha) * agg(z) + alpha * h
+    return z
+
+
 def appnp_forward(
     params: Params,
     graph,
@@ -47,13 +63,10 @@ def appnp_forward(
     k: int = DEFAULT_K,
 ) -> torch.Tensor:
     """Logits for all nodes: the MLP's predictions after K PPR steps."""
-    h = params["fc1.w"] if x is None else x @ params["fc1.w"]
-    h = _dropout(torch.relu(h + params["fc1.b"]), dropout, train, generator)
-    h = h @ params["fc2.w"] + params["fc2.b"]
-    z = h
-    for _ in range(k):
-        z = (1.0 - alpha) * spmm(graph, z) + alpha * h
-    return z
+    return appnp_core(
+        params, lambda s: spmm(graph, s), x, lambda h: _dropout(h, dropout, train, generator),
+        alpha, k,
+    )
 
 
 class APPNP(FamilyModule):

@@ -43,9 +43,14 @@ def gcn_init(
     return params
 
 
-def graph_conv(w: torch.Tensor, b: torch.Tensor, graph, x: torch.Tensor) -> torch.Tensor:
-    """One graph convolution: Â (x W) + b."""
-    return spmm(graph, x @ w) + b
+def gcn_core(params: Params, agg, x: Optional[torch.Tensor], drop) -> torch.Tensor:
+    """The two layers over any aggregation: ``agg(s)`` is Â s and ``drop(h)``
+    the dropout between the layers. The single-device forward passes
+    ``spmm(graph, ·)``, the sharded one (``parallel/sharded.py``) its rank's
+    aggregation and row dropout: one definition for both."""
+    support = params["gc1.w"] if x is None else x @ params["gc1.w"]
+    h = drop(torch.relu(agg(support) + params["gc1.b"]))
+    return agg(h @ params["gc2.w"]) + params["gc2.b"]
 
 
 def gcn_forward(
@@ -63,12 +68,9 @@ def gcn_forward(
     is then ``Â @ W1 + b1`` with W1 of shape [n_nodes, n_hidden], and the
     N x N identity is never built. Dropout draws its mask from ``generator``.
     """
-    if x is None:
-        h = spmm(graph, params["gc1.w"]) + params["gc1.b"]
-    else:
-        h = graph_conv(params["gc1.w"], params["gc1.b"], graph, x)
-    h = _dropout(torch.relu(h), dropout, train, generator)
-    return graph_conv(params["gc2.w"], params["gc2.b"], graph, h)
+    return gcn_core(
+        params, lambda s: spmm(graph, s), x, lambda h: _dropout(h, dropout, train, generator)
+    )
 
 
 def gcn_edge_init(
@@ -107,9 +109,7 @@ def gcn_edge_forward(
     def agg(support):
         return spmm_coo_segment_ew(graph.row, graph.col, val, support, graph.n_nodes)
 
-    support = params["gc1.w"] if x is None else x @ params["gc1.w"]
-    h = _dropout(torch.relu(agg(support) + params["gc1.b"]), dropout, train, generator)
-    return agg(h @ params["gc2.w"]) + params["gc2.b"]
+    return gcn_core(params, agg, x, lambda h: _dropout(h, dropout, train, generator))
 
 
 class GCN(FamilyModule):

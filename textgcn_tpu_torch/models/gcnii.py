@@ -52,6 +52,24 @@ def gcnii_init(
     }
 
 
+def gcnii_core(
+    params: Params, agg, x: Optional[torch.Tensor], drop,
+    alpha: float = DEFAULT_ALPHA, lam: float = DEFAULT_LAMBDA,
+) -> torch.Tensor:
+    """The K initial-residual layers over any aggregation ``agg`` (Â ·),
+    with ``drop`` before fc_out: the single-device and the sharded
+    forward's one recurrence (JAX ``gcnii_core``)."""
+    h0 = params["fc_in.w"] if x is None else x @ params["fc_in.w"]
+    h0 = torch.relu(h0 + params["fc_in.b"])
+    deep = params["deep.w"]
+    betas = gcnii_betas(deep.shape[0], lam, device=deep.device)
+    h = h0
+    for w, beta in zip(deep, betas):
+        s = (1.0 - alpha) * agg(h) + alpha * h0
+        h = torch.relu((1.0 - beta) * s + beta * (s @ w))
+    return drop(h) @ params["fc_out.w"] + params["fc_out.b"]
+
+
 def gcnii_forward(
     params: Params,
     graph,
@@ -64,16 +82,10 @@ def gcnii_forward(
     lam: float = DEFAULT_LAMBDA,
 ) -> torch.Tensor:
     """Logits for all nodes through K initial-residual layers."""
-    h0 = params["fc_in.w"] if x is None else x @ params["fc_in.w"]
-    h0 = torch.relu(h0 + params["fc_in.b"])
-    deep = params["deep.w"]
-    betas = gcnii_betas(deep.shape[0], lam, device=deep.device)
-    h = h0
-    for w, beta in zip(deep, betas):
-        s = (1.0 - alpha) * spmm(graph, h) + alpha * h0
-        h = torch.relu((1.0 - beta) * s + beta * (s @ w))
-    h = _dropout(h, dropout, train, generator)
-    return h @ params["fc_out.w"] + params["fc_out.b"]
+    return gcnii_core(
+        params, lambda s: spmm(graph, s), x, lambda h: _dropout(h, dropout, train, generator),
+        alpha, lam,
+    )
 
 
 class GCNII(FamilyModule):

@@ -39,11 +39,20 @@ def gin_init(
     }
 
 
-def _aggregate(eps: torch.Tensor, graph, x: Optional[torch.Tensor], w: torch.Tensor):
-    """((1 + eps) x + Â x) @ w, or the identity-feature table form."""
-    if x is None:
-        return (1.0 + eps) * w + spmm(graph, w)
-    return ((1.0 + eps) * x + spmm(graph, x)) @ w
+def gin_core(params: Params, agg, x: Optional[torch.Tensor], drop) -> torch.Tensor:
+    """The two layers over any aggregation ``agg`` (Â ·) with ``drop``
+    between them: the single-device and the sharded forward's one
+    definition."""
+
+    def aggregate(eps, h, w):
+        # ((1 + eps) h + Â h) @ w, or the identity-feature table form
+        if h is None:
+            return (1.0 + eps) * w + agg(w)
+        return ((1.0 + eps) * h + agg(h)) @ w
+
+    h = torch.relu(aggregate(params["gin1.eps"], x, params["gin1.w1"]) + params["gin1.b1"])
+    h = drop(torch.relu(h @ params["gin1.w2"] + params["gin1.b2"]))
+    return aggregate(params["gin2.eps"], h, params["gin2.w"]) + params["gin2.b"]
 
 
 def gin_forward(
@@ -56,10 +65,9 @@ def gin_forward(
     generator: Optional[torch.Generator] = None,
 ) -> torch.Tensor:
     """Logits for all nodes: gin2(dropout(MLP-layer(x)))."""
-    h = torch.relu(_aggregate(params["gin1.eps"], graph, x, params["gin1.w1"]) + params["gin1.b1"])
-    h = torch.relu(h @ params["gin1.w2"] + params["gin1.b2"])
-    h = _dropout(h, dropout, train, generator)
-    return _aggregate(params["gin2.eps"], graph, h, params["gin2.w"]) + params["gin2.b"]
+    return gin_core(
+        params, lambda s: spmm(graph, s), x, lambda h: _dropout(h, dropout, train, generator)
+    )
 
 
 class GIN(FamilyModule):

@@ -38,11 +38,18 @@ def sage_init(
     return params
 
 
-def _sage_layer(params: Params, name: str, graph, x: Optional[torch.Tensor]) -> torch.Tensor:
-    w_self, w_neigh = params[f"{name}.w_self"], params[f"{name}.w_neigh"]
-    if x is None:
-        return w_self + spmm(graph, w_neigh) + params[f"{name}.b"]
-    return x @ w_self + spmm(graph, x @ w_neigh) + params[f"{name}.b"]
+def sage_core(params: Params, agg, x: Optional[torch.Tensor], drop) -> torch.Tensor:
+    """The two layers over any aggregation ``agg`` (Â ·) with ``drop``
+    between them: the single-device and the sharded forward's one
+    definition."""
+
+    def layer(name, h):
+        w_self, w_neigh = params[f"{name}.w_self"], params[f"{name}.w_neigh"]
+        if h is None:
+            return w_self + agg(w_neigh) + params[f"{name}.b"]
+        return h @ w_self + agg(h @ w_neigh) + params[f"{name}.b"]
+
+    return layer("sage2", drop(torch.relu(layer("sage1", x))))
 
 
 def sage_forward(
@@ -55,8 +62,9 @@ def sage_forward(
     generator: Optional[torch.Generator] = None,
 ) -> torch.Tensor:
     """Logits for all nodes: sage2(dropout(relu(sage1(x))))."""
-    h = _dropout(torch.relu(_sage_layer(params, "sage1", graph, x)), dropout, train, generator)
-    return _sage_layer(params, "sage2", graph, h)
+    return sage_core(
+        params, lambda s: spmm(graph, s), x, lambda h: _dropout(h, dropout, train, generator)
+    )
 
 
 class SAGE(FamilyModule):

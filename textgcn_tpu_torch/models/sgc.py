@@ -31,6 +31,15 @@ def sgc_init(
     return {f"lin.{k}": v for k, v in init_layer(generator, n_feat, n_class, device).items()}
 
 
+def sgc_core(params: Params, agg, x: Optional[torch.Tensor], k: int = DEFAULT_K) -> torch.Tensor:
+    """Â^k (X W) + b over any aggregation ``agg`` (Â ·): the single-device
+    and the sharded forward's one definition."""
+    h = params["lin.w"] if x is None else x @ params["lin.w"]
+    for _ in range(k):
+        h = agg(h)
+    return h + params["lin.b"]
+
+
 def sgc_forward(
     params: Params,
     graph,
@@ -44,10 +53,7 @@ def sgc_forward(
     """Logits for all nodes: Â^k (X W) + b. ``x=None`` selects identity
     features: W is then the [n_nodes, n_class] node table."""
     del dropout, train, generator
-    h = params["lin.w"] if x is None else x @ params["lin.w"]
-    for _ in range(k):
-        h = spmm(graph, h)
-    return h + params["lin.b"]
+    return sgc_core(params, lambda s: spmm(graph, s), x, k)
 
 
 def sgc_precompute(graph, x: torch.Tensor, k: int = DEFAULT_K) -> torch.Tensor:

@@ -79,7 +79,16 @@ def det_exp(x: torch.Tensor) -> torch.Tensor:
     call; later calls, and one-thread runs, are exact). ``exp2`` does not
     share that path. The extra rounding of ``x * log2(e)`` costs ~|x|·2^-24
     relative, far below every tolerance these values meet.
+
+    On the CPU an element's f32 ``exp2`` also depends on where it falls:
+    the vector loop and its scalar tail differ in the last bit, and where a
+    tail falls depends on the tensor's length and on the threads. So the
+    CPU takes it in f64 and rounds once to f32, which gives an element the
+    same bits wherever it lies (the same edges of a row alone or in the
+    whole graph, as on the card, whose ``exp2`` is elementwise).
     """
+    if x.device.type == "cpu":
+        return torch.exp2(x.double() * _LOG2E).to(x.dtype)
     return torch.exp2(x * _LOG2E)
 
 

@@ -1,3 +1,4 @@
-"""Multi-device GCN training over ``torch.distributed`` (port of
-:mod:`textgcn_tpu.parallel`): the row partition, the per-rank hybrid tile +
-residual aggregation on K1 and K2, the sharded trainer and its launcher."""
+"""Multi-device training of every family over ``torch.distributed`` (port
+of :mod:`textgcn_tpu.parallel`): the row partition, the halo ring, the
+per-rank aggregation on K1 and K2, sharded GAT on the attention kernels, the
+sharded trainer and its launcher."""

@@ -12,6 +12,16 @@ that share one GPU (NCCL refuses two ranks on one device).
 ``SLURM_NTASKS``) variables for rank and world size. Nothing in a machine's
 environment names the job's address otherwise: a run started by hand passes
 it (``tcp://host:port`` or a ``file://`` store).
+
+:func:`all_gather_rows` and :func:`ring_shift` move tensors without
+autograd, for the passes whose backward is written out (the GCN paths).
+:func:`all_gather_rows_ad` and :func:`ring_shift_ad` are the same
+collectives as autograd ops, with the transposes that ``shard_map``'s
+autodiff gives their JAX counterparts: the all-gather's backward sums the
+gathered cotangent over the ranks and keeps the rank's rows (the
+reduce-scatter of ``all_gather(tiled=True)``), a shift's backward is the
+opposite shift (``ppermute``'s). Every rank runs the backward's collectives
+in the same order, because every rank builds the same graph.
 """
 from __future__ import annotations
 
@@ -116,3 +126,44 @@ def ring_shift(t: torch.Tensor, step: int, group=None) -> torch.Tensor:
     ]):
         req.wait()
     return recv.to(t.device) if staged else recv
+
+
+class _AllGatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x_local, group):
+        ctx.group, ctx.rows = group, x_local.shape[0]
+        return all_gather_rows(x_local, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        # the reduce-scatter as an all-reduce and a slice: gloo has no
+        # reduce_scatter to count on
+        g = all_reduce_sum(g.contiguous().clone(), ctx.group)
+        r0 = dist.get_rank(ctx.group) * ctx.rows
+        return g[r0 : r0 + ctx.rows], None
+
+
+def all_gather_rows_ad(x_local: torch.Tensor, group=None) -> torch.Tensor:
+    """:func:`all_gather_rows` differentiable in ``x_local``: the gradient
+    of the ``[n_pad, F]`` table is summed over the ranks and each rank keeps
+    its ``[rps, F]`` rows. Every rank of the group calls it, and its
+    backward, together."""
+    return _AllGatherRows.apply(x_local, group)
+
+
+class _RingShift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, step, group):
+        ctx.step, ctx.group = step, group
+        return ring_shift(t, step, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ring_shift(g, -ctx.step, ctx.group), None, None
+
+
+def ring_shift_ad(t: torch.Tensor, step: int, group=None) -> torch.Tensor:
+    """:func:`ring_shift` differentiable in ``t``: the cotangent travels
+    back the opposite way. Every rank of the group calls it, and its
+    backward, together."""
+    return _RingShift.apply(t, step, group)

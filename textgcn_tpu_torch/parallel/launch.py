@@ -155,7 +155,8 @@ def _train_seeds(rank, world, device, data: HostData, seeds, config, kernel, par
         params = None
         if params_np is not None:
             params = shard_params_from_jax(
-                params_np, rank, trainer.rps, data.features is None, device=device
+                params_np, rank, trainer.rps, data.features is None, model=config.model,
+                device=device,
             )
         trainer.fit(verbose=verbose and rank == 0, params=params)
         runs.append({
@@ -184,7 +185,8 @@ def run_sharded_seeds(
     """Train each seed on ``n_shards`` ranks (rank ``r`` on ``devices[r]``)
     and return rank 0's runs: ``{"seed", "test", "epochs_run", "history"}``
     each, as :func:`~textgcn_tpu_torch.train.run.run_experiment` reports
-    them. ``params_np``: the JAX ``ShardedTrainer``'s starting parameters
+    them. ``params_np``: the JAX ``ShardedTrainer``'s starting parameters of
+    the family ``config.model``
     (:func:`~textgcn_tpu_torch.parallel.trainer.shard_params_from_jax`)."""
     if any(torch.device(d).type == "cuda" for d in devices):
         _build.build()  # one nvcc run here, not one per rank at its first launch

@@ -1,7 +1,8 @@
-"""Full-batch GCN training with the rows sharded over a process group.
+"""Full-batch training of every family with the rows sharded over a
+process group.
 
-Port of ``textgcn_tpu/parallel/trainer.py`` (``ShardedTrainer`` for
-``model="gcn"``, ``masks_for_split``, ``metrics_from_confusion``) onto
+Port of ``textgcn_tpu/parallel/trainer.py`` (``SHARDED_MODELS``,
+``ShardedTrainer``, ``masks_for_split``, ``metrics_from_confusion``) onto
 ``torch.distributed``. Every rank of the group builds one
 ``ShardedTrainer`` with its own ``rank`` and calls the same methods in the
 same order; each step's collectives pair up across ranks.
@@ -11,7 +12,11 @@ same order; each step's collectives pair up across ranks.
   rank gathers all feature rows). ``kernel`` is ``"segment"`` (the JAX
   default: plain PyTorch sums), ``"onehot"`` (K2 per rank, or per ring
   step on the halo buckets; :mod:`~textgcn_tpu_torch.parallel.mesh_kernels`)
-  or ``"hybrid"`` (K1 and K2 per rank, allgather only). The gates are the
+  or ``"hybrid"`` (K1 and K2 per rank, allgather only). ``config.model`` is
+  any family of :data:`SHARDED_MODELS`: every family but GAT runs on every
+  (kernel, partition); GAT runs its segment softmax on either partition and
+  the attention kernels on ``onehot``/``allgather``
+  (:mod:`~textgcn_tpu_torch.parallel.mesh_attention`). The gates are the
   JAX trainer's (:func:`check_sharded`).
 - ``kernel="hybrid"`` degree-sorts the graph (features, labels and splits
   are permuted alike, as the JAX trainer does); the other kernels keep the
@@ -19,7 +24,8 @@ same order; each step's collectives pair up across ranks.
 - The loss is the global masked mean: each rank sums ``nll`` over its train
   rows and divides by the global train count; the gradients of the
   replicated parameters are summed over the ranks before Adam steps. With
-  identity features layer 1's ``[rows_per_shard, H]`` table rows are the
+  identity features the rows of layer 1's node tables (the leaves of the
+  family's layer-1 group that take the input width: two for SAGE) are the
   rank's own parameters.
 - Validation and test metrics come from a ``[C, C]`` confusion matrix summed
   over the ranks, with the val loss in the same all-reduce; every rank reads
@@ -30,8 +36,8 @@ same order; each step's collectives pair up across ranks.
   of ranks, and follows the single-device run of the same kernel up to the
   order of float sums.
 
-Not ported yet: the other model families sharded (ROADMAP A.11b), sharded
-checkpoints (A.11c) and the ``epoch_block`` scan.
+Not ported yet: sharded checkpoints (ROADMAP A.11c) and the
+``epoch_block`` scan.
 """
 from __future__ import annotations
 
@@ -44,17 +50,40 @@ import torch.nn.functional as F
 
 from textgcn_tpu_torch.graph.format import permute_rows
 from textgcn_tpu_torch.graph.reorder import degree_sort_permutation
-from textgcn_tpu_torch.models.gcn import LAYERS, Params, gcn_init
+from textgcn_tpu_torch.models.appnp import appnp_init
+from textgcn_tpu_torch.models.family import params_from_jax
+from textgcn_tpu_torch.models.gat import gat_init
+from textgcn_tpu_torch.models.gcn import Params, gcn_init
+from textgcn_tpu_torch.models.gcnii import gcnii_init
+from textgcn_tpu_torch.models.gin import gin_init
+from textgcn_tpu_torch.models.sage import sage_init
+from textgcn_tpu_torch.models.sgc import sgc_init
 from textgcn_tpu_torch.parallel.distributed import all_reduce_sum
 from textgcn_tpu_torch.parallel.halo import HaloPartitionedGraph
+from textgcn_tpu_torch.parallel.mesh_attention import MeshAttentionAllGather
 from textgcn_tpu_torch.parallel.mesh_kernels import (
     MeshHybridAllGather, MeshOneHotAllGather, MeshOneHotHalo,
 )
 from textgcn_tpu_torch.parallel.partition import ShardCOO, shard_rows
-from textgcn_tpu_torch.parallel.sharded import sharded_gcn_forward
+from textgcn_tpu_torch.parallel.sharded import (
+    sharded_appnp_forward, sharded_gat_forward, sharded_gcn_forward, sharded_gcnii_forward,
+    sharded_gin_forward, sharded_sage_forward, sharded_sgc_forward,
+)
 from textgcn_tpu_torch.train.prepare import permute_rows_1d_docs
 from textgcn_tpu_torch.train.trainer import EarlyStopping, TrainConfig, train_val_split
 
+# family -> (init, sharded forward, layer-1 key), JAX's registry: under
+# identity features the layer-1 group's node tables are rank-local. sgc_pre
+# is not in it: its precompute removes the graph from training
+SHARDED_MODELS = {
+    "gcn": (gcn_init, sharded_gcn_forward, "gc1"),
+    "gat": (gat_init, sharded_gat_forward, "gat1"),
+    "sage": (sage_init, sharded_sage_forward, "sage1"),
+    "sgc": (sgc_init, sharded_sgc_forward, "lin"),
+    "appnp": (appnp_init, sharded_appnp_forward, "fc1"),
+    "gin": (gin_init, sharded_gin_forward, "gin1"),
+    "gcnii": (gcnii_init, sharded_gcnii_forward, "fc_in"),
+}
 SHARDED_KERNELS = ("segment", "onehot", "hybrid")
 SHARDED_PARTITIONS = ("halo", "allgather")
 # --spmm choices a sharded run takes (JAX's train/run.py gate)
@@ -85,18 +114,34 @@ def sharded_kernel(spmm: str) -> str:
 
 
 def check_sharded(model: str, kernel: str, partition: str) -> None:
-    """Raise for a sharded configuration the port does not run: a family
-    other than the GCN (not ported yet), and the JAX trainer's gates on the
-    kernel and the partition."""
-    if model != "gcn":
-        raise NotImplementedError(
-            f"sharded training runs --model gcn so far, got {model!r} (ROADMAP "
-            "A.11b: the other families and GAT sharded)"
+    """Raise for a sharded configuration that does not run, with the JAX
+    package's gates and messages (``train/run.py``, ``ShardedTrainer``): a
+    family outside :data:`SHARDED_MODELS` (``sgc_pre``), GAT on ``hybrid``,
+    GAT's attention kernels off the all-gather partition, ``hybrid`` off
+    it."""
+    if model not in SHARDED_MODELS:
+        raise ValueError(
+            f"sharded training supports the {', '.join(sorted(SHARDED_MODELS))} "
+            "families (sgc_pre's precompute removes the graph from training — "
+            f"use --model sgc with --shards), got {model!r}"
         )
     if kernel not in SHARDED_KERNELS:
         raise ValueError(f"unknown mesh kernel: {kernel}")
     if partition not in SHARDED_PARTITIONS:
         raise ValueError(f"unknown partition strategy: {partition}")
+    if model == "gat" and kernel not in ("segment", "onehot"):
+        raise ValueError(
+            "sharded GAT runs on kernel='segment' (COO edge stream; allgather "
+            "or halo partition) or kernel='onehot' (the attention kernels, "
+            "allgather partition); the hybrid BSR leg has no attention form"
+        )
+    if model == "gat" and kernel == "onehot" and partition != "allgather":
+        raise ValueError(
+            "sharded GAT with kernel='onehot' needs the allgather partition: "
+            "row-partitioning keeps every softmax row's edges on its owner "
+            "shard, which is what makes the attention kernels purely local; "
+            "the halo ring's online softmax stays on kernel='segment'"
+        )
     if kernel == "hybrid" and partition != "allgather":
         raise ValueError(
             "kernel='hybrid' runs on the allgather partition (the halo ring "
@@ -139,37 +184,49 @@ def metrics_from_confusion(conf: np.ndarray) -> Dict[str, float]:
     }
 
 
-def _local_params(full: Params, identity: bool, shard: int, rps: int) -> Params:
-    """A rank's parameters from the whole model's: with identity features
-    its rows of the ``[n, H]`` layer-1 table (zero past the last node)."""
-    out = {k: v.detach().clone() for k, v in full.items()}
-    if identity:
-        w1 = full["gc1.w"]
-        local = w1.new_zeros((rps, w1.shape[1]))
-        part = w1[shard * rps : (shard + 1) * rps]
-        local[: len(part)] = part
-        out["gc1.w"] = local
-    return out
+def node_tables(model: str) -> tuple:
+    """The keys of family ``model``'s node tables under identity features:
+    the leaves of its layer-1 group whose shape follows the input width
+    (``gc1.w``; SAGE's ``sage1.w_self`` and ``sage1.w_neigh``; ...), found by
+    drawing the family at two input widths."""
+    init, _, layer1 = SHARDED_MODELS[model]
+    a, b = (init(torch.Generator(), n, 8, 2, device="cpu") for n in (1, 2))
+    return tuple(k for k in a if k.startswith(layer1 + ".") and a[k].shape != b[k].shape)
+
+
+def _rank_rows(t: torch.Tensor, shard: int, rps: int) -> torch.Tensor:
+    """Rank ``shard``'s ``[rps, ·]`` rows of a node table (zero past its end)."""
+    local = t.new_zeros((rps, *t.shape[1:]))
+    part = t[shard * rps : (shard + 1) * rps]
+    local[: len(part)] = part
+    return local
+
+
+def local_params(full: Params, model: str, identity: bool, shard: int, rps: int) -> Params:
+    """A rank's parameters from the whole model's (any node tables' row
+    count: ``n_nodes`` or JAX's ``n_pad``): with identity features its rows
+    of each of the family's node tables, every other leaf replicated."""
+    tables = node_tables(model) if identity else ()
+    return {
+        k: (_rank_rows(v.detach(), shard, rps) if k in tables else v.detach().clone())
+        for k, v in full.items()
+    }
 
 
 def shard_params_from_jax(
-    params_np: dict, shard: int, rows_per_shard: int, identity: bool, *, device
+    params_np: dict, shard: int, rows_per_shard: int, identity: bool, *, model: str = "gcn",
+    device,
 ) -> Params:
-    """The JAX ``ShardedTrainer``'s parameters (the pytree ``{"gc1": {"w",
-    "b"}, "gc2": {...}}`` of host arrays; with identity features ``gc1.w`` is
-    its ``[n_pad, H]`` table) → rank ``shard``'s flat f32 parameter dict."""
-    out = {}
-    for layer in LAYERS:
-        for k in ("w", "b"):
-            a = np.asarray(params_np[layer][k], dtype=np.float32)
-            if identity and (layer, k) == ("gc1", "w"):
-                a = shard_rows(a, shard, rows_per_shard)
-            out[f"{layer}.{k}"] = torch.tensor(a, device=device)
-    return out
+    """The JAX ``ShardedTrainer``'s parameters of family ``model`` (its
+    pytree of host arrays; with identity features the node tables are
+    ``[n_pad, ·]``) → rank ``shard``'s flat f32 parameter dict."""
+    return local_params(params_from_jax(params_np, device=device), model, identity, shard,
+                        rows_per_shard)
 
 
 class ShardedTrainer:
-    """Trains the 2-layer GCN full-batch as rank ``rank`` of ``n_shards``.
+    """Trains family ``config.model`` full-batch as rank ``rank`` of
+    ``n_shards``.
 
     ``graph`` is the whole graph as a
     :class:`~textgcn_tpu_torch.graph.structs.SparseGraph` (any device; its
@@ -213,7 +270,9 @@ class ShardedTrainer:
                 features = permute_rows(np.asarray(features, dtype=np.float32), perm)
             target = permute_rows_1d_docs(np.asarray(target), perm)
             train_idx, test_idx = perm[np.asarray(train_idx)], perm[np.asarray(test_idx)]
-        self.graph = _LAYOUTS[kernel, partition].from_coo(
+        layout = (MeshAttentionAllGather if (config.model, kernel) == ("gat", "onehot")
+                  else _LAYOUTS[kernel, partition])
+        self.graph = layout.from_coo(
             row, col, val, n, n_shards, rank, device=self.device
         )
         self.rps, self.n_pad = self.graph.rows_per_shard, self.graph.n_pad
@@ -237,7 +296,7 @@ class ShardedTrainer:
         return self._local(masks_for_split(self.n_pad, idx))
 
     def _forward(self, train: bool, generator=None) -> torch.Tensor:
-        return sharded_gcn_forward(
+        return SHARDED_MODELS[self.cfg.model][1](
             self.params, self.graph, self.x, group=self.group,
             dropout=self.cfg.dropout, train=train, generator=generator,
         )
@@ -253,8 +312,8 @@ class ShardedTrainer:
 
         ``params``: this rank's starting parameters (e.g.
         :func:`shard_params_from_jax`); by default the whole model is drawn
-        from the generator seeded with ``cfg.seed`` and the rank keeps its
-        rows.
+        from the generator seeded with ``cfg.seed``, as the single-device
+        ``Trainer`` draws it, and the rank keeps its rows.
         """
         cfg, C = self.cfg, self.num_classes
         tr, va = train_val_split(self.train_idx_all, cfg.val_ratio, cfg.seed)
@@ -262,15 +321,20 @@ class ShardedTrainer:
         identity = self.x is None
         n_feat = self.n_nodes if identity else self.x.shape[1]
         gen = torch.Generator(device=self.device).manual_seed(cfg.seed)
+        init = SHARDED_MODELS[cfg.model][0]
         if params is None:
-            full = gcn_init(gen, n_feat, cfg.n_hidden, C, device=self.device)
-            params = _local_params(full, identity, self.rank, self.rps)
+            full = init(gen, n_feat, cfg.n_hidden, C, device=self.device)
+            params = local_params(full, cfg.model, identity, self.rank, self.rps)
             del full
         self.params = {k: v.detach().clone().requires_grad_(True) for k, v in params.items()}
-        # the single-device count: the layer-1 table has n_feat rows
-        self.model_param = n_feat * cfg.n_hidden + cfg.n_hidden + (cfg.n_hidden + 1) * C
+        tables = node_tables(cfg.model) if identity else ()
+        # the single-device count: each node table has n_nodes rows
+        self.model_param = sum(
+            self.n_nodes * v.shape[1] if k in tables else v.numel()
+            for k, v in self.params.items()
+        )
         # every rank holds and updates the same copy of these
-        replicated = [k for k in self.params if not (identity and k == "gc1.w")]
+        replicated = [k for k in self.params if k not in tables]
         opt = torch.optim.Adam(self.params.values(), lr=cfg.lr, betas=(0.9, 0.999), eps=1e-8)
         stopper = EarlyStopping(cfg.early_stopping)
 

@@ -4,7 +4,7 @@ human/machine reports.
 Port of ``textgcn_tpu/train/run.py`` (``run_experiment`` on the topic or
 doc-word graph, on one device for every model family with GAT's own
 layouts and ``sgc_pre``'s precompute, and sharded over ``n_shards`` devices
-for the GCN; ``resume_training``, ``evaluate_checkpoint``,
+for every family but ``sgc_pre``; ``resume_training``, ``evaluate_checkpoint``,
 ``generate_seeds``, ``aggregate``, ``write_reports``). The three entry
 points share one preparation (:func:`_prepare_for_training`: the checks,
 the data, the graph format, the precompute), so a resumed or evaluated run
@@ -196,7 +196,8 @@ def run_experiment(
     runs in this process. ``partition`` is ``halo`` (the JAX default) or
     ``allgather``; the kernel is what ``config.spmm`` names under
     ``--shards`` (:func:`~textgcn_tpu_torch.parallel.trainer.sharded_kernel`:
-    ``auto`` is ``segment``, as in JAX); see
+    ``auto`` is ``segment``, as in JAX), for any family of
+    :data:`~textgcn_tpu_torch.parallel.trainer.SHARDED_MODELS`; see
     :func:`~textgcn_tpu_torch.parallel.trainer.check_sharded` for what runs.
     """
     device = torch.device(device)

@@ -40,8 +40,9 @@ class TrainSection:
     on the run: in the JAX package it sets how many epochs one compiled
     ``lax.scan`` block dispatches, which changes dispatch only (its results
     are bit-identical across block sizes). The port's counterpart would be a
-    CUDA graph of the train step (ROADMAP A.3). ``shards`` / ``partition`` train the GCN row-sharded, as
-    ``cli train --shards`` does (``halo`` by default, as in the JAX package).
+    CUDA graph of the train step (ROADMAP A.3). ``shards`` / ``partition`` train the model row-sharded
+    (any family but ``sgc_pre``), as ``cli train --shards`` does (``halo`` by default, as in the JAX
+    package).
     """
 
     times: int = 1
