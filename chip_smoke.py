@@ -77,6 +77,26 @@ drives the port's paths: on R8 doc-word, then on R8's topic graph:
   bit-equal, their launches counted; then ten Adam steps of
   ``gcn_edge_forward`` on R8 doc-word at n_hidden 200: the loss must fall
   and ``edge_logit`` move off 0.
+- Sharded checkpoints and streaming on the ranks (route B.4). "sharded
+  checkpoint": the R8 doc-word GCN on 4 gloo ranks on this card under
+  hybrid/allgather, straight and through a saved and resumed state (the
+  histories bit-equal, K1 and K2 launched on rank 0); the sharded model
+  loaded on one card under --spmm hybrid and onehot (test accuracy within
+  LOAD_GAP of the sharded run's); a single-card segment state resumed on
+  the ranks under segment/halo (within FAMILY_GAP of the single card).
+  "mesh stream ranks": R8 doc-word's halo sorted buckets on 4 gloo ranks,
+  F=128 bf16: every B11 launch of a pass against its plain version, two
+  passes and the bucket files' pass bit-equal, the stacked pass within
+  MESH_TOL of |A||x| of the single card's stream, MESH_STEPS Adam steps of
+  the sharded streamed GCN within MESH_LOSS_TOL of the single card's.
+  After the streamed families, "mesh stream pass" and "mesh stream train":
+  the ring at P = 1 (an NCCL group of one) on the 10M-node lattice at
+  F=128, bit-equal to the single-card stream (its seconds a pass, edges/s,
+  K2's launches, peak memory), and one step each of the sharded GCN, SGC
+  and APPNP bit-equal to the single-card step. In the topic slice,
+  "sharded checkpoint cli": ``train --shards 1`` with ``--save_model`` and
+  ``--save_state``, then ``--resume`` (its report names ``sharding`` and
+  ``resumed_from``) and ``--load_model`` (the saved run's accuracy).
 
 - Topic slice (TopicGCN on R8's topic graph, from copies of the committed
   artifacts in a temporary directory; the checkout's theta cache is read,
@@ -159,6 +179,7 @@ lines are the kernels' JSON record, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
 """
 import contextlib
+import dataclasses
 import io
 import json
 import math
@@ -554,8 +575,10 @@ def stream_accuracy_phase(dev, r8_graph, labels, sg):
 
 def stream_phases(dev, gen, records, yard, r8_graph, r8_labels):
     """The streamed (beyond-memory) slice; returns K2's launches in the
-    streamed train runs of the six families."""
+    streamed train runs of the six families, and in the P = 1 ring's pass
+    and steps (route B.4)."""
     from textgcn_tpu_torch.graph.format import convert_graph
+    from textgcn_tpu_torch.parallel.launch import spawn_ranks
     from textgcn_tpu_torch.ops.row_reduce import row_reduce, row_reduce_plain
     from textgcn_tpu_torch.ops.spmm import spmm, spmm_coo_segment
     from textgcn_tpu_torch.ops import streamed_sorted as ss
@@ -649,12 +672,24 @@ def stream_phases(dev, gen, records, yard, r8_graph, r8_labels):
     mask = (torch.rand(n, generator=gen, device=dev) < 0.5).float()
     data = (src, n_chunks, n, lattice.n_edges, x, y, mask)
     launches, loss_k, grads_k0 = stream_train_phase("gcn", dev, data)
+    singles = {"gcn": (loss_k, grads_k0)}
     host, pin_s = wall(lambda: pinned_copies(list(src)))
     for family in STREAM_PASSES:
         if family != "gcn":
-            launches += stream_train_phase(family, dev, data)[0]
+            fam_launches, fam_loss, fam_grads = stream_train_phase(family, dev, data)
+            launches += fam_launches
+            if family in ("sgc", "appnp"):
+                singles[family] = (fam_loss, fam_grads)
     total_bytes = src.cached_bytes
-    del src, data
+
+    # 13b. mesh stream pass / train: route B.4 at P = 1 (an NCCL group of one)
+    t_phase = time.perf_counter()
+    mesh_launches, pass_line, train_line = spawn_ranks(
+        mesh_stream_one_rank, 1, (src, x, y, mask, singles), backend="nccl",
+        devices=["cuda:0"], timeout_s=600.0)
+    log("mesh stream pass", pass_line)
+    log("mesh stream train", f"{train_line}; phase {time.perf_counter() - t_phase:.1f} s")
+    del src, data, singles
 
     # 14. stream beyond: the device cache holds half the chunks' bytes, the
     # rest are copied in from pinned host memory on each of the step's passes
@@ -726,7 +761,7 @@ def stream_phases(dev, gen, records, yard, r8_graph, r8_labels):
 
     # 15b. stream accuracy: the streamed GCN step and the resident Trainer
     stream_accuracy_phase(dev, r8_graph, r8_labels, sg)
-    return launches
+    return launches, mesh_launches
 
 
 def shard_phase(dev, gen, records, yard, h, row, col, val):
@@ -923,7 +958,7 @@ def train_sharded_ranks(pre, counters, run1):
     (run,) = run_sharded_seeds(
         data, generate_seeds(1, SEED), TrainConfig(spmm="hybrid"), SHARDS,
         backend="gloo", devices=["cuda:0"] * SHARDS,
-    )
+    )["runs"]
     wall_s = time.perf_counter() - t0
     launches = {k: sum(fn.launches for fn in fns) for k, fns in counters.items()}
     if min(launches["bsr_leg"], launches["row_reduce"]) < 1:
@@ -1446,6 +1481,351 @@ def sharded_cli_phase(cli, counters, root, seg):
     if abs(gap) > FAMILY_GAP:
         raise AssertionError(f"the sharded CLI GAT is {gap:+.4f} off its single-card segment run")
     return launches
+
+
+# the sharded checkpoint phases: the epochs of a straight run (cut at half of
+# them, saved and resumed), and the largest gap of a single-card load of the
+# sharded model to the sharded run's test accuracy (the same params; the
+# sums in another order, bf16 features on both kernels' layouts)
+CKPT_EPOCHS = 20
+LOAD_GAP = 0.002
+# the sorted ring of R8 doc-word at SHARDS ranks against the single card's
+# stream over the whole CSR: f32 sums of the same bf16 x f32 products in
+# another order (a bucket a ring step), within this share of the sum of the
+# terms' magnitudes (|A| |x|), and the train steps' losses within this
+MESH_TOL, MESH_LOSS_TOL, MESH_STEPS = 1e-5, 1e-3, 20
+
+
+def checkpoint_rank(rank, world, device, data, seed, jobs):
+    """One of SHARDS gloo ranks of "sharded checkpoint": for each job
+    ``(name, kernel, partition, max_epoch, resume_from, saves)`` the GCN on
+    ``data`` from ``seed`` (no early stop), resumed from ``resume_from``
+    where it is set, then saved (``saves``: ("state" | "model", path)), every
+    launch count set to 0 before each (rank 0 runs in the smoke's process).
+    Rank 0 returns one dict a job."""
+    from textgcn_tpu_torch.ops.bsr_spmm import bsr_leg
+    from textgcn_tpu_torch.ops.row_reduce import row_reduce
+    from textgcn_tpu_torch.parallel.trainer import ShardedTrainer
+    from textgcn_tpu_torch.train.trainer import TrainConfig
+
+    out = []
+    for name, kernel, partition, max_epoch, resume_from, saves in jobs:
+        for fn in (bsr_leg, row_reduce):
+            fn.launches = 0
+        t0 = time.perf_counter()
+        t = ShardedTrainer(
+            data.graph(), data.features, data.target, data.train_idx, data.test_idx,
+            data.n_classes, config=TrainConfig(seed=seed, max_epoch=max_epoch,
+                                               early_stopping=10 * CKPT_EPOCHS),
+            n_shards=world, rank=rank, device=device, kernel=kernel, partition=partition,
+        )
+        t.fit(verbose=False, resume_from=resume_from)
+        launches = {"bsr_leg": bsr_leg.launches, "row_reduce": row_reduce.launches}
+        for kind, path in saves:
+            (t.save_training_state if kind == "state" else t.save)(path)
+        out.append({"name": name, "history": t.history, "test": t.test(), "launches": launches,
+                    "residual": getattr(t.graph, "rest", None) is not None,
+                    "wall_s": time.perf_counter() - t0})
+    return out if rank == 0 else None
+
+
+def sharded_checkpoint_phase(pre, tmp):
+    """sharded checkpoint: the R8 doc-word GCN (identity features: the node
+    tables are split over the ranks) on SHARDS gloo ranks on this card at
+    HYBRID_SEED, dropout on. Under hybrid/allgather a straight run of
+    CKPT_EPOCHS epochs, and half of them saved with ``save_training_state``
+    and resumed: the histories must be equal bit for bit, and K1 (B10) and
+    K2 must launch on rank 0. The straight run's model, loaded into the
+    single-card Trainer under --spmm hybrid and under --spmm onehot, must
+    give test accuracies within LOAD_GAP of the sharded run's. A single-card
+    segment state saved at half the epochs, resumed on the ranks under
+    segment/halo, must land within FAMILY_GAP of the uninterrupted
+    single-card run. Returns rank 0's launches of the hybrid runs."""
+    from textgcn_tpu_torch.parallel.launch import HostData, spawn_ranks
+    from textgcn_tpu_torch.train.prepare import apply_spmm_format
+    from textgcn_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    t_phase = time.perf_counter()
+    dev, half = pre.graph.val.device, CKPT_EPOCHS // 2
+    paths = {k: os.path.join(tmp, k) for k in ("model", "state", "single_state")}
+
+    def single(p, max_epoch):
+        lab = p.labels
+        return Trainer(p.graph, p.features, lab.target, lab.train_idx, lab.test_idx,
+                       lab.n_classes, config=TrainConfig(seed=HYBRID_SEED, max_epoch=max_epoch,
+                                                         early_stopping=10 * CKPT_EPOCHS),
+                       device=dev, perm=p.perm)
+
+    straight1 = single(pre, CKPT_EPOCHS)
+    straight1.fit(verbose=False)
+    single_acc = straight1.test()["acc"]
+    first1 = single(pre, half)
+    first1.fit(verbose=False)
+    first1.save_training_state(paths["single_state"])
+    del straight1, first1
+    jobs = [
+        ("straight", "hybrid", "allgather", CKPT_EPOCHS, None, [("model", paths["model"])]),
+        ("first", "hybrid", "allgather", half, None, [("state", paths["state"])]),
+        ("resumed", "hybrid", "allgather", CKPT_EPOCHS, paths["state"], []),
+        ("from single", "segment", "halo", CKPT_EPOCHS, paths["single_state"], []),
+    ]
+    t0 = time.perf_counter()
+    runs = {r["name"]: r for r in spawn_ranks(
+        checkpoint_rank, SHARDS, (HostData.from_prepared(pre), HYBRID_SEED, jobs),
+        backend="gloo", devices=["cuda:0"] * SHARDS, timeout_s=900.0)}
+    spawn_s = time.perf_counter() - t0
+    straight, first, resumed = (runs[k] for k in ("straight", "first", "resumed"))
+    for r in runs.values():
+        check_run(r, f"sharded checkpoint {r['name']}")
+    bits = first["history"] + resumed["history"] == straight["history"]
+    launches = {k: sum(runs[j]["launches"][k] for j in ("straight", "first", "resumed"))
+                for k in ("bsr_leg", "row_reduce")}
+    need = ("bsr_leg", "row_reduce") if straight["residual"] else ("bsr_leg",)
+    loads = {}
+    for fmt in ("hybrid", "onehot"):
+        t = single(apply_spmm_format(pre, fmt), CKPT_EPOCHS)
+        t.load(paths["model"])
+        loads[fmt] = t.evaluate(t.test_idx)["acc"]
+        del t
+    acc = straight["test"]["acc"]
+    from_single = runs["from single"]["test"]["acc"]
+    log("sharded checkpoint", f"R8 doc-word GCN, {SHARDS} gloo ranks on cuda:0, seed "
+        f"{HYBRID_SEED}, hybrid/allgather: straight {CKPT_EPOCHS} epochs "
+        f"({straight['wall_s']:.1f} s, test acc {acc:.4f}), {half} epochs + "
+        f"save_training_state ({first['wall_s']:.1f} s), resumed to {CKPT_EPOCHS} "
+        f"({resumed['wall_s']:.1f} s): histories bit-equal {bits}; rank 0 launches "
+        f"{launches}; the sharded model on one card: hybrid acc {loads['hybrid']:.4f}, onehot "
+        f"{loads['onehot']:.4f} (limit ±{LOAD_GAP}); a single-card segment state (epoch "
+        f"{half}) resumed on the ranks under segment/halo: acc {from_single:.4f} vs the "
+        f"single card's {single_acc:.4f} (limit ±{FAMILY_GAP}); {spawn_s:.1f} s with spawn, "
+        f"phase {time.perf_counter() - t_phase:.1f} s")
+    if not bits:
+        raise AssertionError("the resumed sharded run differs from the straight run")
+    if min(launches[k] for k in need) < 1:
+        raise AssertionError(f"a kernel of the sharded hybrid never launched on rank 0: {launches}")
+    if max(abs(a - acc) for a in loads.values()) > LOAD_GAP:
+        raise AssertionError(f"the sharded model on one card: {loads} vs {acc}")
+    if abs(from_single - single_acc) > FAMILY_GAP:
+        raise AssertionError(f"a single-card state resumed sharded: {from_single} vs {single_acc}")
+    return launches
+
+
+def sharded_checkpoint_cli_phase(cli, counters, root, tmp):
+    """sharded checkpoint cli: ``cli train --dataset R8 --shards 1`` (an
+    NCCL group of one, segment) with ``--save_model A --save_state B`` after
+    CKPT_EPOCHS epochs; ``--resume B`` to 1.5 times that, whose report names
+    its sharding and ``resumed_from``; ``--load_model A`` (one card) must
+    print the saved run's test accuracy."""
+    model, state = os.path.join(tmp, "cli_model"), os.path.join(tmp, "cli_state")
+    flags = ["--data_root", root, "--shards", "1", "--spmm", "segment", "--early_stopping",
+             str(10 * CKPT_EPOCHS)]
+    want = {"n_shards": 1, "partition": "halo", "kernel": "segment"}
+    saved, _, w1 = run_cli(cli, [*flags, "--seeds", str(HYBRID_SEED), "--max_epoch",
+                                 str(CKPT_EPOCHS), "--save_model", model, "--save_state",
+                                 state], counters, "topic")
+    resumed, _, w2 = run_cli(cli, [*flags, "--max_epoch", str(CKPT_EPOCHS * 3 // 2), "--resume",
+                                   state], counters, "topic")
+    acc = saved["runs"][0]["test"]["acc"]
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(["train", "--dataset", "R8", *flags, "--load_model", model])
+    run = resumed["runs"][0]
+    log("sharded checkpoint cli", f"cli train R8 topic --shards 1 --spmm segment seed "
+        f"{HYBRID_SEED}: {CKPT_EPOCHS} epochs + --save_model/--save_state ({w1:.1f} s, acc "
+        f"{acc:.4f}; report keys checkpoint {saved.get('checkpoint') == model}, "
+        f"resumable_checkpoint {saved.get('resumable_checkpoint') == state}); --resume: "
+        f"{run['epochs_run']} epochs, seed {run['seed']}, sharding {resumed.get('sharding')}, "
+        f"resumed_from {resumed.get('resumed_from') == state} ({w2:.1f} s, acc "
+        f"{run['test']['acc']:.4f}); --load_model: {out.getvalue().strip()!r} (rc {rc})")
+    if (saved.get("checkpoint") != model or saved.get("resumable_checkpoint") != state
+            or saved.get("sharding") != want or resumed.get("sharding") != want
+            or resumed.get("resumed_from") != state or run["seed"] != HYBRID_SEED
+            or run["epochs_run"] != CKPT_EPOCHS // 2):
+        raise AssertionError("the sharded CLI checkpoint runs report something else")
+    if rc != 0 or f"acc={acc:.4f}" not in out.getvalue():
+        raise AssertionError("--load_model of the sharded checkpoint gives another accuracy")
+
+
+def mesh_stream_one_rank(rank, world, device, src, x, y, mask, singles):
+    """mesh stream pass / mesh stream train, on a group of one (NCCL) in this
+    process: the sorted ring over the cached lattice ``src`` (the one bucket
+    of P = 1) against the single-card stream bit for bit, its seconds a
+    pass, edges/s, K2's launches a pass and peak memory; then one step of
+    the sharded GCN, SGC and APPNP from the single-card steps' parameters
+    (SGD, lr 0), each loss and gradient bit-equal to ``singles`` (the
+    single-card step's on K2). Returns (B11 launches of the ring's passes
+    and steps, the two phases' lines)."""
+    from textgcn_tpu_torch.ops.row_reduce import row_reduce
+    from textgcn_tpu_torch.ops.streamed_sorted import spmm_streamed_sorted_hostfed
+    from textgcn_tpu_torch.parallel import streamed as ps
+
+    def source(p, q):
+        return src
+
+    n = x.shape[0]
+    n_edges = sum(c.n_edges for c in src)
+    want = spmm_streamed_sorted_hostfed(src, x)
+    torch.cuda.reset_peak_memory_stats()
+    row_reduce.launches = 0
+    got, pass_s = wall(lambda: ps.spmm_streamed_mesh_sorted_hostfed(source, x))
+    per_pass = row_reduce.launches
+    peak = torch.cuda.max_memory_allocated()
+    if not torch.equal(got, want):
+        raise AssertionError("the P = 1 ring differs from the single-card stream")
+    del got, want
+    ms = cuda_ms(lambda: ps.spmm_streamed_mesh_sorted_hostfed(source, x), reps=3, warmup=1)
+    launches = per_pass
+    cells = []
+    for family in ("gcn", "sgc", "appnp"):
+        params, opt = stream_init(family, device, torch.optim.SGD, 0.0)
+        step = ps.make_streamed_sharded_step_segmented(family, source, n, opt)
+        before = row_reduce.launches
+        loss, step_s = wall(lambda: float(step(params, x, y, mask)))
+        launches += row_reduce.launches - before
+        loss_1, grads_1 = singles[family]
+        same = loss == loss_1 and all(torch.equal(p.grad, grads_1[k]) for k, p in params.items())
+        if not same:
+            raise AssertionError(f"the P = 1 sharded {family} step differs from the single card's")
+        cells.append(f"{family} loss {loss!r} and grads bit-equal ({step_s:.3f} s)")
+    pass_line = (f"P=1 ring over the cached lattice ({n} rows, {n_edges} edges), "
+                 f"F={x.shape[1]} bf16 (the JAX bench's streamed_mesh_scale_perf): bit-equal "
+                 f"to the single-card stream; first pass {pass_s:.4f} s (host clock), {ms:.3f} "
+                 f"ms a pass (CUDA events, 3 reps), {n_edges / (ms / 1e3):.6e} edges/s; K2 "
+                 f"launches a pass {per_pass} (one a chunk); peak memory {peak} bytes allocated")
+    train_line = (f"P=1 sharded steps (SGD lr 0) from the single-card steps' parameters: "
+                  f"{'; '.join(cells)}")
+    return launches, pass_line, train_line
+
+
+def mesh_stream_inputs(device, n, labels, f):
+    """R8 doc-word's streamed train inputs, the same on every rank: bf16
+    features carrying the label (as the streamed train phases), the
+    documents' labels, the train documents' mask."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 5)
+    y = torch.zeros(n, dtype=torch.int64, device=device)
+    y[: len(labels.target)] = torch.as_tensor(labels.target, device=device)
+    x = torch.randn((n, f), generator=gen, device=device, dtype=torch.bfloat16).mul_(0.1)
+    x += (torch.arange(f, device=device) % labels.n_classes == y[:, None]).to(torch.bfloat16)
+    mask = torch.zeros(n, device=device)
+    mask[torch.as_tensor(labels.train_idx, device=device)] = 1.0
+    return x, y, mask
+
+
+def mesh_stream_params(device, f, n_class):
+    from textgcn_tpu_torch.train import streamed as st
+
+    return st.init_streamed(torch.Generator(device=device).manual_seed(SEED + 6), f, STREAM_H,
+                            n_class, device=device)
+
+
+def mesh_stream_rank(rank, world, device, row, col, val, n, labels, f, bucket_dir):
+    """One of SHARDS gloo ranks of "mesh stream ranks" (route B.4 on R8
+    doc-word): its halo sorted buckets; one pass with every B11 launch held
+    against ``row_reduce_plain`` at K2_TOL, two passes bit-equal, the pass
+    from the bucket files bit-equal to the resident one, the pass's ms;
+    then MESH_STEPS steps of the sharded streamed GCN (Adam) from the shared
+    parameters with the launch count set to 0 just before. Rank 0 returns
+    every rank's numbers, the pass gathered, its losses and launches."""
+    import torch.distributed as dist
+
+    from textgcn_tpu_torch.ops.row_reduce import row_reduce, row_reduce_plain
+    from textgcn_tpu_torch.parallel import streamed as ps
+    from textgcn_tpu_torch.parallel.distributed import all_gather_rows
+    from textgcn_tpu_torch.parallel.halo import HaloPartitionedGraph
+
+    hg = HaloPartitionedGraph.from_coo(row, col, val, n, world, rank, device=device)
+    rps = hg.rows_per_shard
+    buckets = ps.halo_sorted_bucket_stream(hg)
+    x, y, mask = ps.shard_streamed_inputs(*mesh_stream_inputs(device, n, labels, f), rank, rps,
+                                          device=device)
+    errs = []
+
+    def checked(row_ptr, col_, val_, xx, base=None, split=None):
+        want = row_reduce_plain(row_ptr, col_, val_, xx, base=base.clone())
+        got = row_reduce(row_ptr, col_, val_, xx, base=base, split=split)
+        errs.append(compare(got, want, K2_TOL)[0])
+        return got
+
+    y_checked = ps.spmm_streamed_mesh_sorted_hostfed(buckets, x, reduce=checked)
+    before = row_reduce.launches
+    y1 = ps.spmm_streamed_mesh_sorted_hostfed(buckets, x)
+    per_pass = row_reduce.launches - before
+    same = torch.equal(y1, ps.spmm_streamed_mesh_sorted_hostfed(buckets, x))
+    same = same and torch.equal(y1, y_checked)
+    ps.save_halo_sorted_buckets(hg, bucket_dir)
+    dist.barrier()
+    source = ps.mesh_sorted_chunks_from_dir(bucket_dir, rank)[0]
+    files = torch.equal(y1, ps.spmm_streamed_mesh_sorted_hostfed(source, x))
+    torch.cuda.synchronize()
+    dist.barrier()
+    ms = cuda_ms(lambda: ps.spmm_streamed_mesh_sorted_hostfed(buckets, x), reps=5, warmup=1)
+    params, opt = mesh_stream_params(device, f, labels.n_classes)
+    step = ps.make_streamed_sharded_train_step_segmented(buckets, rps, opt)
+    row_reduce.launches = 0
+    losses, train_s = wall(lambda: [float(step(params, x, y, mask)) for _ in range(MESH_STEPS)])
+    train_launches = row_reduce.launches
+    mine = torch.tensor([[buckets.n_edges, max(errs), per_pass, ms, int(same), int(files),
+                          train_launches, sum(len(b) for b in buckets.chunks)]],
+                        dtype=torch.float64, device=device)
+    every = all_gather_rows(mine).tolist()
+    out = all_gather_rows(y1)
+    if rank:
+        return None
+    return {"per_rank": every, "pass": out, "losses": losses, "train_launches": train_launches,
+            "train_s": train_s}
+
+
+def mesh_stream_ranks_phase(pre, records, tmp):
+    """mesh stream ranks: route B.4 on SHARDS gloo ranks on this card, R8
+    doc-word's normalized adjacency as halo sorted buckets (no degree sort),
+    F=128 bf16 (``mesh_stream_rank``): B11 launched on every rank, each
+    launch within K2_TOL of plain, two passes bit-equal and the bucket
+    files' pass bit-equal to the resident one; the stacked pass within
+    MESH_TOL of |A| |x| of the single card's stream over the whole CSR; the
+    sharded streamed GCN's MESH_STEPS losses within MESH_LOSS_TOL of the
+    single-card streamed step's from the same parameters. Returns rank 0's
+    B11 launches in its training."""
+    from textgcn_tpu_torch.ops import streamed_sorted as ss
+    from textgcn_tpu_torch.parallel.launch import spawn_ranks
+    from textgcn_tpu_torch.train import streamed as st
+
+    t_phase, f = time.perf_counter(), STREAM_F
+    dev, n = pre.graph.val.device, pre.graph.n_nodes
+    row, col, val = pre.graph.coo_numpy()
+    res = spawn_ranks(mesh_stream_rank, SHARDS,
+                      (row, col, val, n, pre.labels, f, os.path.join(tmp, "buckets")),
+                      backend="gloo", devices=["cuda:0"] * SHARDS, timeout_s=600.0)
+    per = res["per_rank"]
+    if min(r[2] for r in per) < 1 or not all(r[4] and r[5] for r in per):
+        raise AssertionError(f"route B.4 on the ranks: {per}")
+    records.setdefault("sorted_chunk_add", []).append((max(r[1] for r in per), None, None, None))
+    row_ptr, c, v = (t.to(dev) for t in ss._coo_to_csr(row, col, val, n))
+    chunks = ss.csr_stream(row_ptr, c, v)
+    x, y, mask = mesh_stream_inputs(dev, n, pre.labels, f)
+    single = ss.spmm_streamed_sorted_hostfed(chunks, x)
+    mag = ss.spmm_streamed_sorted_hostfed(
+        [dataclasses.replace(ch, val=ch.val.abs()) for ch in chunks], x.abs())
+    gap = float(((res["pass"][:n] - single).abs() / mag.clamp_min(1e-30)).max())
+    if not gap <= MESH_TOL or res["pass"][n:].any():
+        raise AssertionError(f"the stacked ring vs the single-card stream: {gap:.3e} of |A||x|")
+    params, opt = mesh_stream_params(dev, f, pre.labels.n_classes)
+    step = st.make_streamed_train_step_segmented(st.make_sorted_stream(chunks), n, opt)
+    want, single_s = wall(lambda: [float(step(params, x, y, mask)) for _ in range(MESH_STEPS)])
+    loss_gap = max(abs(a - b) / abs(b) for a, b in zip(res["losses"], want))
+    log("mesh stream ranks", f"R8 doc-word ({n} nodes, {len(row)} edges) as halo sorted "
+        f"buckets on {SHARDS} gloo ranks on cuda:0, F={f} bf16; per rank [edges, max abs err "
+        f"of its B11 launches vs plain (tol {K2_TOL}*(1+|ref|)), K2 launches a pass, pass ms "
+        f"(CUDA events, 5 passes; the ranks share the card, gloo stages the ring through the "
+        f"host), two passes bit-equal, files' pass bit-equal, B11 launches in training, "
+        f"chunks]: {per}; the stacked pass vs the single card's stream over the whole CSR "
+        f"({len(chunks)} chunks): {gap:.3e} of |A||x| (tol {MESH_TOL}); {MESH_STEPS} Adam "
+        f"steps of the sharded streamed GCN: losses {res['losses'][0]:.6f} -> "
+        f"{res['losses'][-1]:.6f} ({res['train_s']:.2f} s), single card "
+        f"{want[0]:.6f} -> {want[-1]:.6f} ({single_s:.2f} s), max rel gap {loss_gap:.3e} (tol "
+        f"{MESH_LOSS_TOL}); phase {time.perf_counter() - t_phase:.1f} s")
+    if not loss_gap <= MESH_LOSS_TOL or not res["losses"][-1] < res["losses"][0]:
+        raise AssertionError(f"the sharded streamed GCN: {res['losses']} vs {want}")
+    return res["train_launches"]
 
 
 def topic_roots(tmp):
@@ -2516,6 +2896,11 @@ def main() -> int:
     )
     if any(shard1_defaults.values()):
         raise AssertionError(f"--shards with the JAX defaults launched {shard1_defaults}")
+    # 6f. sharded checkpoints on SHARDS gloo ranks, and route B.4 (the sorted
+    # ring over B11) on them
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt_launches = sharded_checkpoint_phase(pre, tmp)
+        mesh_ranks_launches = mesh_stream_ranks_phase(pre, records, tmp)
 
     # 7. the attention kernels vs plain on the degree-sorted R8 attention graph
     t0 = time.perf_counter()
@@ -2729,7 +3114,8 @@ def main() -> int:
         new_paths += checkpoint_phase(cli, counters, tmp)
 
     # 10-15. the streamed slice at the baseline scale config, every family
-    stream_launches = stream_phases(dev, gen, records, yard, r8_graph, r8_labels)
+    stream_launches, mesh_p1_launches = stream_phases(dev, gen, records, yard, r8_graph,
+                                                     r8_labels)
 
     # 16-21. the topic slice: its data, the E-step, and every family trained
     with tempfile.TemporaryDirectory() as tmp:
@@ -2745,6 +3131,7 @@ def main() -> int:
         sharded_runs = sharded_trainings_phase(
             r8_pre, prepare_topic_data("R8", data_root=roots["fresh"], device=dev), seg)
         sharded_cli = sharded_cli_phase(cli, counters, roots["fresh"], seg)
+        sharded_checkpoint_cli_phase(cli, counters, roots["fresh"], tmp)
     del r8_pre
 
     # 22-27. the build slice: R8's topic graph built on the card, trained,
@@ -2794,7 +3181,12 @@ def main() -> int:
     for p, k2 in new_paths:
         for k in launches:
             total[k2 if k == "row_reduce" else k] += p[k]
-    total["sorted_chunk_add"] = stream_launches
+    # B11: the streamed steps on one card, and route B.4 (the P = 1 ring's
+    # pass and steps, rank 0's sharded streamed GCN on R8 doc-word)
+    total["sorted_chunk_add"] = stream_launches + mesh_p1_launches + mesh_ranks_launches
+    # the sharded checkpoint runs on rank 0: B10 and the residual's K2 (B2)
+    for k, v in ckpt_launches.items():
+        total[k] += v
     # this slice's routes: the edge ops (K2 from zero is B3's role) and rank
     # 0 of the sharded trainings (all-gather from zero B3, halo buckets onto
     # the accumulator B2)

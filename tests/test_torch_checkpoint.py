@@ -3,7 +3,8 @@
 the trainer's ``save``, ``load``, ``save_training_state`` and
 ``fit(resume_from=)``, the run-level ``resume_training`` and
 ``evaluate_checkpoint``, and the CLI's ``--save_model``, ``--load_model``,
-``--save_state``, ``--resume``, ``--spmm bsr`` and ``--spmm onehot``.
+``--save_state``, ``--resume``, ``--spmm bsr`` and ``--spmm onehot``. The
+sharded trainer's checkpoints are ``tests/test_torch_sharded_checkpoint.py``'s.
 
 A resumed run must give an uninterrupted run's bits: on the CPU every op of
 an epoch is deterministic, so the histories and params are compared for
@@ -204,12 +205,25 @@ def test_a_checkpoint_is_refused_on_another_node_order_or_model(tmp_path):
                                     device=CPU)["acc"] >= 0.0
 
 
-def test_sharded_checkpoint_flags_raise_before_any_data_is_read(tmp_path):
-    with pytest.raises(NotImplementedError, match="A.11"):
+def test_sharded_checkpoint_flags_raise_before_any_data_is_read(tmp_path, monkeypatch):
+    """The checkpoint flags pass the sharded gate: ``run_experiment`` with
+    ``n_shards`` and ``save_state`` reaches the missing dataset; through
+    ``cli.main`` ``--save_model``, ``--save_state`` and ``--resume`` reach
+    the device-count check of ``--shards 2`` and ``--load_model``, which
+    evaluates on one card, the data read. ``restore_best`` with ``n_shards``
+    is still refused before any data is read."""
+    with pytest.raises(FileNotFoundError, match="missing"):
         trun.run_experiment("missing", data_root=str(tmp_path), n_shards=2,
                             partition="allgather", save_state=str(tmp_path / "s"), device=CPU)
-    for flag in ("--save_model", "--save_state", "--resume", "--load_model"):
-        with pytest.raises(NotImplementedError, match="A.11"):
+    with pytest.raises(NotImplementedError, match="restore_best"):
+        trun.run_experiment("missing", data_root=str(tmp_path), n_shards=2,
+                            config=ttrainer.TrainConfig(restore_best=True), device=CPU)
+    _cli_on_cpu(monkeypatch)
+    for flag, err, match in (("--save_model", RuntimeError, "needs 2 CUDA devices"),
+                             ("--save_state", RuntimeError, "needs 2 CUDA devices"),
+                             ("--resume", RuntimeError, "needs 2 CUDA devices"),
+                             ("--load_model", FileNotFoundError, "missing")):
+        with pytest.raises(err, match=match):
             cli.main(["train", "--dataset", "missing", "--data_root", str(tmp_path), "--shards",
                       "2", "--partition", "allgather", "--spmm", "hybrid", flag, str(tmp_path)])
 

@@ -278,7 +278,7 @@ def test_sharded_trainer_matches_jax_sharded_trainer():
     (run,) = launch.run_sharded_seeds(
         data, [3], ttrainer.TrainConfig(**cfg), 4, backend="gloo", devices=["cpu"] * 4,
         params_np=_jax_init(3, x.shape[1], 16, C), timeout_s=TIMEOUT_S,
-    )
+    )["runs"]
     hist = run["history"]
     assert len(hist) == len(jt.history) == 8
     assert abs(hist[0]["train_loss"] - jt.history[0]["train_loss"]) < 5e-3
@@ -332,7 +332,7 @@ def test_sharded_segment_kernel_trains_like_the_hybrid():
     (run,) = launch.run_sharded_seeds(
         launch.HostData.from_prepared(pt), [5], cfg, 2, kernel="segment",
         backend="gloo", devices=["cpu"] * 2, timeout_s=TIMEOUT_S,
-    )
+    )["runs"]
     single = ttrainer.Trainer(
         pt.graph, None, pt.labels.target, pt.labels.train_idx, pt.labels.test_idx,
         N_CLASSES, config=dataclasses.replace(cfg, seed=5), device=CPU,

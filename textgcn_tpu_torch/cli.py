@@ -16,7 +16,9 @@ graph (``--graph docword``), in every ``--spmm`` format of the JAX CLI; every
 family but ``sgc_pre`` also sharded over ``--shards N`` GPUs. ``--seeds`` names the runs'
 seeds outright. ``--save_model`` / ``--load_model`` save the best run's
 params and evaluate a saved checkpoint; ``--save_state`` / ``--resume``
-save the best run's resumable state and continue it bit for bit. The
+save the best run's resumable state and continue it bit for bit, on one
+card or with ``--shards`` (a checkpoint of either, at any rank count;
+``--load_model`` evaluates on one card, as in JAX). The
 device work runs on CUDA and raises when there is no CUDA device: the port
 never falls back to the CPU.
 """
@@ -33,8 +35,7 @@ from textgcn_tpu_torch.models import MODELS
 from textgcn_tpu_torch.parallel.trainer import check_sharded, sharded_kernel
 from textgcn_tpu_torch.topics.model import LDA_BACKENDS
 from textgcn_tpu_torch.train.run import (
-    check_sharded_checkpoints, evaluate_checkpoint, generate_seeds, resume_training,
-    run_experiment,
+    evaluate_checkpoint, generate_seeds, resume_training, run_experiment,
 )
 from textgcn_tpu_torch.train.trainer import TrainConfig
 from textgcn_tpu_torch.utils.profiling import trace
@@ -130,14 +131,11 @@ def cmd_experiment(args) -> int:
 
 
 def cmd_train(args) -> int:
-    check_sharded_checkpoints(
-        args.shards, save_model=args.save_model, save_state=args.save_state,
-        resume=args.resume, load_model=args.load_model,
-    )
     if args.shards is not None:
         check_sharded(args.model, sharded_kernel(args.spmm), args.partition)
     require_cuda("trains")
-    if args.shards is not None and torch.cuda.device_count() < args.shards:
+    # --load_model evaluates on one card, with or without --shards (as JAX)
+    if args.shards is not None and not args.load_model and torch.cuda.device_count() < args.shards:
         raise RuntimeError(
             f"--shards {args.shards} needs {args.shards} CUDA devices (one rank "
             f"each) but {torch.cuda.device_count()} are visible"
@@ -158,7 +156,8 @@ def cmd_train(args) -> int:
         summary = resume_training(
             args.dataset, args.resume, output_dir=args.output_dir, config=cfg,
             verbose=not args.quiet, save_model=args.save_model,
-            save_state=args.save_state, **common,
+            save_state=args.save_state, n_shards=args.shards, partition=args.partition,
+            **common,
         )
         print(f"{args.dataset} (resumed): acc={summary['test_accuracy']['mean']:.4f}")
         return 0
@@ -278,8 +277,9 @@ def build_parser() -> argparse.ArgumentParser:
         "the [N, N] bf16 log-adjacency; onehot = the attention kernels over "
         "a CSR; hybrid = the same after the degree sort (relabels nodes); "
         "auto = dense while its priced peak memory fits, else hybrid; bsr "
-        "raises. A checkpoint of identity features (docword) loads only "
-        "under the node order it was saved with: use the same --spmm",
+        "raises. A checkpoint of identity features (docword) loads under "
+        "the node order it was saved with, and one of the nodes' own order "
+        "(every --shards checkpoint) under any --spmm",
     )
     p.add_argument(
         "--save_model", default=None,

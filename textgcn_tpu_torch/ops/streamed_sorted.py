@@ -132,17 +132,18 @@ def _even_f(x):
 
 
 def spmm_streamed_sorted(chunks: Iterable[SortedChunk], x, reduce=row_reduce):
-    """``Â @ x`` over a sorted chunk stream whose chunks lie on x's device.
+    """``Â @ x`` over a sorted chunk stream.
 
     ``x`` is [n, F]; every chunk's row range lies inside [0, n). Returns a
     new [n, F] f32 tensor; rows no chunk covers are 0. ``chunks`` is
-    iterated once. On CUDA K2 gathers bf16 ``x`` (the wrapper raises on
-    another dtype); on the CPU the plain version takes any float.
+    iterated once; chunks on x's device are reduced as they are, host
+    chunks are copied in one ahead (:func:`streamed_sorted_add_`). On CUDA
+    K2 gathers bf16 ``x`` (the wrapper raises on another dtype); on the CPU
+    the plain version takes any float.
     """
     xe, f = _even_f(x)
     acc = torch.zeros((xe.shape[0], xe.shape[1]), dtype=torch.float32, device=xe.device)
-    for chunk in chunks:
-        sorted_chunk_add(acc, chunk, xe, reduce)
+    streamed_sorted_add_(acc, chunks, xe, reduce)
     return acc if f == xe.shape[1] else acc[:, :f]
 
 
@@ -178,7 +179,15 @@ def spmm_streamed_sorted_sym(chunks: Iterable[SortedChunk], x):
 
 def spmm_streamed_sorted_hostfed(chunks: Iterable[SortedChunk], x, reduce=row_reduce):
     """:func:`spmm_streamed_sorted` over chunks that may live on the host,
-    with a one-chunk transfer lookahead.
+    with a one-chunk transfer lookahead (:func:`streamed_sorted_add_`; the
+    one pass serves both names)."""
+    return spmm_streamed_sorted(chunks, x, reduce)
+
+
+def streamed_sorted_add_(acc, chunks: Iterable[SortedChunk], x, reduce=row_reduce):
+    """Reduce every chunk of ``chunks`` onto ``acc`` in place
+    (:func:`sorted_chunk_add`, B11 a chunk); ``x`` has ``acc``'s width.
+    Chunks may live on the host or on x's device.
 
     On CUDA, host chunks (pinned, for the copy to be asynchronous) are copied
     with ``non_blocking=True`` on a side stream: chunk i+1's copy is issued
@@ -188,9 +197,13 @@ def spmm_streamed_sorted_hostfed(chunks: Iterable[SortedChunk], x, reduce=row_re
     run. Chunks already on x's device pass through without a copy
     (:class:`CachedChunkSource`).
     """
-    if x.device.type != "cuda":
-        return spmm_streamed_sorted((c.to(x.device) for c in chunks), x, reduce)
-    return spmm_streamed_sorted(_lookahead(chunks, x.device), x, reduce)
+    if x.device.type == "cuda":
+        chunks = _lookahead(chunks, x.device)
+    else:
+        chunks = (c.to(x.device) for c in chunks)
+    for chunk in chunks:
+        sorted_chunk_add(acc, chunk, x, reduce)
+    return acc
 
 
 def _lookahead(chunks: Iterable[SortedChunk], dev):

@@ -13,7 +13,9 @@ the others waiting for ever: a collective that waits longer than
 :func:`run_sharded_seeds` trains one or more seeds of
 :class:`~textgcn_tpu_torch.parallel.trainer.ShardedTrainer` on such ranks
 from host data the caller prepared once (numpy arrays, sent to each child),
-and returns rank 0's runs.
+or resumes one from a checkpoint, and saves the best run's checkpoints on
+request; :func:`run_sharded_experiment` (the port of JAX's, in
+``textgcn_tpu/parallel/trainer.py``) its summary over seeds.
 """
 from __future__ import annotations
 
@@ -144,8 +146,11 @@ class HostData:
 
 
 def _train_seeds(rank, world, device, data: HostData, seeds, config, kernel, partition,
-                 verbose, params_np):
-    runs = []
+                 verbose, params_np, save_model=None, save_state=None, resume_from=None):
+    """Each seed on this rank (or the one run that ``resume_from`` continues).
+    Every rank reads the same all-reduced test accuracy, so every rank keeps
+    the same best run; after the last seed all ranks save it together."""
+    runs, best, best_acc = [], None, -1.0
     for seed in seeds:
         trainer = ShardedTrainer(
             data.graph(), data.features, data.target, data.train_idx, data.test_idx,
@@ -158,14 +163,23 @@ def _train_seeds(rank, world, device, data: HostData, seeds, config, kernel, par
                 params_np, rank, trainer.rps, data.features is None, model=config.model,
                 device=device,
             )
-        trainer.fit(verbose=verbose and rank == 0, params=params)
+        trainer.fit(verbose=verbose and rank == 0, params=params, resume_from=resume_from)
+        test = trainer.test()
         runs.append({
             "seed": seed,
-            "test": trainer.test(),
+            "test": test,
             "epochs_run": len(trainer.history),
             "history": trainer.history,
         })
-    return runs if rank == 0 else None
+        if (save_model or save_state) and test["acc"] > best_acc:
+            best, best_acc = trainer, test["acc"]
+        del trainer
+    out = {"runs": runs}
+    if save_model:
+        out["checkpoint"] = best.save(save_model)
+    if save_state:
+        out["resumable_checkpoint"] = best.save_training_state(save_state)
+    return out if rank == 0 else None
 
 
 def run_sharded_seeds(
@@ -180,18 +194,78 @@ def run_sharded_seeds(
     devices: Sequence,
     verbose: bool = False,
     params_np: Optional[dict] = None,
+    save_model: Optional[str] = None,
+    save_state: Optional[str] = None,
+    resume_from: Optional[str] = None,
     timeout_s: float = 600.0,
-) -> List[Dict[str, Any]]:
+) -> Dict[str, Any]:
     """Train each seed on ``n_shards`` ranks (rank ``r`` on ``devices[r]``)
-    and return rank 0's runs: ``{"seed", "test", "epochs_run", "history"}``
-    each, as :func:`~textgcn_tpu_torch.train.run.run_experiment` reports
-    them. ``params_np``: the JAX ``ShardedTrainer``'s starting parameters of
-    the family ``config.model``
-    (:func:`~textgcn_tpu_torch.parallel.trainer.shard_params_from_jax`)."""
+    and return rank 0's ``{"runs": [...]}``, each run ``{"seed", "test",
+    "epochs_run", "history"}`` as
+    :func:`~textgcn_tpu_torch.train.run.run_experiment` reports them.
+
+    ``params_np``: the JAX ``ShardedTrainer``'s starting parameters of the
+    family ``config.model``
+    (:func:`~textgcn_tpu_torch.parallel.trainer.shard_params_from_jax`).
+    ``save_model`` / ``save_state``: directories for the best run's
+    checkpoint and resumable state (all ranks save together), reported
+    under ``"checkpoint"`` and ``"resumable_checkpoint"``.
+    ``resume_from``: a resumable checkpoint of either trainer; ``seeds`` is
+    then its one seed."""
     if any(torch.device(d).type == "cuda" for d in devices):
         _build.build()  # one nvcc run here, not one per rank at its first launch
+    paths = [None if p is None else os.path.abspath(p) for p in (save_model, save_state,
+                                                                 resume_from)]
     return spawn_ranks(
         _train_seeds, n_shards,
-        (data, list(seeds), config, kernel, partition, verbose, params_np),
+        (data, list(seeds), config, kernel, partition, verbose, params_np, *paths),
         backend=backend, devices=devices, timeout_s=timeout_s,
     )
+
+
+def run_sharded_experiment(
+    graph: SparseGraph,
+    features: Optional[np.ndarray],
+    target: np.ndarray,
+    train_idx: np.ndarray,
+    test_idx: np.ndarray,
+    num_classes: int,
+    seeds: List[int],
+    config: TrainConfig = TrainConfig(),
+    n_shards: Optional[int] = None,
+    partition: str = "halo",
+    kernel: str = "segment",
+    verbose: bool = False,
+    *,
+    backend: Optional[str] = None,
+    devices: Optional[Sequence] = None,
+) -> Dict[str, Any]:
+    """Multi-seed sharded runs, the mesh analogue of ``run_experiment``
+    (JAX's arguments and keys: ``partition``, ``kernel``, ``n_shards``,
+    ``test_accuracy`` {mean, max, min}, ``runs`` of ``{"seed", "test",
+    "epochs"}``). ``devices``: one per rank (default: ``cuda:0 ..
+    cuda:{n_shards-1}``, ``n_shards`` by default every visible GPU);
+    ``backend``: NCCL on CUDA devices, gloo on the CPU by default."""
+    if devices is None:
+        n_shards = n_shards or torch.cuda.device_count()
+        devices = [f"cuda:{r}" for r in range(n_shards)]
+    n_shards = n_shards or len(devices)
+    if backend is None:
+        backend = "nccl" if torch.device(devices[0]).type == "cuda" else "gloo"
+    row, col, val = graph.coo_numpy()
+    data = HostData(row, col, val, graph.n_nodes, features, np.asarray(target),
+                    np.asarray(train_idx), np.asarray(test_idx), int(num_classes))
+    runs = run_sharded_seeds(data, seeds, config, n_shards, kernel=kernel, partition=partition,
+                             backend=backend, devices=devices, verbose=verbose)["runs"]
+    accs = [r["test"]["acc"] for r in runs]
+    return {
+        "partition": partition,
+        "kernel": kernel,
+        "n_shards": n_shards,
+        "test_accuracy": {
+            "mean": float(np.mean(accs)),
+            "max": float(np.max(accs)),
+            "min": float(np.min(accs)),
+        },
+        "runs": [{"seed": r["seed"], "test": r["test"], "epochs": r["epochs_run"]} for r in runs],
+    }

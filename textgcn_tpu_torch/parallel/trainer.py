@@ -35,12 +35,24 @@ same order; each step's collectives pair up across ranks.
   each rank keeps its rows. A run therefore does not depend on the number
   of ranks, and follows the single-device run of the same kernel up to the
   order of float sums.
+- Checkpoints (``save``, ``save_training_state``, ``load``,
+  ``fit(resume_from=)``; JAX's ``_tables_to_canonical`` and ``_place``):
+  every rank calls them together. A node table and its Adam moments are
+  gathered over the ranks and stored as ``[n_nodes, ·]`` in the artifact's
+  own node order (padding stripped, the hybrid's degree sort undone), the
+  other parameters as they are; rank 0 writes the file, in the schema of
+  the single-device ``Trainer`` (node order 0), so either trainer loads or
+  resumes the other's checkpoint at any rank count. On resume the
+  canonical rows are put back in this trainer's order and split over the
+  ranks; the padding rows are zero, as the init leaves them and as an
+  uninterrupted run keeps them (they get no gradient). ``restore_best`` is
+  refused (the JAX sharded trainer ignores it without a word).
 
-Not ported yet: sharded checkpoints (ROADMAP A.11c) and the
-``epoch_block`` scan.
+Not ported: the ``epoch_block`` scan (A.3's CUDA graph is its counterpart).
 """
 from __future__ import annotations
 
+import os
 import time
 from typing import Any, Dict, List, Optional
 
@@ -58,7 +70,7 @@ from textgcn_tpu_torch.models.gcnii import gcnii_init
 from textgcn_tpu_torch.models.gin import gin_init
 from textgcn_tpu_torch.models.sage import sage_init
 from textgcn_tpu_torch.models.sgc import sgc_init
-from textgcn_tpu_torch.parallel.distributed import all_reduce_sum
+from textgcn_tpu_torch.parallel.distributed import all_gather_rows, all_reduce_sum
 from textgcn_tpu_torch.parallel.halo import HaloPartitionedGraph
 from textgcn_tpu_torch.parallel.mesh_attention import MeshAttentionAllGather
 from textgcn_tpu_torch.parallel.mesh_kernels import (
@@ -69,8 +81,13 @@ from textgcn_tpu_torch.parallel.sharded import (
     sharded_appnp_forward, sharded_gat_forward, sharded_gcn_forward, sharded_gcnii_forward,
     sharded_gin_forward, sharded_sage_forward, sharded_sgc_forward,
 )
+from textgcn_tpu_torch.ops.split import fingerprint
+from textgcn_tpu_torch.train.checkpoint import restore_checkpoint, save_checkpoint
 from textgcn_tpu_torch.train.prepare import permute_rows_1d_docs
-from textgcn_tpu_torch.train.trainer import EarlyStopping, TrainConfig, train_val_split
+from textgcn_tpu_torch.train.trainer import (  # noqa: F401 (node_tables: the sharded API)
+    EarlyStopping, TrainConfig, _progress_metadata, adam_by_name, adam_state_dict, check_family,
+    layout_refused, node_tables, relabel, stopped_refused, train_val_split, unlabel,
+)
 
 # family -> (init, sharded forward, layer-1 key), JAX's registry: under
 # identity features the layer-1 group's node tables are rank-local. sgc_pre
@@ -111,6 +128,16 @@ def sharded_kernel(spmm: str) -> str:
             f"single-device formats don't partition (got {spmm!r})"
         )
     return spmm if spmm in ("onehot", "hybrid") else "segment"
+
+
+def check_sharded_config(config: TrainConfig) -> None:
+    """Raise for a setting of ``config`` the sharded trainer refuses:
+    ``restore_best`` (the JAX sharded trainer ignores it without a word)."""
+    if config.restore_best:
+        raise NotImplementedError(
+            "restore_best is not ported to the sharded trainer (the JAX sharded "
+            "trainer ignores it)"
+        )
 
 
 def check_sharded(model: str, kernel: str, partition: str) -> None:
@@ -184,16 +211,6 @@ def metrics_from_confusion(conf: np.ndarray) -> Dict[str, float]:
     }
 
 
-def node_tables(model: str) -> tuple:
-    """The keys of family ``model``'s node tables under identity features:
-    the leaves of its layer-1 group whose shape follows the input width
-    (``gc1.w``; SAGE's ``sage1.w_self`` and ``sage1.w_neigh``; ...), found by
-    drawing the family at two input widths."""
-    init, _, layer1 = SHARDED_MODELS[model]
-    a, b = (init(torch.Generator(), n, 8, 2, device="cpu") for n in (1, 2))
-    return tuple(k for k in a if k.startswith(layer1 + ".") and a[k].shape != b[k].shape)
-
-
 def _rank_rows(t: torch.Tensor, shard: int, rps: int) -> torch.Tensor:
     """Rank ``shard``'s ``[rps, ·]`` rows of a node table (zero past its end)."""
     local = t.new_zeros((rps, *t.shape[1:]))
@@ -255,16 +272,20 @@ class ShardedTrainer:
         kernel: str = "segment",
     ):
         check_sharded(config.model, kernel, partition)
-        if config.restore_best:
-            raise NotImplementedError("restore_best is not ported to the sharded trainer")
+        check_sharded_config(config)
         self.device = torch.device(device)
         self.group = group
         self.rank = int(rank)
+        self.n_shards, self.partition, self.kernel = int(n_shards), partition, kernel
+        # kept for the degree sort that a single-card hybrid checkpoint's
+        # node order names, computed only when such a checkpoint is read
+        self.host_graph = graph
         row, col, val = graph.coo_numpy()
         n = graph.n_nodes
+        self.perm = None
         if kernel == "hybrid":
             # the single-device hybrid's degree sort: P Â Pᵀ (P x) = P (Â x)
-            perm = degree_sort_permutation(row, col, n)
+            perm = self.perm = degree_sort_permutation(row, col, n)
             row, col = perm[row], perm[col]
             if features is not None:
                 features = permute_rows(np.asarray(features, dtype=np.float32), perm)
@@ -287,6 +308,7 @@ class ShardedTrainer:
         self.params: Optional[Params] = None
         self.train_time = 0.0
         self.model_param = 0
+        self._live: Optional[Dict[str, Any]] = None
 
     def _local(self, a: np.ndarray) -> torch.Tensor:
         """This rank's rows of a node-indexed host array, on its device."""
@@ -307,13 +329,66 @@ class ShardedTrainer:
         conf = confusion(logits, self.y, mask, self.num_classes)
         return torch.cat([(nll * mask).sum()[None], conf.flatten()])
 
-    def fit(self, verbose: bool = True, params: Optional[Params] = None) -> Dict[str, Any]:
+    def _tables(self) -> tuple:
+        return node_tables(self.cfg.model) if self.x is None else ()
+
+    def _set_params(self, params: Params) -> None:
+        """This rank's parameters (on its device, requiring grad) and the
+        single-device parameter count (each node table has n_nodes rows)."""
+        tables = self._tables()
+        self.params = {k: v.detach().to(self.device).clone().requires_grad_(True)
+                       for k, v in params.items()}
+        self.model_param = sum(
+            self.n_nodes * v.shape[1] if k in tables else v.numel()
+            for k, v in self.params.items()
+        )
+
+    def _from_checkpoint(self, path: str, md: Dict[str, Any], tensors: Params) -> Params:
+        """A checkpoint's node tables ([n_nodes, ·], of node order 0 or of
+        this graph's degree sort) in this trainer's order, split to this
+        rank's rows; the other tensors as they are. Refuses another family
+        or another node order."""
+        check_family(path, md, self.cfg.model)
+        tables = self._tables()
+        sort = None
+        if tables and md.get("node_order") != 0:
+            # a single-card hybrid's order: this graph's degree sort, undone
+            sort = self.perm
+            if sort is None:
+                row, col, _ = self.host_graph.coo_numpy()
+                sort = degree_sort_permutation(row, col, self.n_nodes)
+            if md.get("node_order") != fingerprint(sort):
+                raise layout_refused(path)
+        full = {}
+        for k, v in tensors.items():
+            if k in tables:
+                if sort is not None:
+                    v = unlabel(v, sort)
+                if self.perm is not None:
+                    v = relabel(v, self.perm)
+            full[k] = v
+        return local_params(full, self.cfg.model, bool(tables), self.rank, self.rps)
+
+    def fit(
+        self,
+        verbose: bool = True,
+        params: Optional[Params] = None,
+        resume_from: Optional[str] = None,
+    ) -> Dict[str, Any]:
         """Train to ``max_epoch`` or an early stop (every rank together).
 
         ``params``: this rank's starting parameters (e.g.
         :func:`shard_params_from_jax`); by default the whole model is drawn
         from the generator seeded with ``cfg.seed``, as the single-device
         ``Trainer`` draws it, and the rank keeps its rows.
+
+        ``resume_from``: a checkpoint of :meth:`save_training_state` of
+        either trainer, at any rank count. The params, Adam's state (this
+        rank's rows of each node table's moments), the epoch and early-stop
+        counters and the dropout generator's state are restored (the init
+        draws are skipped), and training continues at the saved epoch: on
+        the same ranks and layout, with an uninterrupted run's bits. A run
+        that stopped early is refused, as in JAX.
         """
         cfg, C = self.cfg, self.num_classes
         tr, va = train_val_split(self.train_idx_all, cfg.val_ratio, cfg.seed)
@@ -321,25 +396,47 @@ class ShardedTrainer:
         identity = self.x is None
         n_feat = self.n_nodes if identity else self.x.shape[1]
         gen = torch.Generator(device=self.device).manual_seed(cfg.seed)
-        init = SHARDED_MODELS[cfg.model][0]
-        if params is None:
+        stopper = EarlyStopping(cfg.early_stopping)
+        best_val, start_epoch, state = float("inf"), 0, None
+        if resume_from is not None:
+            state = restore_checkpoint(resume_from)
+            md = state["metadata"]
+            if md["stopped"]:
+                raise stopped_refused(resume_from)
+            params = self._from_checkpoint(resume_from, md, state["params"])
+            saved = adam_by_name(state["opt_state"], list(state["params"]))
+            moments = {
+                k: {m: v for m, v in s.items() if m not in ("exp_avg", "exp_avg_sq")}
+                for k, s in saved.items()
+            }
+            for m in ("exp_avg", "exp_avg_sq"):
+                local = self._from_checkpoint(
+                    resume_from, md, {k: s[m] for k, s in saved.items()})
+                for k, v in local.items():
+                    moments[k][m] = v
+            start_epoch = md["epoch"]
+            best_val = md["best_val"]
+            stopper.best_score = None if np.isinf(md["stopper_best"]) else md["stopper_best"]
+            stopper.counter = md["stopper_counter"]
+            gen.set_state(state["generator"])
+        elif params is None:
+            init = SHARDED_MODELS[cfg.model][0]
             full = init(gen, n_feat, cfg.n_hidden, C, device=self.device)
             params = local_params(full, cfg.model, identity, self.rank, self.rps)
             del full
-        self.params = {k: v.detach().clone().requires_grad_(True) for k, v in params.items()}
-        tables = node_tables(cfg.model) if identity else ()
-        # the single-device count: each node table has n_nodes rows
-        self.model_param = sum(
-            self.n_nodes * v.shape[1] if k in tables else v.numel()
-            for k, v in self.params.items()
-        )
+        self._set_params(params)
+        tables = self._tables()
         # every rank holds and updates the same copy of these
         replicated = [k for k in self.params if k not in tables]
         opt = torch.optim.Adam(self.params.values(), lr=cfg.lr, betas=(0.9, 0.999), eps=1e-8)
-        stopper = EarlyStopping(cfg.early_stopping)
+        if state is not None:
+            opt.load_state_dict(adam_state_dict(
+                moments, list(self.params), state["opt_state"]["param_groups"][0]))
 
+        stopped = False
+        epoch = start_epoch
         start = time.perf_counter()
-        for epoch in range(cfg.max_epoch):
+        while epoch < cfg.max_epoch and not stopped:
             logits = self._forward(True, gen)
             nll = F.cross_entropy(logits, self.y, reduction="none")
             loss = (nll * tmask).sum() / len(tr)
@@ -371,10 +468,94 @@ class ShardedTrainer:
                         for k, v in rec.items()
                     )
                 )
-            if stopper(rec["val_loss"]):
-                break  # the params of the stopping epoch are kept
+            epoch += 1
+            best_val = min(best_val, rec["val_loss"])
+            # on a stop the params of the stopping epoch are kept
+            stopped = stopper(rec["val_loss"])
         self.train_time = time.perf_counter() - start
+        self._live = {
+            "opt": opt,
+            "generator": gen.get_state(),
+            "metadata": _progress_metadata(
+                epoch, best_val,
+                float("inf") if stopper.best_score is None else stopper.best_score,
+                stopper.counter, int(stopped), cfg.seed,
+            ),
+        }
         return {"epochs_run": len(self.history), "train_time": self.train_time}
+
+    # -- checkpoints: every rank calls these together ----------------------
+
+    def _canonical(self, local: Params) -> Params:
+        """Host copies of this rank's tensors by parameter name: each node
+        table gathered over the ranks, its padding stripped and its
+        relabeling undone ([n_nodes, ·], node order 0)."""
+        tables = self._tables()
+        out = {}
+        for k, v in local.items():
+            v = v.detach()
+            if k in tables:
+                v = all_gather_rows(v, self.group)[: self.n_nodes]
+                if self.perm is not None:
+                    v = unlabel(v, self.perm)
+            out[k] = v.cpu()
+        return out
+
+    def _metadata(self) -> Dict[str, Any]:
+        """What a checkpoint records of the run's layout: the single-device
+        ``Trainer``'s keys (node order 0: canonical tables) and the mesh."""
+        return {"model": self.cfg.model, "n_hidden": self.cfg.n_hidden, "node_order": 0,
+                "n_shards": self.n_shards, "partition": self.partition, "kernel": self.kernel}
+
+    def _write(self, path: str, params: Params, **state) -> str:
+        """Rank 0 writes the checkpoint; every rank waits until it is
+        written and returns its absolute path. The wait reads the result of
+        an all-reduce that rank 0 joins only after its write, so the host
+        blocks on NCCL as on gloo (an NCCL collective alone only queues work
+        on the card)."""
+        if self.rank == 0:
+            save_checkpoint(path, params, **state)
+        all_reduce_sum(torch.zeros(1, device=self.device), self.group).item()
+        return os.path.abspath(path)
+
+    def save(self, path: str) -> str:
+        """Checkpoint of the trained params for evaluation (either trainer's
+        ``load``, any rank count), with the run's metadata; returns its
+        path."""
+        if self.params is None:
+            raise ValueError("fit() first")
+        return self._write(path, self._canonical(self.params), metadata={
+            "epochs_run": len(self.history), "seed": self.cfg.seed, **self._metadata()})
+
+    def save_training_state(self, path: str) -> str:
+        """Resumable checkpoint: the live params, Adam's state, the progress
+        counters and the dropout generator's state, in the single-device
+        ``Trainer``'s schema (Adam's state in the order of the params);
+        either trainer's ``fit(resume_from=)`` continues it at any rank
+        count. Returns its path."""
+        if self._live is None:
+            raise ValueError("fit() first")
+        opt = self._live["opt"]
+        names = list(self.params)
+        moments = {m: self._canonical({k: opt.state[self.params[k]][m] for k in names})
+                   for m in ("exp_avg", "exp_avg_sq")}
+        by_name = {k: {**opt.state[self.params[k]], **{m: moments[m][k] for m in moments}}
+                   for k in names}
+        opt_state = adam_state_dict(by_name, names, opt.state_dict()["param_groups"][0])
+        return self._write(
+            path, self._canonical(self.params), opt_state=opt_state,
+            metadata={**self._live["metadata"], **self._metadata()},
+            generator=self._live["generator"],
+        )
+
+    def load(self, path: str) -> None:
+        """Restore params from a checkpoint of either trainer (``save`` or
+        ``save_training_state``, any rank count), for :meth:`evaluate`.
+        With identity features the checkpoint's node order must be 0 or
+        this graph's degree sort (a single-card hybrid's), which is undone;
+        another order, or another family, is refused."""
+        state = restore_checkpoint(path)
+        self._set_params(self._from_checkpoint(path, state.get("metadata", {}), state["params"]))
 
     def evaluate(self, idx: np.ndarray, prefix: str = "test") -> Dict[str, float]:
         if self.params is None:

@@ -28,7 +28,7 @@ import torch
 from textgcn_tpu_torch.graph.format import DENSE_MAX_NODES, MachineModel, gat_auto_format
 from textgcn_tpu_torch.models.sgc import sgc_precompute
 from textgcn_tpu_torch.parallel.launch import HostData, run_sharded_seeds
-from textgcn_tpu_torch.parallel.trainer import check_sharded, sharded_kernel
+from textgcn_tpu_torch.parallel.trainer import check_sharded, check_sharded_config, sharded_kernel
 from textgcn_tpu_torch.train.checkpoint import restore_checkpoint
 from textgcn_tpu_torch.train.prepare import (
     PreparedData,
@@ -46,17 +46,6 @@ from textgcn_tpu_torch.utils.profiling import device_memory
 # dense while its priced peak fits (graph.format.gat_auto_format), else
 # hybrid, segment = the plain PyTorch oracle
 GAT_FORMATS = ("auto", "segment", "dense", "onehot", "hybrid")
-
-
-def check_sharded_checkpoints(n_shards: Optional[int], **flags) -> None:
-    """Raise, before any data is read, for a checkpoint flag (``save_model``,
-    ``save_state``, ``resume``, ``load_model``) set on a sharded run."""
-    given = sorted(k for k, v in flags.items() if v)
-    if n_shards is not None and given:
-        raise NotImplementedError(
-            f"{', '.join('--' + k for k in given)} with --shards: sharded "
-            "checkpoints are not ported yet (ROADMAP A.11c)"
-        )
 
 
 def apply_gat_format(pre: PreparedData, fmt: str, mm: Optional[MachineModel] = None) -> PreparedData:
@@ -136,6 +125,7 @@ def _prepare_for_training(
     sharded run gets the unformatted data: each rank builds its shard."""
     if n_shards is not None:
         check_sharded(config.model, sharded_kernel(config.spmm), partition)
+        check_sharded_config(config)
     check_graph_family(graph_family)
     if pre_data is None:
         pre_data = prepare_data(dataset, graph_family, data_root, device=device)
@@ -148,6 +138,25 @@ def _prepare_for_training(
     if config.model == "sgc_pre":
         pre_data = apply_sgc_precompute(pre_data, device=device)
     return pre_data
+
+
+def _sharding(n_shards: int, partition: str, config: TrainConfig) -> Dict[str, Any]:
+    return {"n_shards": n_shards, "partition": partition, "kernel": sharded_kernel(config.spmm)}
+
+
+def _run_sharded(pre: PreparedData, seeds, config: TrainConfig, n_shards: int, partition: str,
+                 device: torch.device, verbose: bool, **kw) -> Dict[str, Any]:
+    """The seeds on ``n_shards`` ranks: rank ``r`` on ``cuda:r`` (NCCL) for a
+    CUDA ``device``, else on CPU processes (gloo). The data was prepared
+    once; each rank builds its own shard from the host arrays."""
+    cuda = device.type == "cuda"
+    return run_sharded_seeds(
+        HostData.from_prepared(pre), seeds, config, n_shards,
+        kernel=sharded_kernel(config.spmm), partition=partition,
+        backend="nccl" if cuda else "gloo",
+        devices=[f"cuda:{r}" for r in range(n_shards)] if cuda else ["cpu"] * n_shards,
+        verbose=verbose, **kw,
+    )
 
 
 def _make_trainer(pre: PreparedData, cfg: TrainConfig, device: torch.device) -> Trainer:
@@ -188,7 +197,9 @@ def run_experiment(
     ``save_model``: a checkpoint directory for the best-accuracy run's
     params (:meth:`Trainer.save`); ``save_state``: one for its resumable
     state (:meth:`Trainer.save_training_state`, continued by
-    :func:`resume_training`). Not with ``n_shards`` (ROADMAP A.11c).
+    :func:`resume_training`). A sharded run's ranks save its best run
+    together, in the same schema (node order 0), so either trainer loads or
+    resumes it.
 
     ``n_shards``: train row-sharded over that many ranks
     (:mod:`textgcn_tpu_torch.parallel`), rank ``r`` on ``cuda:r`` with NCCL
@@ -201,25 +212,20 @@ def run_experiment(
     :func:`~textgcn_tpu_torch.parallel.trainer.check_sharded` for what runs.
     """
     device = torch.device(device)
-    check_sharded_checkpoints(n_shards, save_model=save_model, save_state=save_state)
     pre_data = _prepare_for_training(
         dataset, graph_family, data_root, config, pre_data,
         device=device, n_shards=n_shards, partition=partition,
     )
     seeds = seeds or generate_seeds(times)
     if n_shards is not None:
-        # prepared once; each rank builds its own shard from the host arrays
-        cuda = device.type == "cuda"
-        kernel = sharded_kernel(config.spmm)
-        runs = run_sharded_seeds(
-            HostData.from_prepared(pre_data), seeds, config, n_shards,
-            kernel=kernel, partition=partition,
-            backend="nccl" if cuda else "gloo",
-            devices=[f"cuda:{r}" for r in range(n_shards)] if cuda else ["cpu"] * n_shards,
-            verbose=verbose,
-        )
-        sharding = {"n_shards": n_shards, "partition": partition, "kernel": kernel}
-        return _summarize(dataset, graph_family, output_dir, config, runs, device, sharding)
+        out = _run_sharded(pre_data, seeds, config, n_shards, partition, device, verbose,
+                           save_model=save_model, save_state=save_state)
+        runs = out.pop("runs")
+        if verbose:
+            for path in out.values():
+                print(f"saved the best run's checkpoint to {path}")
+        return _summarize(dataset, graph_family, output_dir, config, runs, device,
+                          _sharding(n_shards, partition, config), extra=out)
 
     runs: List[Dict[str, Any]] = []
     best_acc, best = -1.0, None
@@ -262,6 +268,8 @@ def resume_training(
     verbose: bool = True,
     save_model: Optional[str] = None,
     save_state: Optional[str] = None,
+    n_shards: Optional[int] = None,
+    partition: str = "halo",
     *,
     device,
 ) -> Dict[str, Any]:
@@ -269,14 +277,28 @@ def resume_training(
     (``save_training_state``, ``cli train --save_state``). The seed is read
     from the checkpoint, so the train/val split and the dropout draws go on
     as they were; the resumed run gives the uninterrupted run's bits on the
-    same device. Preparation and the trainer are :func:`run_experiment`'s.
-    ``save_model`` / ``save_state`` save the resumed run as there."""
+    same device and layout. Preparation and the trainer are
+    :func:`run_experiment`'s. ``save_model`` / ``save_state`` save the
+    resumed run as there. With ``n_shards`` the run resumes on that many
+    ranks (``partition`` as in :func:`run_experiment`): a checkpoint of
+    either trainer, at any rank count, resumes on one card or sharded."""
     device = torch.device(device)
     saved_seed = int(restore_checkpoint(resume_dir)["metadata"]["seed"])
     config = dataclasses.replace(config, seed=saved_seed)
     pre_data = _prepare_for_training(
-        dataset, graph_family, data_root, config, pre_data, device=device
+        dataset, graph_family, data_root, config, pre_data,
+        device=device, n_shards=n_shards, partition=partition,
     )
+    extra = {"resumed_from": resume_dir}
+    if n_shards is not None:
+        out = _run_sharded(pre_data, [saved_seed], config, n_shards, partition, device, verbose,
+                           save_model=save_model, save_state=save_state,
+                           resume_from=resume_dir)
+        (run,) = out.pop("runs")
+        if verbose:
+            print(f"[resumed seed={saved_seed}] {run['test']}")
+        return _summarize(dataset, graph_family, output_dir, config, [run], device,
+                          _sharding(n_shards, partition, config), extra={**extra, **out})
     trainer = _make_trainer(pre_data, config, device)
     trainer.fit(verbose=verbose, resume_from=resume_dir)
     test_desc = trainer.test()
@@ -288,7 +310,6 @@ def resume_training(
         "epochs_run": len(trainer.history),
         "history": trainer.history,
     }
-    extra = {"resumed_from": resume_dir}
     if save_model:
         extra["checkpoint"] = trainer.save(save_model)
     if save_state:
@@ -307,10 +328,11 @@ def evaluate_checkpoint(
     *,
     device,
 ) -> Dict[str, float]:
-    """Restore params from a checkpoint and evaluate them on the test split
-    (the ``--load_model`` path), on the layout ``spmm`` gives; a checkpoint
-    of another family, or of another node order on identity features, is
-    refused."""
+    """Restore params from a checkpoint of either trainer and evaluate them
+    on the test split on one device (the ``--load_model`` path, with or
+    without ``--shards``, as in JAX), on the layout ``spmm`` gives; a
+    checkpoint of another family, or of another node order than the
+    layout's or the artifact's on identity features, is refused."""
     device = torch.device(device)
     config = TrainConfig(model=model, spmm=spmm)
     pre_data = _prepare_for_training(

@@ -120,10 +120,13 @@ class _ReluLayer(torch.autograd.Function):
         return None, _mm_t_f32(x, dpre.to(x.dtype)), dpre.sum(0), dextra, None
 
 
-def _masked_ce(logits, y, mask):
+def _masked_ce(logits, y, mask, count=None):
+    """The masked mean of the cross-entropy: ``count(mask)`` is the
+    denominator where it is given (a sharded step's global count), else
+    ``mask.sum()``."""
     logp = F.log_softmax(logits, dim=-1)
     nll = -logp.gather(1, y[:, None].long())[:, 0]
-    return (nll * mask).sum() / mask.sum()
+    return (nll * mask).sum() / (mask.sum() if count is None else count(mask))
 
 
 def _check_rows(x, n_nodes):
@@ -143,7 +146,7 @@ def make_sorted_stream(chunks, reduce=row_reduce):
 
 
 def make_streamed_train_step_segmented(
-    stream, n_nodes: int, optimizer, stream_dtype=torch.bfloat16
+    stream, n_nodes: int, optimizer, stream_dtype=torch.bfloat16, **hooks
 ):
     """The streamed GCN train step on a :class:`StreamTape`.
 
@@ -154,7 +157,9 @@ def make_streamed_train_step_segmented(
     (bf16 at scale), ``y`` int labels, ``mask`` f32 weights of the loss.
     Four streamed passes per step: two forward, two in the backward. The
     other families' steps take and return the same, with their family's
-    parameters.
+    parameters. ``hooks`` (``count``, ``grad_sync``) go to
+    :func:`~textgcn_tpu_torch.train.streamtape.make_tape_step`: the sharded
+    steps' global denominator and gradient all-reduce; none by default.
     """
     sd = stream_dtype
 
@@ -164,13 +169,13 @@ def make_streamed_train_step_segmented(
         a1 = tape.stream_node(s1)
         s2 = (torch.relu(a1 + params["gc1.b"]) @ params["gc2.w"]).to(sd)
         a2 = tape.stream_node(s2)
-        return _masked_ce(a2 + params["gc2.b"], y, mask)
+        return _masked_ce(a2 + params["gc2.b"], y, mask, tape.count)
 
-    return make_tape_step(build, stream, optimizer, sd)
+    return make_tape_step(build, stream, optimizer, sd, **hooks)
 
 
 def make_streamed_sgc_train_step_segmented(
-    stream, n_nodes: int, optimizer, k: int = SGC_K, stream_dtype=torch.bfloat16
+    stream, n_nodes: int, optimizer, k: int = SGC_K, stream_dtype=torch.bfloat16, **hooks
 ):
     """The streamed SGC step (the JAX ``make_streamed_sgc_train_step_segmented``):
     ``z = (x W).to(sd)`` through :class:`_Project`, ``k`` chained stream
@@ -182,14 +187,14 @@ def make_streamed_sgc_train_step_segmented(
         z = _Project.apply(x, params["lin.w"], sd)
         for _ in range(k):
             z = tape.stream_node(z)
-        return _masked_ce(z + params["lin.b"], y, mask)
+        return _masked_ce(z + params["lin.b"], y, mask, tape.count)
 
-    return make_tape_step(build, stream, optimizer, sd)
+    return make_tape_step(build, stream, optimizer, sd, **hooks)
 
 
 def make_streamed_appnp_train_step_segmented(
     stream, n_nodes: int, optimizer, alpha: float = APPNP_ALPHA, k: int = APPNP_K,
-    stream_dtype=torch.bfloat16,
+    stream_dtype=torch.bfloat16, **hooks,
 ):
     """The streamed APPNP step (the JAX ``make_streamed_appnp_train_step_segmented``):
     the MLP ``h = relu(x W1 + b1) W2 + b2`` (f32; its first layer a
@@ -205,13 +210,13 @@ def make_streamed_appnp_train_step_segmented(
         z = h
         for _ in range(k):
             z = (1.0 - alpha) * tape.stream_node(z) + alpha * h
-        return _masked_ce(z, y, mask)
+        return _masked_ce(z, y, mask, tape.count)
 
-    return make_tape_step(build, stream, optimizer, sd)
+    return make_tape_step(build, stream, optimizer, sd, **hooks)
 
 
 def make_streamed_sage_train_step_segmented(
-    stream, n_nodes: int, optimizer, stream_dtype=torch.bfloat16
+    stream, n_nodes: int, optimizer, stream_dtype=torch.bfloat16, **hooks
 ):
     """The streamed GraphSAGE step (the JAX
     ``make_streamed_sage_train_step_segmented``): ``n1 = Â (x Wn1).to(sd)``,
@@ -226,13 +231,14 @@ def make_streamed_sage_train_step_segmented(
         n1 = tape.stream_node(_Project.apply(x, params["sage1.w_neigh"], sd))
         h = _ReluLayer.apply(x, params["sage1.w_self"], params["sage1.b"], n1, True)
         n2 = tape.stream_node((h @ params["sage2.w_neigh"]).to(sd))
-        return _masked_ce(h @ params["sage2.w_self"] + n2 + params["sage2.b"], y, mask)
+        logits = h @ params["sage2.w_self"] + n2 + params["sage2.b"]
+        return _masked_ce(logits, y, mask, tape.count)
 
-    return make_tape_step(build, stream, optimizer, sd)
+    return make_tape_step(build, stream, optimizer, sd, **hooks)
 
 
 def make_streamed_gin_train_step_segmented(
-    stream, n_nodes: int, optimizer, stream_dtype=torch.bfloat16
+    stream, n_nodes: int, optimizer, stream_dtype=torch.bfloat16, **hooks
 ):
     """The streamed GIN step (the JAX ``make_streamed_gin_train_step_segmented``),
     with the reassociated aggregation ``(1+ε)(v W) + Â (v W)`` so that every
@@ -255,14 +261,14 @@ def make_streamed_gin_train_step_segmented(
         s2 = (h2 @ params["gin2.w"]).to(sd)
         a2 = tape.stream_node(s2)
         logits = (1.0 + params["gin2.eps"]) * s2.float() + a2 + params["gin2.b"]
-        return _masked_ce(logits, y, mask)
+        return _masked_ce(logits, y, mask, tape.count)
 
-    return make_tape_step(build, stream, optimizer, sd)
+    return make_tape_step(build, stream, optimizer, sd, **hooks)
 
 
 def make_streamed_gcnii_train_step_segmented(
     stream, n_nodes: int, optimizer, k: int = GCNII_K, alpha: float = GCNII_ALPHA,
-    lam: float = GCNII_LAMBDA, stream_dtype=torch.bfloat16,
+    lam: float = GCNII_LAMBDA, stream_dtype=torch.bfloat16, **hooks,
 ):
     """The streamed GCNII step (the JAX ``make_streamed_gcnii_train_step_segmented``):
     ``h0 = relu(x W + b)`` with ``x`` widened to f32 and ``W`` not cast (the
@@ -281,9 +287,9 @@ def make_streamed_gcnii_train_step_segmented(
         for l, beta in enumerate(betas):
             s = (1.0 - alpha) * tape.stream_node(h) + alpha * h0
             h = torch.relu((1.0 - beta) * s + beta * (s @ params["deep.w"][l]))
-        return _masked_ce(h @ params["fc_out.w"] + params["fc_out.b"], y, mask)
+        return _masked_ce(h @ params["fc_out.w"] + params["fc_out.b"], y, mask, tape.count)
 
-    return make_tape_step(build, stream, optimizer, sd)
+    return make_tape_step(build, stream, optimizer, sd, **hooks)
 
 
 # family name -> streamed step factory, the JAX registry's keys

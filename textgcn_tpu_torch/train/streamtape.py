@@ -15,7 +15,12 @@ port keeps only what autograd does not give:
   (``streamtape.py:90-112``): forward ``stream(v.to(sd))``, backward
   ``stream(g.to(sd)).to(sd).to(v.dtype)``, ``sd`` the stream dtype;
 - :func:`make_tape_step`: forward through ``build``, ``loss.backward()``,
-  then the optimizer's step.
+  then the optimizer's step; with the two hooks of the sharded steps
+  (:mod:`textgcn_tpu_torch.parallel.streamed`): ``count``, the loss's
+  denominator of a mask (the global train count, where a rank sees only its
+  rows; default ``mask.sum()``), and ``grad_sync``, run on the parameters
+  between the backward and the optimizer's step (the all-reduce of the
+  replicated gradients; default none). The defaults leave a step as it was.
 
 Freeing contract. Autograd saves references, not copies: a tensor a
 backward needs is kept alive by the graph and not duplicated, and each
@@ -28,7 +33,7 @@ at all; the port frees nothing by hand and relies on no aliasing rule.
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
@@ -36,11 +41,14 @@ from textgcn_tpu_torch.ops.streamed_sorted import stream_node
 
 
 class StreamTape:
-    """Holds one train step's stream and stream dtype for ``build``."""
+    """Holds one train step's stream, stream dtype and loss denominator
+    (``count(mask)``, None for ``mask.sum()``) for ``build``."""
 
-    def __init__(self, stream: Callable, stream_dtype=torch.bfloat16):
+    def __init__(self, stream: Callable, stream_dtype=torch.bfloat16,
+                 count: Optional[Callable] = None):
         self.stream = stream
         self.sd = stream_dtype
+        self.count = count
 
     def stream_node(self, v: torch.Tensor) -> torch.Tensor:
         """``Â v`` (f32), differentiable in ``v`` through the same stream."""
@@ -48,21 +56,26 @@ class StreamTape:
 
 
 def make_tape_step(
-    build: Callable, stream: Callable, optimizer, stream_dtype=torch.bfloat16
+    build: Callable, stream: Callable, optimizer, stream_dtype=torch.bfloat16,
+    count: Optional[Callable] = None, grad_sync: Optional[Callable] = None,
 ):
     """A train step from a model ``build`` function.
 
     ``build(tape, params, x, y, mask) -> loss`` composes the model from
-    tensor code and ``tape.stream_node`` calls. The returned
+    tensor code and ``tape.stream_node`` calls, and divides the loss by
+    ``tape.count(mask)`` where that is set. The returned
     ``step(params, x, y, mask) -> loss`` (detached) clears the gradients,
-    runs the forward, ``loss.backward()`` and ``optimizer.step()``; after it
-    each parameter's ``.grad`` holds this step's gradient.
+    runs the forward, ``loss.backward()``, ``grad_sync(params)`` where that
+    is set, and ``optimizer.step()``; after it each parameter's ``.grad``
+    holds this step's gradient.
     """
 
     def step(params, x, y, mask):
         optimizer.zero_grad(set_to_none=True)
-        loss = build(StreamTape(stream, stream_dtype), params, x, y, mask)
+        loss = build(StreamTape(stream, stream_dtype, count), params, x, y, mask)
         loss.backward()
+        if grad_sync is not None:
+            grad_sync(params)
         optimizer.step()
         return loss.detach()
 

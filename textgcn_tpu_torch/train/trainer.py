@@ -20,7 +20,16 @@ Port of ``textgcn_tpu/train/trainer.py`` (``TrainConfig``, ``EarlyStopping``,
   epoch's key up front). A checkpoint records the model family and the node
   order of its layout; loading it into another family, or, where layer 1 is
   node-indexed (identity features), under another node order, is refused
-  (the JAX package evaluates misaligned rows without a word).
+  (the JAX package evaluates misaligned rows without a word). A checkpoint
+  of the artifact's own order (node order 0, as the sharded trainer writes
+  it) loads and resumes under a relabeled layout too: its node tables, and
+  their Adam moments, are put through the layout's ``perm``.
+
+One checkpoint schema serves this trainer and
+:class:`~textgcn_tpu_torch.parallel.trainer.ShardedTrainer`: ``params`` by
+name, and Adam's state as ``torch.optim.Adam.state_dict()`` over the
+parameters in the order of ``params``. Both trainers read Adam's state by
+parameter name (:func:`adam_by_name`), never by position alone.
 
 The epoch loop is a plain Python loop. The JAX trainer runs blocks of
 ``epoch_block`` epochs in one ``lax.scan`` to spread the round-trips of a
@@ -142,6 +151,71 @@ def node_order(perm: Optional[np.ndarray]) -> int:
     return 0 if perm is None else fingerprint(perm)
 
 
+def relabel(t: torch.Tensor, perm: np.ndarray) -> torch.Tensor:
+    """A node table of the artifact's order relabeled by ``perm``
+    (``perm[old] = new``): row ``old`` moves to row ``perm[old]``."""
+    out = torch.empty_like(t)
+    out[torch.as_tensor(perm, device=t.device)] = t
+    return out
+
+
+def unlabel(t: torch.Tensor, perm: np.ndarray) -> torch.Tensor:
+    """The inverse of :func:`relabel`: the artifact's order of a table
+    relabeled by ``perm``."""
+    return t[torch.as_tensor(perm, device=t.device)]
+
+
+def node_tables(model: str) -> tuple:
+    """The keys of family ``model``'s node tables under identity features:
+    the leaves whose shape follows the input width (``gc1.w``; SAGE's
+    ``sage1.w_self`` and ``sage1.w_neigh``; ...), found by drawing the family
+    at two input widths. Their rows are nodes."""
+    init = MODELS[model].init_params
+    a, b = (init(torch.Generator(), n, 8, 2, device="cpu") for n in (1, 2))
+    return tuple(k for k in a if a[k].shape != b[k].shape)
+
+
+def adam_by_name(opt_state: Dict[str, Any], names: List[str]) -> Dict[str, Dict[str, Any]]:
+    """Adam's per-parameter state of a checkpoint by parameter name;
+    ``names`` is the order of the checkpoint's ``params``, which its
+    positions follow."""
+    return {names[i]: s for i, s in opt_state["state"].items()}
+
+
+def adam_state_dict(by_name: Dict[str, Dict[str, Any]], names: List[str],
+                    group: Dict[str, Any]) -> Dict[str, Any]:
+    """``torch.optim.Adam.state_dict()`` of an Adam over the parameters
+    ``names`` (in that order) from per-name states, with the
+    hyperparameters of ``group``."""
+    return {
+        "state": {i: by_name[k] for i, k in enumerate(names) if k in by_name},
+        "param_groups": [{**group, "params": list(range(len(names)))}],
+    }
+
+
+def layout_refused(path: str) -> ValueError:
+    return ValueError(
+        f"checkpoint {path} was saved on a layout with another node "
+        "order (--spmm hybrid, or an auto that picked it, relabels the "
+        "nodes) and layer 1 of identity features is node-indexed: load "
+        "it with the --spmm it was saved with"
+    )
+
+
+def check_family(path: str, md: Dict[str, Any], model: str) -> None:
+    if md.get("model") != model:
+        raise ValueError(
+            f"checkpoint {path} holds a {md.get('model')!r} model; this run "
+            f"is --model {model}"
+        )
+
+
+def stopped_refused(path: str) -> ValueError:
+    return ValueError(
+        f"checkpoint {path} is from an early-stopped run; there is nothing to resume"
+    )
+
+
 def model_class(model: str, graph) -> type:
     """The module class of family ``model`` for ``graph``; raises for an
     unknown family, a GAT on a container that has no attention layout, or a
@@ -187,7 +261,8 @@ class Trainer:
     ):
         """``perm`` is the relabeling the graph's layout applied to the
         artifact's node ids (``PreparedData.perm``; None when it kept them),
-        recorded in checkpoints."""
+        recorded in checkpoints and applied to the node tables of a
+        checkpoint of node order 0."""
         self.device = torch.device(device)
         self.graph = graph
         # features=None → identity features; layer 1 is then an embedding
@@ -206,6 +281,7 @@ class Trainer:
         self.model: Optional[torch.nn.Module] = None
         self.train_time = 0.0
         self.model_param = 0
+        self.perm = None if perm is None else np.asarray(perm)
         self.node_order = node_order(perm)
         self._live: Optional[Dict[str, Any]] = None
 
@@ -217,22 +293,21 @@ class Trainer:
             "node_order": self.node_order,
         }
 
-    def _check_layout(self, path: str, md: Dict[str, Any]) -> None:
+    def _relabeling(self, path: str, md: Dict[str, Any]) -> Optional[np.ndarray]:
         """Refuse a checkpoint of another family, or of another node order
         where layer 1 is node-indexed (identity features: its rows are
-        nodes, so a relabeled layout would read other nodes' rows)."""
-        if md.get("model") != self.cfg.model:
-            raise ValueError(
-                f"checkpoint {path} holds a {md.get('model')!r} model; this run "
-                f"is --model {self.cfg.model}"
-            )
+        nodes, so a relabeled layout would read other nodes' rows); return
+        the relabeling that puts the checkpoint's node tables into this
+        layout's order (None: they are in it)."""
+        check_family(path, md, self.cfg.model)
         if self.x is None and md.get("node_order") != self.node_order:
-            raise ValueError(
-                f"checkpoint {path} was saved on a layout with another node "
-                "order (--spmm hybrid, or an auto that picked it, relabels the "
-                "nodes) and layer 1 of identity features is node-indexed: load "
-                "it with the --spmm it was saved with"
-            )
+            if md.get("node_order") == 0:  # the artifact's order: relabel
+                return self.perm
+            raise layout_refused(path)
+        return None
+
+    def _tables(self) -> tuple:
+        return node_tables(self.cfg.model) if self.x is None else ()
 
     def _new_model(self, generator: Optional[torch.Generator],
                    n_hidden: Optional[int] = None) -> torch.nn.Module:
@@ -286,12 +361,15 @@ class Trainer:
             state = restore_checkpoint(resume_from)
             md = state["metadata"]
             if md["stopped"]:
-                raise ValueError(
-                    f"checkpoint {resume_from} is from an early-stopped run; "
-                    "there is nothing to resume"
-                )
-            self._check_layout(resume_from, md)
-            params = state["params"]
+                raise stopped_refused(resume_from)
+            perm = self._relabeling(resume_from, md)
+            tables = self._tables() if perm is not None else ()
+            params = {k: relabel(v, perm) if k in tables else v
+                      for k, v in state["params"].items()}
+            moments = adam_by_name(state["opt_state"], list(state["params"]))
+            for k in tables:
+                moments[k] = {m: relabel(v, perm) if m in ("exp_avg", "exp_avg_sq") else v
+                              for m, v in moments[k].items()}
             start_epoch = md["epoch"]
             best_val = md["best_val"]
             stopper.best_score = None if np.isinf(md["stopper_best"]) else md["stopper_best"]
@@ -305,7 +383,10 @@ class Trainer:
             model.parameters(), lr=cfg.lr, betas=(0.9, 0.999), eps=1e-8
         )
         if state is not None:
-            opt.load_state_dict(state["opt_state"])
+            opt.load_state_dict(adam_state_dict(
+                moments, [k for k, _ in model.named_parameters()],
+                state["opt_state"]["param_groups"][0],
+            ))
 
         stopped = False
         epoch = start_epoch
@@ -395,15 +476,18 @@ class Trainer:
 
     def load(self, path: str) -> None:
         """Restore params from a checkpoint of :meth:`save` or
-        :meth:`save_training_state` (at the checkpoint's hidden width), for
-        :meth:`evaluate`; refuses one of another family or, on identity
-        features, another node order."""
+        :meth:`save_training_state` of either trainer (at the checkpoint's
+        hidden width), for :meth:`evaluate`; refuses one of another family
+        or, on identity features, of another node order than this layout's
+        or the artifact's."""
         state = restore_checkpoint(path)
         md = state.get("metadata", {})
-        self._check_layout(path, md)
+        perm = self._relabeling(path, md)
+        tables = self._tables() if perm is not None else ()
         # the checkpoint's width, as the JAX package restores any params
         model = self._new_model(None, md.get("n_hidden"))
-        model.load_state_dict(state["params"])
+        model.load_state_dict({k: relabel(v, perm) if k in tables else v
+                               for k, v in state["params"].items()})
         self.model = model
 
     def evaluate(self, idx: torch.Tensor, prefix: str = "test") -> Dict[str, float]:
