@@ -7,6 +7,11 @@ Run from the root of a checkout on a machine with one NVIDIA Hopper GPU and
 ``nvcc``. It builds the CUDA kernels from ``textgcn_tpu_torch/csrc`` and
 drives the port's paths: on R8 doc-word, then on R8's topic graph:
 
+- Host preparation ("native prep"): R8 doc-word prepared through the native
+  graph core (C++, built with g++ into ``textgcn_tpu_torch/_build``) and
+  through the numpy path (forced by the tests' hook), each path's parse,
+  normalize and whole preparation timed; the two float32 graphs must be
+  bit-equal, and every doc-word phase below runs on the native one.
 - GCN: holds K1 (through the tile stack's split table; two launches must
   give the same bits) and K2 against their plain PyTorch versions at the
   hybrid path's shapes, the whole hybrid pass (and its backward) against the
@@ -49,7 +54,12 @@ drives the port's paths: on R8 doc-word, then on R8's topic graph:
   CLI (an NCCL group of one), and 4 ranks on this one card through the
   library (gloo, which carries CUDA tensors; NCCL refuses two ranks on one
   GPU): ``bsr_leg`` and K2 must run on rank 0 and test accuracy must reach
-  0.95 in both. Then the one-hot mesh layouts at 4 ranks of R8 doc-word,
+  0.95 in both. "launcher ranks": 2 ranks started by ``python -m
+  torch.distributed.run --standalone`` (each joins with
+  ``init_distributed`` and trains through ``run_joined``) on cuda:0 over
+  gloo train R8 doc-word under hybrid/allgather with losses bit-equal to 2
+  spawned ranks, B10 and K2 launched on their rank 0 (over NCCL too where
+  the machine has two GPUs). Then the one-hot mesh layouts at 4 ranks of R8 doc-word,
   F=200 ("mesh onehot"): each layout's per-shard rate at P = 1 in this
   process (the JAX bench's ``mesh_kernel_perf`` keys), and on 4 gloo ranks
   on this card each rank's all-gather pass (K2 from zero) and halo pass (K2
@@ -109,7 +119,10 @@ drives the port's paths: on R8 doc-word, then on R8's topic graph:
   committed means), the six other families on their committed seeds
   (within 0.01), the GCN on ``--spmm auto`` and every family once on
   ``--spmm hybrid`` (within 0.01 of its segment run at that seed; K1, and
-  for GAT its kernels and K2 as dx, must launch). Then every family
+  for GAT its kernels and K2 as dx, must launch). "topic_gat report" (C.6):
+  ``run_experiment("R8", graph_family="topic_gat", pre_data=...)`` with the
+  GAT on segment must write ``R8_topic_gat_training_results.{json,txt}``.
+  Then every family
   sharded, one spawn of 4 gloo ranks on the card at seed 7 ("train sharded
   gat", "train sharded families"): GAT on R8 doc-word under
   onehot/allgather (acc >= 0.88, its kernels launched on rank 0), GAT on
@@ -245,6 +258,8 @@ BENCH_SEEDS = (7, 42, 1234, 31415, 2718)
 REF_TOPIC_ACC = 0.9411
 TOPIC_GAP, FAMILY_GAP = 0.005, 0.01
 HYBRID_SEED = 7
+# "topic_gat report": epochs of its one GAT run
+TOPIC_GAT_EPOCHS = 5
 NEW_FAMILIES = ("sgc", "sgc_pre", "appnp", "sage", "gin", "gcnii")
 # theta on the card vs the JAX E-step's: f32 E-steps, digamma differing in
 # the last bits, up to 100 iterations a chunk
@@ -981,6 +996,198 @@ def train_sharded_ranks(pre, counters, run1):
     if test["acc"] < ACC_MIN:
         raise AssertionError(f"sharded x{SHARDS} test accuracy {test['acc']:.4f} < {ACC_MIN}")
     return launches
+
+
+def native_prep_phase(dev):
+    """"native prep": R8 doc-word prepared on the native graph core and on
+    the port's numpy path (forced by patching ``native.available``, the
+    tests' hook), the file read once before either; each path's parse,
+    max-symmetrize + normalize and whole ``prepare_docword_data`` timed on
+    the host. The two float32 ``SparseGraph``s must be bit-equal (row, col,
+    val). Returns the native path's PreparedData."""
+    from unittest import mock
+
+    from textgcn_tpu_torch import native
+    from textgcn_tpu_torch.graph.build_topic import read_weighted_edgelist
+    from textgcn_tpu_torch.train.prepare import normalize_edges, prepare_docword_data
+
+    if not native.available():
+        raise AssertionError("no C++ compiler on PATH: the native graph core cannot be built")
+    t0 = time.perf_counter()
+    lib = native.build()
+    build_s = time.perf_counter() - t0
+    path = os.path.join(REPO, "data", "graph", "R8_docword.txt")
+    with open(path, "rb") as fh:
+        size = len(fh.read())
+    pres, times = {}, {}
+    for name in ("native", "numpy"):
+        hook = (contextlib.nullcontext() if name == "native"
+                else mock.patch.object(native, "available", lambda: False))
+        with hook:
+            t0 = time.perf_counter()
+            pre = prepare_docword_data("R8", device=dev)
+            torch.cuda.synchronize()
+            whole = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            src, dst, w = read_weighted_edgelist(path)
+            parse = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            normalize_edges(src, dst, w, pre.graph.n_nodes)
+            norm = time.perf_counter() - t0
+        pres[name], times[name] = pre, (parse, norm, whole)
+    a, b = pres["native"].graph, pres["numpy"].graph
+    same = a.n_edges == b.n_edges and all(
+        torch.equal(getattr(a, k), getattr(b, k)) for k in ("row", "col", "val"))
+    (pn, nn, wn), (pp, np_, wp) = times["native"], times["numpy"]
+    log("native prep", f"R8 doc-word ({size} bytes, {len(src)} lines; {a.n_edges} edges "
+        f"after symmetrize + self-loops) on the host: native core {lib.name} built or reused "
+        f"in {build_s:.2f} s; native parse {pn:.3f} s, normalize {nn:.3f} s, whole "
+        f"prepare_docword_data {wn:.3f} s; numpy path parse {pp:.3f} s, normalize {np_:.3f} s, "
+        f"whole {wp:.3f} s; f32 SparseGraphs bit-equal (row, col, val): {same}")
+    if not same:
+        raise AssertionError("the native and numpy preparations of R8 doc-word differ")
+    return pres["native"]
+
+
+# one rank of "launcher ranks", written into a temporary directory and started
+# by ``python -m torch.distributed.run``: argv is the checkout, the backend,
+# the output path, the seed and the epochs
+LAUNCHER_WORKER = """\
+import json, os, sys
+sys.path.insert(0, sys.argv[1])
+import torch
+from textgcn_tpu_torch.ops.bsr_spmm import bsr_leg
+from textgcn_tpu_torch.ops.row_reduce import row_reduce
+from textgcn_tpu_torch.parallel import distributed, launch
+from textgcn_tpu_torch.train.prepare import prepare_docword_data
+from textgcn_tpu_torch.train.trainer import TrainConfig
+
+repo, backend, out_path, seed, epochs = sys.argv[1:]
+# gloo: both ranks on cuda:0 (NCCL refuses two ranks on one device)
+device = torch.device("cuda", 0) if backend == "gloo" else distributed.local_device()
+if not distributed.init_distributed(backend=backend):
+    raise RuntimeError("no multi-process job in the launcher's environment")
+try:
+    summary = distributed.process_summary()
+    pre = prepare_docword_data("R8", data_root=os.path.join(repo, "data"), device="cpu")
+    bsr_leg.launches = row_reduce.launches = 0
+    out = launch.run_joined(
+        launch.HostData.from_prepared(pre), [int(seed)],
+        TrainConfig(spmm="hybrid", max_epoch=int(epochs), early_stopping=1000),
+        kernel="hybrid", partition="allgather", device=device,
+    )
+    launches = {"bsr_leg": bsr_leg.launches, "row_reduce": row_reduce.launches}
+finally:
+    torch.distributed.destroy_process_group()
+if out is not None:
+    with open(out_path, "w") as fh:
+        json.dump({"runs": out["runs"], "launches": launches, "summary": summary}, fh)
+"""
+LAUNCHER_EPOCHS, LAUNCHER_TIMEOUT_S = 5, 300
+
+
+def launcher_ranks_phase(pre):
+    """"launcher ranks": 2 ranks started by ``python -m torch.distributed.run
+    --standalone --nproc_per_node 2`` (a worker script in a temporary
+    directory; each rank joins with ``init_distributed`` and trains through
+    ``run_joined``), both on cuda:0 over gloo: the R8 doc-word GCN under
+    hybrid/allgather for LAUNCHER_EPOCHS epochs at SEED. Every epoch's losses
+    must be bit-equal to ``run_sharded_seeds`` on 2 spawned ranks with the
+    same seed and settings, and rank 0 must launch B10 and K2. With two GPUs
+    or more, the same over NCCL, rank r on ``local_device()``, against the
+    spawned NCCL ranks. A nonzero exit or LAUNCHER_TIMEOUT_S fails the run.
+    Returns the launcher-started rank 0's launches (summed over the runs)."""
+    from textgcn_tpu_torch.parallel.launch import HostData, run_sharded_seeds
+    from textgcn_tpu_torch.train.trainer import TrainConfig
+
+    data = HostData.from_prepared(pre)
+    cfg = TrainConfig(spmm="hybrid", max_epoch=LAUNCHER_EPOCHS, early_stopping=1000)
+    backends = ["gloo"] + (["nccl"] if torch.cuda.device_count() >= 2 else [])
+    total = {"bsr_leg": 0, "row_reduce": 0}
+    with tempfile.TemporaryDirectory() as tmp:
+        worker = os.path.join(tmp, "launcher_worker.py")
+        with open(worker, "w") as fh:
+            fh.write(LAUNCHER_WORKER)
+        for backend in backends:
+            devices = ["cuda:0"] * 2 if backend == "gloo" else ["cuda:0", "cuda:1"]
+            t0 = time.perf_counter()
+            (ref,) = run_sharded_seeds(data, [SEED], cfg, 2, kernel="hybrid",
+                                       partition="allgather", backend=backend,
+                                       devices=devices)["runs"]
+            spawn_s = time.perf_counter() - t0
+            out_path = os.path.join(tmp, f"{backend}.json")
+            cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                   "--nproc_per_node", "2", worker, REPO, backend, out_path, str(SEED),
+                   str(LAUNCHER_EPOCHS)]
+            t0 = time.perf_counter()
+            try:
+                proc = subprocess.run(cmd, capture_output=True, text=True,
+                                      timeout=LAUNCHER_TIMEOUT_S)
+            except subprocess.TimeoutExpired as e:
+                raise AssertionError(f"torchrun over {backend} passed {LAUNCHER_TIMEOUT_S} s: "
+                                     f"{str(e.stderr)[-2000:]}") from e
+            run_s = time.perf_counter() - t0
+            if proc.returncode != 0:
+                raise AssertionError(f"torchrun over {backend} exited {proc.returncode}: "
+                                     f"{proc.stderr[-3000:]}")
+            with open(out_path) as fh:
+                got = json.load(fh)
+            (run,) = got["runs"]
+            check_run(run, f"the launcher-started ranks over {backend}")
+            keys = ("train_loss", "val_loss", "acc")
+            same = len(run["history"]) == len(ref["history"]) == LAUNCHER_EPOCHS and all(
+                a[k] == b[k] for a, b in zip(run["history"], ref["history"]) for k in keys)
+            launches = got["launches"]
+            log("launcher ranks", f"torchrun --standalone --nproc_per_node 2, {backend} on "
+                f"{', '.join(devices)}, R8 doc-word hybrid/allgather, seed {SEED}: "
+                f"{got['summary']}; {LAUNCHER_EPOCHS} epochs, train "
+                f"{run['test']['train_time']:.3f} s, {run_s:.1f} s with start-up; losses "
+                f"bit-equal to run_sharded_seeds on 2 spawned ranks ({spawn_s:.1f} s): {same}; "
+                f"test acc {run['test']['acc']:.4f} (spawned {ref['test']['acc']:.4f}); rank 0 "
+                f"launches {launches}")
+            if not same:
+                raise AssertionError(f"the launcher-started ranks over {backend} differ from "
+                                     f"the spawned ranks: {run['history']} vs {ref['history']}")
+            if min(launches.values()) < 1:
+                raise AssertionError(f"a kernel of the sharded path never launched on the "
+                                     f"launcher-started rank 0: {launches}")
+            for k, v in launches.items():
+                total[k] += v
+    if len(backends) == 1:
+        log("launcher ranks", f"NCCL branch not run: {torch.cuda.device_count()} GPU(s), it "
+            f"needs two")
+    return total
+
+
+def topic_gat_report_phase(topic_pre, dev):
+    """"topic_gat report" (C.6): ``run_experiment("R8", graph_family=
+    "topic_gat", pre_data=<the topic data>)`` with the GAT on --spmm segment,
+    one seed, TOPIC_GAT_EPOCHS epochs, into a temporary directory: the name
+    names the reports of the topic graph, as in JAX (``bench.py``'s GAT
+    pass), so it must write exactly ``R8_topic_gat_training_results.{json,
+    txt}``, with finite losses."""
+    from textgcn_tpu_torch.train.run import run_experiment
+    from textgcn_tpu_torch.train.trainer import TrainConfig
+
+    cfg = TrainConfig(model="gat", spmm="segment", max_epoch=TOPIC_GAT_EPOCHS)
+    with tempfile.TemporaryDirectory() as out:
+        t0 = time.perf_counter()
+        summary = run_experiment("R8", seeds=[HYBRID_SEED], graph_family="topic_gat",
+                                 pre_data=topic_pre, output_dir=out, config=cfg,
+                                 verbose=False, device=dev)
+        secs = time.perf_counter() - t0
+        names = sorted(os.listdir(out))
+        with open(os.path.join(out, "R8_topic_gat_training_results.json")) as fh:
+            written = json.load(fh)
+    want = ["R8_topic_gat_training_results.json", "R8_topic_gat_training_results.txt"]
+    (run,) = summary["runs"]
+    check_run(run, "the topic_gat run")
+    log("topic_gat report", f"run_experiment R8, graph_family topic_gat, pre_data = the topic "
+        f"data, GAT segment, seed {HYBRID_SEED}, {run['epochs_run']} epochs in {secs:.1f} s: "
+        f"wrote {names}; graph_family {written['graph_family']!r}, test acc "
+        f"{run['test']['acc']:.4f}")
+    if names != want or written["graph_family"] != "topic_gat":
+        raise AssertionError(f"the topic_gat run wrote {names}, expected {want}")
 
 
 def edge_ops_phase(att, ag, gen, records, counters):
@@ -2708,9 +2915,7 @@ def main() -> int:
         SEGMENT_EDGES, row_reduce, row_reduce_plain,
     )
     from textgcn_tpu_torch.ops.spmm import spmm_coo_segment
-    from textgcn_tpu_torch.train.prepare import (
-        apply_attention_format, prepare_docword_data, prepare_topic_data,
-    )
+    from textgcn_tpu_torch.train.prepare import apply_attention_format, prepare_topic_data
 
     # the library yardsticks build CSR tensors, a beta API that says so
     warnings.filterwarnings("ignore", message="Sparse")
@@ -2749,9 +2954,9 @@ def main() -> int:
     # 2b. machine: the cost model's rates measured here
     mm_probe = machine_phase(dev)
 
-    # the real R8 doc-word hybrid layout
+    # the real R8 doc-word hybrid layout, from the native graph core
+    pre = native_prep_phase(dev)
     t0 = time.perf_counter()
-    pre = prepare_docword_data("R8", device=dev)
     h, perm = convert_graph(pre.graph, "hybrid")
     bsr, rest = h.bsr, h.rest
     per_row = torch.diff(bsr.tile_ptr.long())
@@ -2883,6 +3088,8 @@ def main() -> int:
     # 6c. SHARDS ranks on this one card through the library (gloo: NCCL
     # refuses two ranks on one GPU); rank 0 runs here, so its launches count
     shard4 = train_sharded_ranks(pre, counters, run1)
+    # 6c'. ranks started by an outside launcher (torchrun), against spawned ranks
+    launcher_launches = launcher_ranks_phase(pre)
     # 6d. the one-hot mesh layouts (B.1, B.2) on SHARDS gloo ranks, and the
     # sharded GCN under halo-segment, halo-onehot and allgather-onehot
     mesh_onehot_phase(pre.graph, records)
@@ -3126,10 +3333,11 @@ def main() -> int:
             cli, counters, roots["fresh"], residual)
         segment_determinism_phase(cli, counters, roots["fresh"])
         new_paths += topic_formats
+        topic_pre = prepare_topic_data("R8", data_root=roots["fresh"], device=dev)
+        topic_gat_report_phase(topic_pre, dev)
         # every family sharded (GAT on its three layouts) on SHARDS gloo
         # ranks, and the sharded GAT through the CLI
-        sharded_runs = sharded_trainings_phase(
-            r8_pre, prepare_topic_data("R8", data_root=roots["fresh"], device=dev), seg)
+        sharded_runs = sharded_trainings_phase(r8_pre, topic_pre, seg)
         sharded_cli = sharded_cli_phase(cli, counters, roots["fresh"], seg)
         sharded_checkpoint_cli_phase(cli, counters, roots["fresh"], tmp)
     del r8_pre
@@ -3184,8 +3392,9 @@ def main() -> int:
     # B11: the streamed steps on one card, and route B.4 (the P = 1 ring's
     # pass and steps, rank 0's sharded streamed GCN on R8 doc-word)
     total["sorted_chunk_add"] = stream_launches + mesh_p1_launches + mesh_ranks_launches
-    # the sharded checkpoint runs on rank 0: B10 and the residual's K2 (B2)
-    for k, v in ckpt_launches.items():
+    # the sharded checkpoint runs on rank 0, and the launcher-started rank 0:
+    # B10 and the residual's K2 (B2)
+    for k, v in (*ckpt_launches.items(), *launcher_launches.items()):
         total[k] += v
     # this slice's routes: the edge ops (K2 from zero is B3's role) and rank
     # 0 of the sharded trainings (all-gather from zero B3, halo buckets onto

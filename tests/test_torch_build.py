@@ -372,14 +372,24 @@ def _sorted_edges(g):
     return g.src[order], g.dst[order], g.weight[order]
 
 
-def test_textgcn_builder_equals_jax(tmp_path, tiny_docs, monkeypatch):
-    """The doc-word graph of the tiny corpus (window 5). Against the JAX
-    package's native window counter (its default where the library builds):
-    the same edge set, weights within 1e-12 relative. Against its scipy
-    path, which the port keeps: equal COO arrays in order, and the saved
-    edgelist and vocabulary byte-equal."""
+@pytest.mark.parametrize("path", ["numpy", "native"])
+def test_textgcn_builder_equals_jax(path, tmp_path, tiny_docs, monkeypatch):
+    """The doc-word graph of the tiny corpus (window 5), on the port's numpy
+    path (forced) and on its native window counter (its default where a C++
+    compiler exists). Either way, against the JAX package's native counter:
+    the same edge set after a lexsort, the same weights bit for bit (both
+    take the same float64 logs of the same integer counts). On the numpy
+    path, against JAX's scipy path: equal COO arrays in order, and the saved
+    edgelist and vocabulary byte-equal. On the native path, whose pairs come
+    in (i, j) order: the same edge counts, the same vocabulary file, and the
+    edgelist's lines the same set."""
     from textgcn_tpu import native
+    from textgcn_tpu_torch import native as tnative
 
+    if path == "numpy":
+        monkeypatch.setattr(tnative, "available", lambda: False)
+    elif not tnative.available():
+        pytest.skip("no C++ compiler on PATH")
     tb = tdw.TextGCNGraphBuilder("tiny", window_size=5, verbose=False)
     tg = tb.build(tiny_docs)
     assert tg.n_word_word_edges > 0 and tg.vocab == jdw.build_vocab(tiny_docs)
@@ -387,23 +397,34 @@ def test_textgcn_builder_equals_jax(tmp_path, tiny_docs, monkeypatch):
     (ts, td, tw), (ns, nd, nw) = _sorted_edges(tg), _sorted_edges(ng)
     np.testing.assert_array_equal(ts, ns)
     np.testing.assert_array_equal(td, nd)
-    np.testing.assert_allclose(tw, nw, rtol=1e-12, atol=0)
+    np.testing.assert_array_equal(tw, nw)
     monkeypatch.setattr(native, "available", lambda: False)
     jb = jdw.TextGCNGraphBuilder("tiny", window_size=5, verbose=False)
     jg = jb.build(tiny_docs)
-    for k in ("src", "dst", "weight"):
-        np.testing.assert_array_equal(getattr(tg, k), getattr(jg, k))
     assert (tg.n_doc_word_edges, tg.n_word_word_edges) == (jg.n_doc_word_edges, jg.n_word_word_edges)
     jb.save(str(tmp_path / "j"))
     tb.save(str(tmp_path / "t"))
-    for name in ("tiny_docword.txt", "tiny_docword_vocab.txt"):
-        assert (tmp_path / "t" / name).read_bytes() == (tmp_path / "j" / name).read_bytes()
+    vocab = "tiny_docword_vocab.txt"
+    assert (tmp_path / "t" / vocab).read_bytes() == (tmp_path / "j" / vocab).read_bytes()
+    edges = [(tmp_path / d / "tiny_docword.txt").read_text().splitlines() for d in "tj"]
+    if path == "native":
+        assert sorted(edges[0]) == sorted(edges[1])
+        return
+    for k in ("src", "dst", "weight"):
+        np.testing.assert_array_equal(getattr(tg, k), getattr(jg, k))
+    assert edges[0] == edges[1]
+    name = "tiny_docword.txt"
+    assert (tmp_path / "t" / name).read_bytes() == (tmp_path / "j" / name).read_bytes()
 
 
-def test_word_word_pmi_equals_the_jax_scipy_path(tiny_docs):
-    """The port's PMI is the JAX package's scipy path: equal pairs, and
-    weights within 1e-12 relative, at windows wider and narrower than the
-    documents."""
+def test_word_word_pmi_equals_the_jax_scipy_path(tiny_docs, monkeypatch):
+    """The port's numpy PMI (forced; the native counter is held in
+    ``test_textgcn_builder_equals_jax``) is the JAX package's scipy path:
+    equal pairs, and weights within 1e-12 relative, at windows wider and
+    narrower than the documents."""
+    from textgcn_tpu_torch import native as tnative
+
+    monkeypatch.setattr(tnative, "available", lambda: False)
     vocab = jdw.build_vocab(tiny_docs)
     for w in (3, 20):
         inc = jdw.window_word_incidence(tiny_docs, vocab, w)

@@ -13,12 +13,13 @@ import jax.numpy as jnp
 from textgcn_tpu.graph.structs import SparseGraph as JSparseGraph
 from textgcn_tpu.graph.structs import DenseGraph as JDenseGraph
 from textgcn_tpu.models.gcn import gcn_forward as j_forward
+from textgcn_tpu.models.gcn import graph_conv as j_graph_conv
 from textgcn_tpu.models.gcn import gcn_init as j_init
 from textgcn_tpu.train import metrics as jmetrics
 
 from textgcn_tpu_torch.graph.normalize import max_symmetrize_coo, sym_normalize_coo
 from textgcn_tpu_torch.graph.structs import DenseGraph, SparseGraph
-from textgcn_tpu_torch.models.gcn import GCN, gcn_forward, gcn_init, params_from_jax
+from textgcn_tpu_torch.models.gcn import GCN, gcn_forward, gcn_init, graph_conv, params_from_jax
 from textgcn_tpu_torch.train import metrics as tmetrics
 
 CPU = torch.device("cpu")
@@ -75,6 +76,26 @@ def test_gcn_forward_matches_jax(fmt, identity):
     )
     want = j_forward(pj, gj, None if x is None else jnp.asarray(x), train=False)
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("fmt", ["segment", "dense"])
+def test_graph_conv_matches_jax(fmt):
+    """One layer, Â (x W) + b, with JAX's layer dict: f32 math in another
+    order (1e-5); the eval-mode GCN is two of them with a ReLU between, bit
+    for bit."""
+    n = 120
+    gt, gj = _graphs(n=n, fmt=fmt)
+    x = np.random.RandomState(2).randn(n, 20).astype(np.float32)
+    pj = _jax_params(20)
+    layer = {k: torch.from_numpy(np.asarray(v)) for k, v in pj["gc1"].items()}
+    got = graph_conv(layer, gt, torch.from_numpy(x))
+    want = j_graph_conv(pj["gc1"], gj, jnp.asarray(x))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+    pt = params_from_jax(pj, device=CPU)
+    gc2 = {"w": pt["gc2.w"], "b": pt["gc2.b"]}
+    assert torch.equal(
+        gcn_forward(pt, gt, torch.from_numpy(x)), graph_conv(gc2, gt, torch.relu(got))
+    )
 
 
 def test_masked_cross_entropy_gradients_match_jax():

@@ -14,11 +14,12 @@ import yaml
 from textgcn_tpu import cli as jcli
 from textgcn_tpu.graph.build_topic import TopicGraphBuilder as JBuilder
 from textgcn_tpu.inspect.topics import inspect_topics as j_inspect
+from textgcn_tpu.runner import load_config as j_load_config
 
 from textgcn_tpu_torch import cli
 from textgcn_tpu_torch.graph.build_topic import TopicGraphBuilder as TBuilder
 from textgcn_tpu_torch.inspect.topics import inspect_topics as t_inspect
-from textgcn_tpu_torch.runner import run_experiment_config
+from textgcn_tpu_torch.runner import load_config, run_experiment_config
 from textgcn_tpu_torch.train.prepare import cached_theta, prepare_topic_data
 
 from test_runner import _write_tiny_dataset
@@ -114,6 +115,14 @@ def test_run_experiment_config_docword_family_on_the_cpu(tiny_root):
     assert (exp / "results" / "tiny_docword_training_results.json").exists()
     assert not (exp / "logs" / "inspect.log").exists()
     assert (tiny_root / "data" / "graph" / "tiny_docword_vocab.txt").exists()
+
+
+@pytest.mark.parametrize("name", ["r8.yaml", "r8_docword.yaml", "mr.yaml"])
+def test_load_config_equals_jax(name):
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "experiments", name)
+    got = load_config(path)
+    assert got == j_load_config(path) and got["dataset"]
 
 
 def test_run_experiment_config_refuses_halo_and_unknown_keys(tiny_root):

@@ -142,5 +142,10 @@ def test_run_experiment_writes_reports_with_the_jax_schema(tmp_path):
     assert got["hyperparameters"] == dataclasses.asdict(cfg)
     assert summary["runs"][0]["epochs_run"] == 4
     assert os.path.exists(tmp_path / "toy_docword_training_results.txt")
-    with pytest.raises(ValueError, match="unknown graph family"):
-        run_experiment("toy", graph_family="wordnet", pre_data=pt, device="cpu")
+    # as in JAX, any other name only names the reports
+    run_experiment("toy", graph_family="wordnet", output_dir=str(tmp_path), config=cfg,
+                   pre_data=pt, verbose=False, device="cpu")
+    for ext in ("json", "txt"):
+        assert os.path.exists(tmp_path / f"toy_wordnet_training_results.{ext}")
+    with pytest.raises(ValueError, match="cannot name a report file"):
+        run_experiment("toy", graph_family="a/b", pre_data=pt, device="cpu")

@@ -7,9 +7,11 @@ scipy; it needs no device):
   corpus's tokens);
 - doc→word edges weighted TF-IDF (tf = raw count, idf = log(D / df));
 - word–word edges weighted positive PMI over sliding windows of width 20:
-  the co-occurrence counts are the sparse product ``Mᵀ M`` of the binary
-  window-word incidence matrix (the JAX package's scipy path; its native
-  window counter gives the same counts and is not ported yet);
+  the co-occurrence counts come from the native graph core's window counter
+  (:mod:`textgcn_tpu_torch.native`) when a C++ compiler exists, as in the JAX
+  package, else from the sparse product ``Mᵀ M`` of the binary window-word
+  incidence matrix (its scipy path). Both give the same pairs and weights;
+  the native pairs come in (i, j) order, the scipy ones in the product's;
 - artifacts: ``{ds}_docword.txt`` ("u v w" lines) and
   ``{ds}_docword_vocab.txt`` (one word a line).
 """
@@ -22,6 +24,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import scipy.sparse as sp
 
+from textgcn_tpu_torch import native
 from textgcn_tpu_torch.graph.build_topic import write_weighted_edgelist
 from textgcn_tpu_torch.topics.model import load_documents_from_file
 
@@ -100,15 +103,30 @@ def word_word_pmi(
     documents: Sequence[str], vocab: List[str], window_size: int = 20
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Positive-PMI word pairs (i < j): log(p_ij / (p_i p_j)) > 0."""
-    inc = window_word_incidence(documents, vocab, window_size)
-    n_windows = inc.shape[0]
+    if native.available():
+        native.log_path("word_word_pmi", True)
+        w2i = {w: i for i, w in enumerate(vocab)}
+        tokens: List[int] = []
+        offsets = [0]
+        for doc in documents:
+            tokens.extend(w2i[w] for w in doc.split() if w in w2i)
+            offsets.append(len(tokens))
+        i, j, cij, occ, n_windows = native.window_cooccurrence(
+            np.asarray(tokens, dtype=np.int32), np.asarray(offsets, dtype=np.int64),
+            len(vocab), window_size,
+        )
+        occ = occ.astype(np.float64)
+    else:
+        native.log_path("word_word_pmi", False)
+        inc = window_word_incidence(documents, vocab, window_size)
+        n_windows = inc.shape[0]
+        occ = np.asarray(inc.sum(axis=0)).ravel()  # windows holding word i
+        co = (inc.T @ inc).tocoo()  # co-occurrence counts (diagonal included)
+        mask = co.row < co.col
+        i, j, cij = co.row[mask], co.col[mask], co.data[mask]
     if n_windows == 0:
         z = np.zeros(0, dtype=np.int64)
         return z, z, np.zeros(0)
-    occ = np.asarray(inc.sum(axis=0)).ravel()  # windows holding word i
-    co = (inc.T @ inc).tocoo()  # co-occurrence counts (diagonal included)
-    mask = co.row < co.col
-    i, j, cij = co.row[mask], co.col[mask], co.data[mask]
     pmi = np.log(cij * n_windows / (occ[i] * occ[j]))
     keep = pmi > 0
     return i[keep].astype(np.int64), j[keep].astype(np.int64), pmi[keep]

@@ -15,8 +15,11 @@ numpy on the host:
   training need not infer it again) and ``{ds}_topic_nodes.csv`` /
   ``{ds}_topic_edges.csv`` for ontology tools.
 
-``read_weighted_edgelist`` is the JAX package's pure-Python path (its
-optional C++ parser in ``native/`` is test-pinned identical to it).
+``read_weighted_edgelist`` parses in the native graph core
+(:mod:`textgcn_tpu_torch.native`) when a C++ compiler exists, as the JAX
+package does, else in the JAX package's pure-Python loop. On well-formed
+lines the two give the same arrays; as in JAX, the native parser skips a line
+whose node ids are not integers, where the loop raises.
 """
 from __future__ import annotations
 
@@ -26,6 +29,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from textgcn_tpu_torch import native
 from textgcn_tpu_torch.topics.model import TopicModel, load_documents_from_file
 from textgcn_tpu_torch.utils.logging import graph_stats
 from textgcn_tpu_torch.utils.profiling import StageTimer
@@ -211,6 +215,10 @@ def read_weighted_edgelist(
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Read "u v w" lines into COO arrays (undirected edges listed once);
     a line without a weight gets weight 1."""
+    if native.available():
+        native.log_path("read_weighted_edgelist", True)
+        return native.parse_edgelist(path)
+    native.log_path("read_weighted_edgelist", False)
     src, dst, w = [], [], []
     with open(path, encoding="utf-8") as f:
         for line in f:

@@ -6,7 +6,8 @@ JAX layout ``w: [n_in, n_out]`` and its init U(-1/√fan_out, 1/√fan_out) for
 both ``w`` and ``b``, so :func:`params_from_jax` is a copy.
 
 Parameters are a flat dict ``{"gc1.w", "gc1.b", "gc2.w", "gc2.b"}`` of
-tensors: the functional :func:`gcn_forward` takes it, and it is the
+tensors (:func:`graph_conv`, one layer, takes JAX's ``{"w", "b"}``): the
+functional :func:`gcn_forward` takes it, and it is the
 ``state_dict`` of the :class:`GCN` module
 (:class:`~textgcn_tpu_torch.models.family.FamilyModule`).
 
@@ -43,14 +44,24 @@ def gcn_init(
     return params
 
 
+def _conv(w, b, agg, x: Optional[torch.Tensor]) -> torch.Tensor:
+    """Â (x W) + b over the aggregation ``agg``; ``x=None`` is the identity."""
+    return agg(w if x is None else x @ w) + b
+
+
+def graph_conv(params: Params, graph, x: torch.Tensor) -> torch.Tensor:
+    """One graph convolution, Â (x W) + b, with one layer's ``{"w", "b"}``
+    (JAX's ``graph_conv``)."""
+    return _conv(params["w"], params["b"], lambda s: spmm(graph, s), x)
+
+
 def gcn_core(params: Params, agg, x: Optional[torch.Tensor], drop) -> torch.Tensor:
     """The two layers over any aggregation: ``agg(s)`` is Â s and ``drop(h)``
     the dropout between the layers. The single-device forward passes
     ``spmm(graph, ·)``, the sharded one (``parallel/sharded.py``) its rank's
     aggregation and row dropout: one definition for both."""
-    support = params["gc1.w"] if x is None else x @ params["gc1.w"]
-    h = drop(torch.relu(agg(support) + params["gc1.b"]))
-    return agg(h @ params["gc2.w"]) + params["gc2.b"]
+    h = drop(torch.relu(_conv(params["gc1.w"], params["gc1.b"], agg, x)))
+    return _conv(params["gc2.w"], params["gc2.b"], agg, h)
 
 
 def gcn_forward(

@@ -13,6 +13,13 @@ that share one GPU (NCCL refuses two ranks on one device).
 environment names the job's address otherwise: a run started by hand passes
 it (``tcp://host:port`` or a ``file://`` store).
 
+A rank that an outside launcher started (``torchrun``, ``srun``, ``mpirun``;
+on one machine or several) joins with :func:`init_distributed`, the
+counterpart of JAX's, takes its GPU from :func:`local_device` and trains
+with :func:`textgcn_tpu_torch.parallel.launch.run_joined`;
+:func:`process_summary` describes its view of the job. JAX's
+``global_mesh`` has no counterpart: the process group is the port's mesh.
+
 :func:`all_gather_rows` and :func:`ring_shift` move tensors without
 autograd, for the passes whose backward is written out (the GCN paths).
 :func:`all_gather_rows_ad` and :func:`ring_shift_ad` are the same
@@ -28,6 +35,7 @@ from __future__ import annotations
 import dataclasses
 import datetime
 import os
+import socket
 from typing import Optional
 
 import torch
@@ -62,6 +70,11 @@ class DistributedConfig:
             rank=int(rank) if rank is not None else None,
         )
 
+    @property
+    def is_multiprocess(self) -> bool:
+        """JAX's rule: more than one process, or an address to meet at."""
+        return (self.world_size or 1) > 1 or self.init_method is not None
+
 
 def init_process_group(
     cfg: DistributedConfig, backend: str, timeout_s: float = 600.0
@@ -78,6 +91,71 @@ def init_process_group(
         rank=cfg.rank,
         timeout=datetime.timedelta(seconds=timeout_s),
     )
+
+
+def init_distributed(
+    cfg: Optional[DistributedConfig] = None, *, backend: Optional[str] = None,
+    timeout_s: float = 600.0,
+) -> bool:
+    """Join the job that a launcher started (``cfg``, else
+    :meth:`DistributedConfig.from_env`) and return True; for one process
+    (JAX's ``is_multiprocess`` rule) join nothing and return False. A second
+    call returns True without joining again.
+
+    ``backend`` defaults to NCCL where CUDA is available, the rank's GPU
+    (:func:`local_device`) becoming the current device first, and to gloo
+    on the CPU; ``"gloo"`` asks for gloo on a GPU machine too (several ranks
+    on one GPU, which NCCL refuses). ``timeout_s`` bounds every collective."""
+    if dist.is_initialized():
+        return True
+    cfg = DistributedConfig.from_env() if cfg is None else cfg
+    if not cfg.is_multiprocess:
+        return False
+    if backend is None:
+        backend = "nccl" if torch.cuda.is_available() else "gloo"
+    if backend == "nccl":
+        torch.cuda.set_device(local_device())
+    init_process_group(cfg, backend, timeout_s)
+    return True
+
+
+def local_device(env=None, *, cpu: bool = False) -> torch.device:
+    """This rank's GPU, ``cuda:{local rank}``: the launcher's ``LOCAL_RANK``,
+    else ``OMPI_COMM_WORLD_LOCAL_RANK``, else ``SLURM_LOCALID``. Raises when
+    none is set or the machine has no such GPU; it never picks one in their
+    place. ``cpu=True`` gives the CPU (gloo ranks without a GPU)."""
+    if cpu:
+        return torch.device("cpu")
+    env = os.environ if env is None else env
+    local = next(
+        (env[k] for k in ("LOCAL_RANK", "OMPI_COMM_WORLD_LOCAL_RANK", "SLURM_LOCALID") if k in env),
+        None,
+    )
+    if local is None:
+        raise RuntimeError(
+            "no local rank (LOCAL_RANK, OMPI_COMM_WORLD_LOCAL_RANK or SLURM_LOCALID): "
+            "pass the rank's device"
+        )
+    n = torch.cuda.device_count()
+    if not 0 <= int(local) < n:
+        raise RuntimeError(f"local rank {local} has no GPU: this machine has {n}")
+    return torch.device("cuda", int(local))
+
+
+def process_summary() -> str:
+    """One line on this process's view of the job, for example ``rank 1/2 on
+    cuda:1 (nccl): 8 local / 16 global GPUs``: the GPUs of this machine, and
+    of every machine that holds a rank. In a joined group every rank calls it
+    together (it gathers each rank's host name and GPU count)."""
+    n_local = torch.cuda.device_count()
+    dev = f"cuda:{torch.cuda.current_device()}" if n_local else "cpu"
+    if not dist.is_initialized():
+        return f"rank 0/1 on {dev} (no group): {n_local} local / {n_local} global GPUs"
+    hosts = [None] * dist.get_world_size()
+    dist.all_gather_object(hosts, (socket.gethostname(), n_local))
+    n_global = sum(dict(hosts).values())
+    return (f"rank {dist.get_rank()}/{dist.get_world_size()} on {dev} ({dist.get_backend()}): "
+            f"{n_local} local / {n_global} global GPUs")
 
 
 def all_gather_rows(x_local: torch.Tensor, group=None) -> torch.Tensor:

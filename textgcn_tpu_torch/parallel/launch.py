@@ -16,6 +16,9 @@ from host data the caller prepared once (numpy arrays, sent to each child),
 or resumes one from a checkpoint, and saves the best run's checkpoints on
 request; :func:`run_sharded_experiment` (the port of JAX's, in
 ``textgcn_tpu/parallel/trainer.py``) its summary over seeds.
+:func:`run_joined` trains the same way on ranks that an outside launcher
+started and joined (``torchrun``, ``srun``, ``mpirun``; one machine or
+several), after the join the same code as a spawned rank's.
 """
 from __future__ import annotations
 
@@ -28,6 +31,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.multiprocessing as mp
 
 from textgcn_tpu_torch.graph.structs import SparseGraph
@@ -37,16 +41,25 @@ from textgcn_tpu_torch.parallel.trainer import ShardedTrainer, shard_params_from
 from textgcn_tpu_torch.train.trainer import TrainConfig
 
 
-def _rank_main(rank, world, backend, device, init_method, timeout_s, fn, args):
+def _on_group(fn, device, args):
+    """``fn(rank, world, device, *args)`` on this rank of the joined default
+    group: the one code after the join, for spawned and launcher-started
+    ranks alike."""
     device = torch.device(device)
     if device.type == "cuda":
         torch.cuda.set_device(device)
+    return fn(dist.get_rank(), dist.get_world_size(), device, *args)
+
+
+def _rank_main(rank, world, backend, device, init_method, timeout_s, fn, args):
+    if torch.device(device).type == "cuda":
+        torch.cuda.set_device(device)  # before the join: NCCL binds the current GPU
     cfg = distributed.DistributedConfig(init_method, world, rank)
     distributed.init_process_group(cfg, backend, timeout_s)
     try:
-        return fn(rank, world, device, *args)
+        return _on_group(fn, device, args)
     finally:
-        torch.distributed.destroy_process_group()
+        dist.destroy_process_group()
 
 
 def _child(i, world, backend, devices, init_method, timeout_s, fn, args):
@@ -220,6 +233,41 @@ def run_sharded_seeds(
         _train_seeds, n_shards,
         (data, list(seeds), config, kernel, partition, verbose, params_np, *paths),
         backend=backend, devices=devices, timeout_s=timeout_s,
+    )
+
+
+def run_joined(
+    data: HostData,
+    seeds: List[int],
+    config: TrainConfig,
+    *,
+    kernel: str,
+    partition: str,
+    device,
+    verbose: bool = False,
+    params_np: Optional[dict] = None,
+    save_model: Optional[str] = None,
+    save_state: Optional[str] = None,
+    resume_from: Optional[str] = None,
+) -> Optional[Dict[str, Any]]:
+    """:func:`run_sharded_seeds` on a group that is already joined (by
+    :func:`~textgcn_tpu_torch.parallel.distributed.init_distributed`, in a
+    rank that ``torchrun``, ``srun`` or ``mpirun`` started): every rank of
+    the default group calls it with the same arguments and its own
+    ``device``; rank and world size are the group's. Spawns nothing and
+    leaves the group joined. Returns rank 0's ``{"runs", ...}``, None on
+    the other ranks.
+
+    Rank 0 writes ``save_model`` / ``save_state``, and every rank reads
+    ``resume_from``: across machines these paths must lie on a file system
+    that every machine shares."""
+    if not dist.is_initialized():
+        raise RuntimeError("run_joined needs a joined process group: call init_distributed() first")
+    paths = [None if p is None else os.path.abspath(p) for p in (save_model, save_state,
+                                                                 resume_from)]
+    return _on_group(
+        _train_seeds, device,
+        (data, list(seeds), config, kernel, partition, verbose, params_np, *paths),
     )
 
 

@@ -33,6 +33,9 @@ import shutil
 import sys
 import time
 from contextlib import contextmanager
+from typing import Any, Dict
+
+import yaml
 
 
 @contextmanager
@@ -60,6 +63,13 @@ def _stage_log(log_dir: str, stage: str):
         finally:
             sys.stdout = orig
             f.write(f"\n[stage {stage} took {time.time() - t0:.1f}s]\n")
+
+
+def load_config(path: str) -> Dict[str, Any]:
+    """The YAML at ``path`` as plain data, unchecked (JAX's ``load_config``;
+    :func:`run_experiment_config` reads it through ``ExperimentConfig``)."""
+    with open(path, encoding="utf-8") as f:
+        return yaml.safe_load(f)
 
 
 def run_experiment_config(config_path: str, *, device) -> int:

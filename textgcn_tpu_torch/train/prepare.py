@@ -5,7 +5,8 @@ Port of ``textgcn_tpu/train/prepare.py`` (``PreparedData``,
 ``normalize_rows_l2``, ``build_topic_features``, ``apply_spmm_format``,
 ``apply_attention_format``, ``apply_dense_attention_format``,
 ``permute_rows_1d_docs``): read the weighted edgelist, max-symmetrize
-(A := max(A, Aᵀ)), sym-normalize with self-loops, pack into a
+(A := max(A, Aᵀ)), sym-normalize with self-loops (:func:`normalize_edges`:
+the native graph core where a C++ compiler exists), pack into a
 :class:`SparseGraph`, and read labels and splits. The topic graph's node
 features come from the build stage's topic model: document rows are theta
 (the cached one, or the LDA E-step's on the caller's device), topic rows the
@@ -20,6 +21,7 @@ from typing import Optional
 
 import numpy as np
 
+from textgcn_tpu_torch import native
 from textgcn_tpu_torch.graph.build_topic import read_weighted_edgelist
 from textgcn_tpu_torch.graph.format import convert_graph, permute_rows
 from textgcn_tpu_torch.graph.normalize import max_symmetrize_coo, sym_normalize_coo
@@ -128,13 +130,28 @@ def permute_rows_1d_docs(target: np.ndarray, perm: np.ndarray) -> np.ndarray:
     return out
 
 
+def normalize_edges(src, dst, w, n_nodes: int):
+    """An edgelist's COO → the COO of D̃^{-1/2} (max(A, Aᵀ) + I) D̃^{-1/2}: in
+    the native graph core when a C++ compiler exists (as the JAX package
+    does), else in numpy. The native core appends missing self-loops after
+    the edges and sums the degrees in that order, so its float64 values can
+    differ from numpy's in the last bit; once :meth:`SparseGraph.from_coo`
+    sorts them and casts them to float32, the graphs are the same."""
+    if native.available():
+        native.log_path("normalize_edges", True)
+        r, c, v = native.coalesce(src, dst, w, n_nodes, reduce="max", symmetrize=True)
+        return native.sym_normalize(r, c, v, n_nodes)
+    native.log_path("normalize_edges", False)
+    r, c, v = max_symmetrize_coo(src, dst, w, n_nodes)
+    return sym_normalize_coo(r, c, v, n_nodes)
+
+
 def load_graph_edges(
     edgelist_path: str, n_nodes: int, pad_to_multiple: int = 4096, *, device
 ) -> SparseGraph:
     """Edgelist → max-symmetrized, normalized SparseGraph on ``device``."""
     src, dst, w = read_weighted_edgelist(edgelist_path)
-    r, c, v = max_symmetrize_coo(src, dst, w, n_nodes)
-    r, c, v = sym_normalize_coo(r, c, v, n_nodes)
+    r, c, v = normalize_edges(src, dst, w, n_nodes)
     return SparseGraph.from_coo(
         r, c, v, n_nodes, pad_to_multiple=pad_to_multiple, device=device
     )

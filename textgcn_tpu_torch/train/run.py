@@ -76,13 +76,18 @@ def aggregate(values: List[float]) -> Dict[str, float]:
 
 
 def check_graph_family(graph_family: str) -> None:
-    if graph_family not in ("topic", "docword"):
-        raise ValueError(f"unknown graph family {graph_family!r}: topic or docword")
+    """``graph_family`` names the reports (``{ds}_{graph_family}_training_results``):
+    as in JAX, ``docword`` reads the doc-word graph and any other name the
+    topic graph (``bench.py`` names its GAT pass ``topic_gat``). Refuses a
+    name that cannot be part of a file name."""
+    if not graph_family or any(s and s in graph_family for s in (os.sep, os.altsep)):
+        raise ValueError(f"graph family {graph_family!r} cannot name a report file")
 
 
 def prepare_data(dataset: str, graph_family: str, data_root: str, *, device) -> PreparedData:
-    """The graph family's prepared data on ``device`` (for the topic graph,
-    a stale theta cache is re-inferred there)."""
+    """The graph family's prepared data on ``device``: the doc-word graph
+    for ``docword``, else the topic graph (a stale theta cache is
+    re-inferred there)."""
     if graph_family == "docword":
         return prepare_docword_data(dataset, data_root=data_root, device=device)
     return prepare_topic_data(dataset, data_root=data_root, device=device)
