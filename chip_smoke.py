@@ -1068,7 +1068,7 @@ device = torch.device("cuda", 0) if backend == "gloo" else distributed.local_dev
 if not distributed.init_distributed(backend=backend):
     raise RuntimeError("no multi-process job in the launcher's environment")
 try:
-    summary = distributed.process_summary()
+    summary = distributed.process_summary(device)
     pre = prepare_docword_data("R8", data_root=os.path.join(repo, "data"), device="cpu")
     bsr_leg.launches = row_reduce.launches = 0
     out = launch.run_joined(
@@ -2969,7 +2969,7 @@ def main() -> int:
         f"{0 if ksp is None else ksp.n_seg} segments; residual {rest.n_edges} edges, longest row "
         f"{int(torch.diff(rest.row_ptr).max())}, K2 S = {SEGMENT_EDGES} "
         f"({'no' if rest.split is None else rest.split.n_long} rows split); "
-        f"{time.perf_counter() - t0:.1f} s on the host")
+        f"hybrid conversion {time.perf_counter() - t0:.1f} s on the host")
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
     # the phases of the --spmm bsr / onehot / auto slice draw from their own

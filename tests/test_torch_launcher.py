@@ -23,6 +23,7 @@ import torch.distributed as dist
 from torch_tiny_data import build_tiny
 
 from textgcn_tpu_torch.parallel import distributed, launch
+from textgcn_tpu_torch.train.checkpoint import restore_checkpoint
 from textgcn_tpu_torch.train.prepare import prepare_docword_data, prepare_topic_data
 from textgcn_tpu_torch.train.run import run_experiment
 from textgcn_tpu_torch.train.trainer import TrainConfig
@@ -94,7 +95,8 @@ def _wait(procs):
 
 def _check(out_path, spawned):
     got = json.loads(out_path.read_text())
-    assert got["summary"] == "rank 0/2 on cpu (gloo): 0 local / 0 global GPUs"
+    n = torch.cuda.device_count()  # both ranks on this machine: global = local
+    assert got["summary"] == f"rank 0/2 on cpu (gloo): {n} local / {n} global GPUs"
     (run,), (ref,) = got["runs"], spawned
     assert run["seed"] == ref["seed"] == SEED
     assert len(run["history"]) == len(ref["history"]) == CONFIG["max_epoch"]
@@ -103,15 +105,21 @@ def _check(out_path, spawned):
             assert a[k] == b[k], (k, a, b)
     for k in ("test_loss", "acc", "macro_f1"):
         assert run["test"][k] == ref["test"][k], k
+    return got
 
 
 def test_ranks_joined_by_hand_set_variables_train_as_spawned_ranks(tiny, spawned, tmp_path):
+    """Also the checkpoints: rank 0 writes ``save_model`` and ``save_state``
+    of the run (the files a shared file system must hold across machines)."""
     root, _, _ = tiny
     out = tmp_path / "out.json"
+    spec = json.loads((root / "spec.json").read_text())
+    spec.update(save_model=str(tmp_path / "model"), save_state=str(tmp_path / "state"))
+    (tmp_path / "spec.json").write_text(json.dumps(spec))
     port = str(_free_port())
     procs = [
         subprocess.Popen(
-            [sys.executable, WORKER, str(root / "data.npz"), str(root / "spec.json"), str(out)],
+            [sys.executable, WORKER, str(root / "data.npz"), str(tmp_path / "spec.json"), str(out)],
             env=_env(MASTER_ADDR="localhost", MASTER_PORT=port, WORLD_SIZE="2", RANK=str(r),
                      LOCAL_RANK=str(r)),
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
@@ -119,7 +127,19 @@ def test_ranks_joined_by_hand_set_variables_train_as_spawned_ranks(tiny, spawned
         for r in (0, 1)
     ]
     _wait(procs)
-    _check(out, spawned)
+    got = _check(out, spawned)
+    assert got["checkpoint"] == spec["save_model"]
+    assert got["resumable_checkpoint"] == spec["save_state"]
+    model, state = restore_checkpoint(spec["save_model"]), restore_checkpoint(spec["save_state"])
+    for ck in (model, state):
+        meta = ck["metadata"]
+        assert (meta["n_shards"], meta["kernel"], meta["partition"]) == (2, "hybrid", "allgather")
+        assert meta["model"] == "gcn" and meta["node_order"] == 0
+    assert model["metadata"]["seed"] == SEED
+    assert model["metadata"]["epochs_run"] == CONFIG["max_epoch"]
+    assert "opt_state" in state and "opt_state" not in model
+    for k, v in model["params"].items():
+        assert np.array_equal(np.asarray(v), np.asarray(state["params"][k])), k
 
 
 def test_ranks_started_by_torchrun_train_as_spawned_ranks(tiny, spawned, tmp_path):

@@ -175,6 +175,20 @@ def test_malformed_lines_skipped_natively_and_raise_in_the_loop(tmp_path, monkey
     np.testing.assert_array_equal(v, [0.5, 1.0])
 
 
+@pytest.mark.parametrize("path", ["native", "numpy"])
+def test_fields_stop_at_the_line_end(path, tmp_path, monkeypatch):
+    """A line of two fields gets weight 1 and a line of one field is skipped,
+    wherever they stand in the file: no field is read from the next line."""
+    p = tmp_path / "e.txt"
+    p.write_text("4 5\n6 7 2.5\n2\n8 9 \r\n10 11\t0.25\n3 1")
+    if path == "numpy":
+        monkeypatch.setattr(native, "available", lambda: False)
+    r, c, v = tbt.read_weighted_edgelist(str(p))
+    np.testing.assert_array_equal(r, [4, 6, 8, 10, 3])
+    np.testing.assert_array_equal(c, [5, 7, 9, 11, 1])
+    np.testing.assert_array_equal(v, [1.0, 2.5, 1.0, 0.25, 1.0])
+
+
 def _snapshot(d):
     return {
         name: (os.path.getsize(os.path.join(d, name)), os.path.getmtime(os.path.join(d, name)))

@@ -6,9 +6,10 @@ and ``LOCAL_RANK`` set by hand. It imports neither JAX nor ``textgcn_tpu``.
 
 ``DATA.npz`` holds a :class:`~textgcn_tpu_torch.parallel.launch.HostData`'s
 arrays, ``SPEC.json`` the seeds, ``TrainConfig`` fields, kernel and
-partition. The rank joins over gloo on the CPU (``init_distributed``),
-trains through ``run_joined``, and rank 0 writes its runs and its
-``process_summary`` line to ``OUT.json``.
+partition, and optionally ``save_model`` / ``save_state`` directories. The
+rank joins over gloo on the CPU (``init_distributed``), trains through
+``run_joined``, and rank 0 writes its result (runs and checkpoint paths)
+and its ``process_summary`` line to ``OUT.json``.
 """
 import json
 import sys
@@ -30,17 +31,19 @@ def main(data_path: str, spec_path: str, out_path: str) -> int:
         spec = json.load(f)
     if not distributed.init_distributed(backend="gloo", timeout_s=60.0):
         raise RuntimeError("the launcher's environment names no multi-process job")
+    device = distributed.local_device(cpu=True)
     try:
-        summary = distributed.process_summary()
+        summary = distributed.process_summary(device)
         out = launch.run_joined(
             data, spec["seeds"], TrainConfig(**spec["config"]), kernel=spec["kernel"],
-            partition=spec["partition"], device=distributed.local_device(cpu=True),
+            partition=spec["partition"], device=device, save_model=spec.get("save_model"),
+            save_state=spec.get("save_state"),
         )
     finally:
         torch.distributed.destroy_process_group()
     if out is not None:
         with open(out_path, "w", encoding="utf-8") as f:
-            json.dump({"runs": out["runs"], "summary": summary}, f)
+            json.dump({**out, "summary": summary}, f)
     return 0
 
 

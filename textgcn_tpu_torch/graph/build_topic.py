@@ -17,9 +17,12 @@ numpy on the host:
 
 ``read_weighted_edgelist`` parses in the native graph core
 (:mod:`textgcn_tpu_torch.native`) when a C++ compiler exists, as the JAX
-package does, else in the JAX package's pure-Python loop. On well-formed
-lines the two give the same arrays; as in JAX, the native parser skips a line
-whose node ids are not integers, where the loop raises.
+package does, else in the JAX package's pure-Python loop. The two give the
+same arrays on "u v w" and "u v" lines (weight 1) and both skip a line of one
+field; as in JAX, the native parser skips a line whose node ids are not
+integers, where the loop raises. Unlike JAX's native parser, the port's stops
+every field at the line end, so a "u v" line never takes the next line's
+first field as its weight.
 """
 from __future__ import annotations
 

@@ -13,8 +13,13 @@
 // copies out through pointers and frees the handle.
 //
 // This is textgcn_tpu_torch's own copy of textgcn_tpu/native/graphcore.cpp,
-// with one change: tg_window_cooccurrence returns its pairs sorted by (i, j),
-// where the original returns them in unordered_map order (unspecified).
+// with two changes:
+//   - tg_window_cooccurrence returns its pairs sorted by (i, j), where the
+//     original returns them in unordered_map order (unspecified);
+//   - tg_parse_edgelist stops every field at the line end. The original lets
+//     strtoll/strtod skip the newline, so a "u v" line took its weight from
+//     the next line and lost that line; here it gets weight 1, as in the
+//     Python loop.
 
 #include <algorithm>
 #include <cctype>
@@ -62,6 +67,13 @@ void* tg_parse_edgelist(const char* path, int64_t* n_out) {
 
   char* p = data.data();
   char* end = p + rd;
+  // Skip blanks up to the next field, but never past the line end.
+  auto skip_blanks = [&](char* s) {
+    while (s < end && *s != '\n' &&
+           std::isspace(static_cast<unsigned char>(*s)))
+      ++s;
+    return s;
+  };
   while (p < end) {
     // skip leading whitespace/newlines
     while (p < end && std::isspace(static_cast<unsigned char>(*p))) ++p;
@@ -72,14 +84,18 @@ void* tg_parse_edgelist(const char* path, int64_t* n_out) {
       while (p < end && *p != '\n') ++p;
       continue;
     }
-    p = q;
-    long long v = std::strtoll(p, &q, 10);
-    if (q == p) {
+    p = skip_blanks(q);
+    long long v = 0;
+    q = p;
+    if (p < end && *p != '\n') v = std::strtoll(p, &q, 10);
+    if (q == p) {  // one field or a malformed node id: skip the line
       while (p < end && *p != '\n') ++p;
       continue;
     }
-    p = q;
-    double w = std::strtod(p, &q);
+    p = skip_blanks(q);
+    double w = 1.0;
+    q = p;
+    if (p < end && *p != '\n') w = std::strtod(p, &q);
     if (q == p) {
       w = 1.0;
     } else {

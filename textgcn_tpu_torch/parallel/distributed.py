@@ -142,13 +142,18 @@ def local_device(env=None, *, cpu: bool = False) -> torch.device:
     return torch.device("cuda", int(local))
 
 
-def process_summary() -> str:
+def process_summary(device=None) -> str:
     """One line on this process's view of the job, for example ``rank 1/2 on
-    cuda:1 (nccl): 8 local / 16 global GPUs``: the GPUs of this machine, and
-    of every machine that holds a rank. In a joined group every rank calls it
-    together (it gathers each rank's host name and GPU count)."""
+    cuda:1 (nccl): 8 local / 16 global GPUs``: the rank's ``device``, and the
+    GPUs of this machine and of every machine that holds a rank. ``device``
+    defaults to the current CUDA device where there is one (the one
+    :func:`init_distributed` made current for NCCL), else the CPU. In a
+    joined group every rank calls it together (it gathers each rank's host
+    name and GPU count)."""
     n_local = torch.cuda.device_count()
-    dev = f"cuda:{torch.cuda.current_device()}" if n_local else "cpu"
+    if device is None:
+        device = f"cuda:{torch.cuda.current_device()}" if n_local else "cpu"
+    dev = str(torch.device(device))
     if not dist.is_initialized():
         return f"rank 0/1 on {dev} (no group): {n_local} local / {n_local} global GPUs"
     hosts = [None] * dist.get_world_size()

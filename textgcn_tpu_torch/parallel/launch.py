@@ -244,8 +244,6 @@ def run_joined(
     kernel: str,
     partition: str,
     device,
-    verbose: bool = False,
-    params_np: Optional[dict] = None,
     save_model: Optional[str] = None,
     save_state: Optional[str] = None,
     resume_from: Optional[str] = None,
@@ -266,8 +264,7 @@ def run_joined(
     paths = [None if p is None else os.path.abspath(p) for p in (save_model, save_state,
                                                                  resume_from)]
     return _on_group(
-        _train_seeds, device,
-        (data, list(seeds), config, kernel, partition, verbose, params_np, *paths),
+        _train_seeds, device, (data, list(seeds), config, kernel, partition, False, None, *paths),
     )
 
 
