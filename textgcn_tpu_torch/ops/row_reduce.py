@@ -47,12 +47,14 @@ Source note:
 """
 from __future__ import annotations
 
+import time
 from typing import Optional
 
 import torch
 
 from textgcn_tpu_torch.ops import _build
 from textgcn_tpu_torch.ops.split import RowSplit, build_split, check_split
+from textgcn_tpu_torch.utils import profiling
 
 # S: the most edges one warp walks; the kernel's compile-time constant
 # (csrc/row_reduce.cu kSegEdges), which a RowSplit table must be built for
@@ -124,8 +126,12 @@ def row_reduce(row_ptr, col, val, x, base=None, split=None):
     CSR's is refused (host integers, no device sync).
 
     On CPU tensors this runs :func:`row_reduce_plain`; on CUDA tensors it
-    launches the kernel (building it on first use) or raises.
+    launches the kernel (building it on first use) or raises, and counts
+    the launch in ``row_reduce.launches``; while the span recorder is on
+    (:func:`~textgcn_tpu_torch.utils.profiling.record_spans`) a launch, from
+    the checks to the launch's error check, is a ``k2.launch`` span.
     """
+    t0 = profiling.spans_on and time.time_ns()
     check_split("row_reduce", row_ptr, col.numel(), split, RowSplit, SEGMENT_EDGES)
     if x.device.type == "cpu":
         return row_reduce_plain(row_ptr, col, val, x, base)
@@ -151,6 +157,8 @@ def row_reduce(row_ptr, col, val, x, base=None, split=None):
         )
     row_reduce.launches += 1
     _build.check_launch("row_reduce", err)
+    if t0:
+        profiling.leaf("k2.launch", t0)
     return out
 
 

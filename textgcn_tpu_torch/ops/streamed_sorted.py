@@ -42,6 +42,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import time
 from functools import partial
 from typing import Callable, Iterable, Optional, Tuple
 
@@ -50,6 +51,7 @@ import torch
 
 from textgcn_tpu_torch.ops.row_reduce import RowSplit, row_reduce, row_split
 from textgcn_tpu_torch.ops.split import record
+from textgcn_tpu_torch.utils import profiling
 
 # Edges per chunk cut from a real graph: one chunk of the lattice at the
 # baseline scale config (32 x 32 cells of 800 edges; 6.6 MB as a CSR).
@@ -196,17 +198,53 @@ def streamed_sorted_add_(acc, chunks: Iterable[SortedChunk], x, reduce=row_reduc
     allocator does not reuse its memory before the reduce that reads it has
     run. Chunks already on x's device pass through without a copy
     (:class:`CachedChunkSource`).
+
+    While the span recorder is on
+    (:func:`~textgcn_tpu_torch.utils.profiling.record_spans`) the call is a
+    ``pass`` span with the attributes ``chunks`` (chunks reduced),
+    ``launches`` (K2's launches: the change of ``row_reduce.launches``) and
+    ``copies`` (chunks copied in from the host); inside it each call for the
+    source's next chunk is a ``chunk.fetch`` span (the last one of a pass
+    finds the source's end), each host chunk's copies and event a
+    ``chunk.feed`` span, the compute stream's wait for them a ``chunk.sync``
+    span, and each K2 call a ``k2.launch`` span
+    (:func:`~textgcn_tpu_torch.ops.row_reduce.row_reduce`).
     """
-    if x.device.type == "cuda":
-        chunks = _lookahead(chunks, x.device)
-    else:
-        chunks = (c.to(x.device) for c in chunks)
-    for chunk in chunks:
+    if not profiling.spans_on:
+        for chunk in _on_device(chunks, x.device):
+            sorted_chunk_add(acc, chunk, x, reduce)
+        return acc
+    fed, launches, n = [0], row_reduce.launches, 0
+    span = profiling.begin("pass")
+    for chunk in _on_device(chunks, x.device, fed):
         sorted_chunk_add(acc, chunk, x, reduce)
+        n += 1
+    profiling.end(span, chunks=n, launches=row_reduce.launches - launches, copies=fed[0])
     return acc
 
 
-def _lookahead(chunks: Iterable[SortedChunk], dev):
+def _on_device(chunks: Iterable[SortedChunk], dev, fed=None):
+    """``chunks`` on ``dev``: on CUDA through :func:`_lookahead`, which
+    adds its host copies to ``fed[0]`` while the recorder is on."""
+    if dev.type == "cuda":
+        return _lookahead(chunks, dev, fed)
+    return _fetched(chunks, dev)
+
+
+def _fetched(chunks: Iterable[SortedChunk], dev):
+    """Yield ``chunks`` moved to the CPU device ``dev``."""
+    it = iter(chunks)
+    while True:
+        t0 = profiling.spans_on and time.time_ns()
+        chunk = next(it, None)
+        if t0:
+            profiling.leaf("chunk.fetch", t0)
+        if chunk is None:
+            return
+        yield chunk.to(dev)
+
+
+def _lookahead(chunks: Iterable[SortedChunk], dev, fed=None):
     """Yield ``chunks`` on the CUDA device ``dev``, the next one's copy in
     flight while the caller reduces the current one."""
     compute = torch.cuda.current_stream(dev)
@@ -216,27 +254,41 @@ def _lookahead(chunks: Iterable[SortedChunk], dev):
         nonlocal side
         if chunk.device == dev:
             return chunk, None
+        t0 = profiling.spans_on and time.time_ns()
         side = side or torch.cuda.Stream(dev)
         with torch.cuda.stream(side):
             moved = chunk.to(dev, non_blocking=True)
             done = torch.cuda.Event()
             done.record(side)
+        if t0:
+            profiling.leaf("chunk.feed", t0)
+            if fed is not None:
+                fed[0] += 1
         return moved, done
 
     it = iter(chunks)
-    nxt = next(it, None)
-    pending = None if nxt is None else put(nxt)
-    while pending is not None:
-        cur, done = pending
+    pending = None
+    while True:
+        t0 = profiling.spans_on and time.time_ns()
         nxt = next(it, None)
-        pending = None if nxt is None else put(nxt)
-        if done is not None:
-            compute.wait_event(done)
-            for t in (cur.row_ptr, cur.col, cur.val):
-                t.record_stream(compute)
-            if cur.split is not None:
-                cur.split.table.record_stream(compute)
-        yield cur
+        if t0:
+            profiling.leaf("chunk.fetch", t0)
+        queued = None if nxt is None else put(nxt)
+        if pending is not None:
+            cur, done = pending
+            if done is not None:
+                t0 = profiling.spans_on and time.time_ns()
+                compute.wait_event(done)
+                for t in (cur.row_ptr, cur.col, cur.val):
+                    t.record_stream(compute)
+                if cur.split is not None:
+                    cur.split.table.record_stream(compute)
+                if t0:
+                    profiling.leaf("chunk.sync", t0)
+            yield cur
+        if queued is None:
+            return
+        pending = queued
 
 
 # ---------------------------------------------------------------------------

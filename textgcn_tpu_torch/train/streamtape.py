@@ -38,6 +38,7 @@ from typing import Callable, Optional
 import torch
 
 from textgcn_tpu_torch.ops.streamed_sorted import stream_node
+from textgcn_tpu_torch.utils import profiling
 
 
 class StreamTape:
@@ -67,16 +68,21 @@ def make_tape_step(
     ``step(params, x, y, mask) -> loss`` (detached) clears the gradients,
     runs the forward, ``loss.backward()``, ``grad_sync(params)`` where that
     is set, and ``optimizer.step()``; after it each parameter's ``.grad``
-    holds this step's gradient.
+    holds this step's gradient. While the span recorder is on
+    (:func:`~textgcn_tpu_torch.utils.profiling.record_spans`) the step is a
+    ``step`` span, whose id every span inside it carries.
     """
 
     def step(params, x, y, mask):
+        span = profiling.begin("step", step=True) if profiling.spans_on else None
         optimizer.zero_grad(set_to_none=True)
         loss = build(StreamTape(stream, stream_dtype, count), params, x, y, mask)
         loss.backward()
         if grad_sync is not None:
             grad_sync(params)
         optimizer.step()
+        if span is not None:
+            profiling.end(span)
         return loss.detach()
 
     return step
