@@ -27,7 +27,7 @@ from textgcn_tpu_torch.parallel.mesh_kernels import (
 )
 from textgcn_tpu_torch.ops import _build
 from textgcn_tpu_torch.ops.row_reduce import (
-    SEGMENT_EDGES, row_reduce, row_reduce_plain, row_split,
+    SEGMENT_EDGES, row_reduce, row_reduce_plain, row_reduce_run_plain, row_split,
 )
 
 CPU = torch.device("cpu")
@@ -870,6 +870,125 @@ def test_streamed_step_beyond_the_device_cache_matches_resident(cuda_dev):
         assert torch.equal(grads_c[k], grads_r[k]), k
     assert src.cached_bytes == host[0].nbytes
     assert src.host_loads == len(host) + 3 * (len(host) - 1)
+
+
+def _on(chunks, dev):
+    return [c.to(dev) for c in chunks]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [2, 8, 16, 64, 200])
+def test_row_reduce_run_kernel_equals_the_per_chunk_calls(cuda_dev, f):
+    """K2's run entry against ``sorted_chunk_add`` a chunk, bit-equal: the
+    runs of ``tests/torch_stream_chunks.py`` (empty rows; broken by a host
+    chunk, a split chunk and an overlap) with the two other chunks' calls
+    between them, then one run of every disjoint chunk without a split
+    table; one launch a run; against the plain version."""
+    from textgcn_tpu_torch.ops.row_reduce import reduce_run, row_reduce_run
+    from textgcn_tpu_torch.ops.streamed_sorted import sorted_chunk_add
+    from torch_stream_chunks import N_ROWS, PLAN, SPLIT, broken_runs
+
+    chunks = _on(broken_runs(seed=5)[0], cuda_dev)
+    gen = torch.Generator(device=cuda_dev).manual_seed(6)
+    x = torch.randn((N_ROWS, f), generator=gen, device=cuda_dev).bfloat16()
+    base = torch.randn((N_ROWS, f), generator=gen, device=cuda_dev)
+
+    def csrs(ks):
+        return [(chunks[k].row_ptr, chunks[k].col, chunks[k].val, chunks[k].r0) for k in ks]
+
+    want, got = base.clone(), base.clone()
+    for p in PLAN:
+        for k in p if isinstance(p, tuple) else (p,):
+            sorted_chunk_add(want, chunks[k], x)
+    n0, b0 = row_reduce.launches, row_reduce.batched_chunks
+    for p in PLAN:
+        if isinstance(p, tuple):
+            row_reduce_run(reduce_run(csrs(p)), x, got)
+        else:
+            sorted_chunk_add(got, chunks[p], x)
+    torch.cuda.synchronize()
+    assert row_reduce.launches - n0 == len(PLAN)
+    assert row_reduce.batched_chunks - b0 == sum(len(p) for p in PLAN if isinstance(p, tuple))
+    assert torch.equal(got, want)
+
+    disjoint = [0, 1, 2, 3, 5, 7]
+    run = reduce_run(csrs(disjoint))
+    got = row_reduce_run(run, x, base.clone())
+    want = base.clone()
+    for k in disjoint:
+        sorted_chunk_add(want, chunks[k], x)
+    assert torch.equal(got, want)
+    # f32 sums of up to ~30 products a row in another order
+    torch.testing.assert_close(got, row_reduce_run_plain(run, x, base.clone()),
+                               rtol=1e-5, atol=1e-5)
+    assert chunks[SPLIT].split is not None
+    with pytest.raises(TypeError, match="bf16"):
+        row_reduce_run(run, x.float(), base.clone())
+    with pytest.raises(ValueError, match="base must be"):
+        row_reduce_run(run, x, base[: run.r_end - 1].clone())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [16, 200])
+def test_streamed_pass_over_runs_equals_the_per_chunk_pass(cuda_dev, f):
+    """A CachedChunkSource over pinned host chunks that keeps all but one:
+    once the first pass has filled the cache, a pass launches K2 once a run
+    and once a chunk between runs (the host chunk, copied one ahead, and
+    the split chunk), and equals the per-chunk pass over the same chunks
+    bit for bit."""
+    from textgcn_tpu_torch.ops import streamed_sorted as ss
+    from torch_stream_chunks import N_ROWS, PLAN, broken_runs
+
+    chunks, budget = broken_runs(seed=7)
+    host = [c.pin_memory() for c in chunks]
+    x = torch.randn((N_ROWS, f), device=cuda_dev).bfloat16()
+    want = ss.spmm_streamed_sorted_hostfed(host, x)
+    src = ss.CachedChunkSource(host.__getitem__, len(host), budget, cuda_dev)
+    assert torch.equal(ss.spmm_streamed_sorted_hostfed(src, x), want)
+    for _ in range(2):
+        n0, b0 = row_reduce.launches, row_reduce.batched_chunks
+        assert torch.equal(ss.spmm_streamed_sorted_hostfed(src, x), want)
+        assert row_reduce.launches - n0 == len(PLAN)
+        assert row_reduce.batched_chunks - b0 == 6
+    assert src.host_loads == len(host) + 2
+
+
+@pytest.mark.cuda
+def test_streamed_step_over_runs_equals_the_per_chunk_step(cuda_dev):
+    """Three Adam steps of the streamed GCN over a CachedChunkSource that
+    keeps half the lattice's chunks (one run, the rest copied from pinned
+    host memory) give the losses and parameters of the per-chunk steps
+    over the same chunks on the card, bit for bit; K2 launches once a
+    chunk in the first pass, then once for the run and once a host chunk."""
+    from textgcn_tpu_torch.ops import streamed_sorted as ss
+    from textgcn_tpu_torch.train import streamed as st
+
+    lat = _lattice_chunks(CPU, seed=8)
+    host = [c.pin_memory() for c in lat]
+    kept = 2
+    n, f, h, c = lat.n_rows, 24, 16, 8
+    gen = torch.Generator(device=cuda_dev).manual_seed(9)
+    x = torch.randn((n, f), generator=gen, device=cuda_dev).bfloat16()
+    y = torch.randint(0, c, (n,), generator=gen, device=cuda_dev)
+    mask = (torch.rand(n, generator=gen, device=cuda_dev) < 0.5).float()
+    src = ss.CachedChunkSource(host.__getitem__, len(host),
+                               sum(ch.nbytes for ch in host[:kept]), cuda_dev)
+    res = []
+    for chunks in (_on(host, cuda_dev), src):
+        params, opt = st.init_streamed(
+            torch.Generator(device=cuda_dev).manual_seed(10), f, h, c, device=cuda_dev, lr=0.01
+        )
+        step = st.make_streamed_train_step_segmented(st.make_sorted_stream(chunks), n, opt)
+        n0 = row_reduce.launches
+        losses = [float(step(params, x, y, mask)) for _ in range(3)]
+        res.append((losses, params, row_reduce.launches - n0))
+    (loss_c, params_c, launches_c), (loss_r, params_r, launches_r) = res
+    assert loss_r == loss_c
+    for k in params_c:
+        assert torch.equal(params_r[k], params_c[k]), k
+    copies = len(host) - kept
+    assert launches_c == 12 * len(host)
+    assert launches_r == len(host) + 11 * (1 + copies)
 
 
 @pytest.mark.cuda

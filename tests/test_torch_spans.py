@@ -131,9 +131,10 @@ def test_streamed_step_records_nothing_while_off():
 @pytest.mark.parametrize("family", sorted(PASSES))
 def test_streamed_step_spans_nest_in_one_step_each(family):
     """Two steps: each a ``step`` span with its own id, holding the
-    family's passes, each pass holding one ``chunk.fetch`` a chunk and one
-    that finds the source's end; the pass reduces every chunk of the
-    lattice."""
+    family's passes; the cache holds the whole lattice, so each pass takes
+    its chunks as one run (``batched`` is every chunk) and holds one
+    ``chunk.fetch`` for the run and one that finds the source's end; the
+    pass reduces every chunk of the lattice."""
     step = _cpu_step(family)
     step()  # the first pass fills the cache
     profiling.record_spans(True)
@@ -149,12 +150,30 @@ def test_streamed_step_spans_nest_in_one_step_each(family):
         for j in passes:
             p = spans[j]
             assert p.step == spans[i].step
-            assert p.attrs == {"chunks": N_CHUNKS, "launches": 0, "copies": 0}
+            assert p.attrs == {"chunks": N_CHUNKS, "batched": N_CHUNKS, "launches": 0,
+                               "copies": 0}
             kids = _children(spans, j)
-            assert [k.name for k in kids] == ["chunk.fetch"] * (N_CHUNKS + 1)
+            assert [k.name for k in kids] == ["chunk.fetch"] * 2
             assert all(k.step == p.step for k in kids)
             assert all(p.start_ns <= k.start_ns <= k.end_ns <= p.end_ns for k in kids)
     assert {s.parent for s in spans if s.name == "pass"} == set(steps)
+
+
+@pytest.mark.parametrize("kept", [0, 2, N_CHUNKS])
+def test_pass_span_counts_the_chunks_reduced_in_runs(kept):
+    """``batched`` is the chunks that the cache keeps (one run of the
+    first ``kept``), once the first pass has filled it; ``chunks`` counts
+    every chunk either way."""
+    lat = ss.make_lattice_stream(N_CHUNKS, W_SC, W, CELL_E, seed=1, device="cpu")
+    host = list(lat)
+    budget = sum(c.nbytes for c in host[:kept])
+    src = ss.CachedChunkSource(host.__getitem__, len(host), budget, "cpu")
+    step = _step(src, "gcn", torch.device("cpu"), lat.n_rows)
+    profiling.record_spans(True)
+    step()
+    passes = [s.attrs for s in profiling.record_spans(False) if s.name == "pass"]
+    runs = {"batched": kept, "chunks": N_CHUNKS, "launches": 0, "copies": 0}
+    assert passes == [{**runs, "batched": 0}] + [runs] * 3
 
 
 def test_span_clock_is_the_profilers():
@@ -182,9 +201,11 @@ def test_span_clock_is_the_profilers():
 def test_cuda_pass_counts_launches_and_copies(cuda_dev):
     """A half-cached source on the card: every pass records the six names
     inside it, ``launches`` equals the change of ``row_reduce.launches``
-    (one K2 call a chunk), ``copies`` the chunks the cache does not keep
-    (each a ``chunk.feed`` and a ``chunk.sync``, and a host load of the
-    source), and every K2 call is a ``k2.launch``."""
+    (one K2 launch for the run of cached chunks and one a host chunk),
+    ``batched`` the chunks of the run (and of ``row_reduce.batched_chunks``),
+    ``copies`` the chunks the cache does not keep (each a ``chunk.feed``
+    and a ``chunk.sync``, and a host load of the source), and every K2
+    launch is a ``k2.launch``."""
     lat = ss.make_lattice_stream(N_CHUNKS, W_SC, W, CELL_E, seed=1, device="cpu")
     host = [c.pin_memory() for c in lat]
     kept = 2
@@ -194,20 +215,23 @@ def test_cuda_pass_counts_launches_and_copies(cuda_dev):
     step()
     torch.cuda.synchronize()
     launches, loads = row_reduce.launches, src.host_loads
+    batched = row_reduce.batched_chunks
     profiling.record_spans(True)
     step()
     torch.cuda.synchronize()
     spans = profiling.record_spans(False)
     copies = N_CHUNKS - kept
     names = Counter(s.name for s in spans)
-    assert names == {"step": 1, "pass": 4, "chunk.fetch": 4 * (N_CHUNKS + 1),
+    assert names == {"step": 1, "pass": 4, "chunk.fetch": 4 * (copies + 2),
                      "chunk.feed": 4 * copies, "chunk.sync": 4 * copies,
-                     "k2.launch": 4 * N_CHUNKS}
+                     "k2.launch": 4 * (copies + 1)}
     passes = [j for j, s in enumerate(spans) if s.name == "pass"]
     for j in passes:
-        assert spans[j].attrs == {"chunks": N_CHUNKS, "launches": N_CHUNKS, "copies": copies}
+        assert spans[j].attrs == {"chunks": N_CHUNKS, "batched": kept, "launches": copies + 1,
+                                  "copies": copies}
         kids = Counter(k.name for k in _children(spans, j))
-        assert kids == {"chunk.fetch": N_CHUNKS + 1, "chunk.feed": copies,
-                        "chunk.sync": copies, "k2.launch": N_CHUNKS}
+        assert kids == {"chunk.fetch": copies + 2, "chunk.feed": copies,
+                        "chunk.sync": copies, "k2.launch": copies + 1}
     assert sum(spans[j].attrs["launches"] for j in passes) == row_reduce.launches - launches
+    assert sum(spans[j].attrs["batched"] for j in passes) == row_reduce.batched_chunks - batched
     assert sum(spans[j].attrs["copies"] for j in passes) == src.host_loads - loads

@@ -46,6 +46,20 @@
 // give a warp's 32/lanes lane groups different edges, and the groups are
 // summed with shuffles in a fixed order. Each lane keeps kUnroll gathers in
 // flight. Wider rows walk in column tiles of 32*V columns.
+//
+// A run of chunks (`textgcn_row_reduce_run`). The streamed pass reduces
+// each row-sorted chunk onto its own row range of one accumulator, and a
+// chunk's call costs the host more than K2 takes on the card (~17 us for
+// a chunk of 16,384 rows at F <= 16 on an H100). The chunks that a cache
+// keeps on the card take one launch a run instead: a device table lists
+// each chunk's CSR and first output row, and warp w finds its chunk by
+// binary search over the chunks' row counts summed before them (at most
+// ~10 steps over the 610 chunks of the benchmark's graph). Each row then
+// takes the path that the chunk's own call would give it, so the run's
+// output equals the per-chunk calls' bit for bit. Only chunks without a
+// split table and with disjoint row ranges form a run (one launch has no
+// order between two warps on the same row); the wrapper checks both when
+// it builds the table.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -160,6 +174,42 @@ __device__ __forceinline__ void sum_groups(float (&acc)[V], int lanes) {
   }
 }
 
+// One warp's output row: dst = base + the row's sum over edges [e0, e1)
+// when `add_base` (dst holds the base), else the sum alone; lane group 0
+// stores. The order of every sum depends only on the edges, so a row gets
+// the same bits from either kernel below.
+template <int V>
+__device__ __forceinline__ void reduce_row(const int* __restrict__ col,
+                                           const float* __restrict__ val,
+                                           const typename Vec<V>::T* __restrict__ x,
+                                           float* __restrict__ dst, int e0, int e1,
+                                           int f, bool add_base, int lanes) {
+  const int lane = threadIdx.x % 32;
+  const int sub = lane % lanes;
+  const int grp = lane / lanes;
+  const int n_grp = 32 / lanes;
+  const int nv = f / V;
+  for (int v0 = 0; v0 < nv; v0 += lanes) {
+    const int v = v0 + sub;
+    const bool active = v < nv;
+    float acc[V];
+#pragma unroll
+    for (int i = 0; i < V; ++i) acc[i] = 0.f;
+    walk<V>(col, val, x, nv, v, active, e0, e1, lane, grp, n_grp, acc);
+    sum_groups<V>(acc, lanes);
+    if (grp == 0 && active) {
+      float* o = dst + (size_t)v * V;
+      if (add_base) {
+        float b[V];
+        load(b, o);
+#pragma unroll
+        for (int i = 0; i < V; ++i) acc[i] = b[i] + acc[i];
+      }
+      store(o, acc);
+    }
+  }
+}
+
 // Pass 1. Warps [0, n_seg) take the split table's segments and write their
 // partial rows; warps [n_seg, n_seg + n_rows) take the rows, and with a
 // table a row of more than S edges is left to its segments.
@@ -176,35 +226,64 @@ row_reduce_kernel(const int* __restrict__ row_ptr,
                   int n_rows, int n_seg, int f, int has_base, int lanes) {
   const int w = blockIdx.x * kWarps + threadIdx.x / 32;
   if (w >= n_seg + n_rows) return;
-  const int lane = threadIdx.x % 32;
-  const int sub = lane % lanes;
-  const int grp = lane / lanes;
-  const int n_grp = 32 / lanes;
-  const int nv = f / V;
   const bool seg = w < n_seg;
   int row, e0, e1;
   if (!split_item(w, n_seg, kSegEdges, row_ptr, seg_row, seg_e0, row, e0, e1)) return;
   if (!seg && e0 == e1 && has_base) return;  // nothing to add
   float* dst = seg ? partial + (size_t)w * f : out + (size_t)row * f;
-  for (int v0 = 0; v0 < nv; v0 += lanes) {
-    const int v = v0 + sub;
-    const bool active = v < nv;
-    float acc[V];
-#pragma unroll
-    for (int i = 0; i < V; ++i) acc[i] = 0.f;
-    walk<V>(col, val, x, nv, v, active, e0, e1, lane, grp, n_grp, acc);
-    sum_groups<V>(acc, lanes);
-    if (grp == 0 && active) {
-      float* o = dst + (size_t)v * V;
-      if (!seg && has_base) {
-        float b[V];
-        load(b, o);
-#pragma unroll
-        for (int i = 0; i < V; ++i) acc[i] = b[i] + acc[i];
-      }
-      store(o, acc);
-    }
+  reduce_row<V>(col, val, x, dst, e0, e1, f, !seg && has_base, lanes);
+}
+
+// A chunk of a run: a row-sorted CSR whose row i is output row r0 + i
+// (textgcn_tpu_torch/ops/row_reduce.py `ReduceRun`, one int64 row each).
+struct RunChunk {
+  const int* row_ptr;
+  const int* col;
+  const float* val;
+  long long r0;
+};
+
+// Pass 1 over a run of chunks with disjoint row ranges and no split table,
+// onto a base: warp w takes row w - w0[k] of chunk k, the chunk with
+// w0[k] <= w < w0[k+1] (w0 [n_chunks + 1]: the chunks' rows, summed
+// before them), found by binary search. Each row is the direct path of
+// `row_reduce_kernel` with the chunk's own call's arguments, so it gets the
+// bits of that call.
+template <int V>
+__global__ void __launch_bounds__(kThreads)
+row_reduce_kernel_run(const RunChunk* __restrict__ chunks,
+                      const long long* __restrict__ w0,
+                      const typename Vec<V>::T* __restrict__ x,
+                      float* __restrict__ out,
+                      int n_chunks, int n_rows, int f, int lanes) {
+  const int w = blockIdx.x * kWarps + threadIdx.x / 32;
+  if (w >= n_rows) return;
+  int lo = 0, hi = n_chunks;  // w0[lo] <= w < w0[hi]
+  while (hi - lo > 1) {
+    const int mid = (lo + hi) / 2;
+    if (w0[mid] <= w) lo = mid;
+    else hi = mid;
   }
+  const RunChunk c = chunks[lo];
+  const int i = w - static_cast<int>(w0[lo]);
+  const int e0 = c.row_ptr[i], e1 = c.row_ptr[i + 1];
+  if (e0 == e1) return;  // nothing to add
+  reduce_row<V>(c.col, c.val, x, out + (size_t)(c.r0 + i) * f, e0, e1, f, true, lanes);
+}
+
+int lanes_for(int nv) {
+  int lanes = 1;
+  while (lanes < nv && lanes < 32) lanes <<= 1;
+  return lanes;
+}
+
+// V's choice. It is the same for every chunk of a run as for the chunk's
+// own call, whose `out` is 4 r0 f bytes further on: with f % 8 == 0 that
+// is a multiple of 32, so both have the alignment of the accumulator.
+bool wide_loads(int f, const void* x, const void* out) {
+  const bool aligned16 =
+      ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(out)) & 15) == 0;
+  return f % 8 == 0 && f > kNarrowF && aligned16;
 }
 
 template <int V>
@@ -212,16 +291,24 @@ void launch_pass1(const void* row_ptr, const void* col, const void* val,
                   const void* x, void* out, const int* seg_row,
                   const int* seg_e0, void* partial, int n_rows, int n_seg,
                   int f, int has_base, cudaStream_t stream) {
-  const int nv = f / V;
-  int lanes = 1;
-  while (lanes < nv && lanes < 32) lanes <<= 1;
   const int blocks = (n_seg + n_rows + kWarps - 1) / kWarps;
   row_reduce_kernel<V><<<blocks, kThreads, 0, stream>>>(
       static_cast<const int*>(row_ptr), static_cast<const int*>(col),
       static_cast<const float*>(val),
       static_cast<const typename Vec<V>::T*>(x), static_cast<float*>(out),
       seg_row, seg_e0, static_cast<float*>(partial), n_rows, n_seg, f,
-      has_base, lanes);
+      has_base, lanes_for(f / V));
+}
+
+template <int V>
+void launch_run(const void* table, int n_chunks, int n_rows, const void* x,
+                void* out, int f, cudaStream_t stream) {
+  const RunChunk* chunks = static_cast<const RunChunk*>(table);
+  const long long* w0 = reinterpret_cast<const long long*>(chunks + n_chunks);
+  const int blocks = (n_rows + kWarps - 1) / kWarps;
+  row_reduce_kernel_run<V><<<blocks, kThreads, 0, stream>>>(
+      chunks, w0, static_cast<const typename Vec<V>::T*>(x),
+      static_cast<float*>(out), n_chunks, n_rows, f, lanes_for(f / V));
 }
 
 }  // namespace
@@ -243,9 +330,7 @@ extern "C" int textgcn_row_reduce(const void* row_ptr, const void* col,
   const int* seg_row = static_cast<const int*>(table);
   const int* seg_e0 = n_seg ? seg_row + n_seg : nullptr;
   const int* long_ptr = n_seg ? seg_row + 2 * n_seg : nullptr;
-  const bool aligned16 =
-      ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(out)) & 15) == 0;
-  if (f % 8 == 0 && f > kNarrowF && aligned16)
+  if (wide_loads(f, x, out))
     launch_pass1<8>(row_ptr, col, val, x, out, seg_row, seg_e0, partial, n_rows,
                     n_seg, f, has_base, s);
   else
@@ -253,5 +338,23 @@ extern "C" int textgcn_row_reduce(const void* row_ptr, const void* col,
                     n_seg, f, has_base, s);
   launch_split_sum(seg_row, long_ptr, static_cast<const float*>(partial),
                    static_cast<float*>(out), n_long, f, has_base, s);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// A run of chunks in one launch on `stream`, onto the base `out` [>= the
+// last chunk's r0 + rows, f] f32 in place; returns cudaGetLastError().
+// `table` is n_chunks RunChunk rows (32 bytes each: row_ptr, col and val's
+// device addresses, r0) then w0 [n_chunks + 1] int64, on the device; no
+// chunk has rows longer than S with a split table, and their row ranges
+// are disjoint. n_rows = w0[n_chunks]. f is even, x 4-byte and out 8-byte
+// aligned.
+extern "C" int textgcn_row_reduce_run(const void* table, int n_chunks, int n_rows,
+                                      const void* x, void* out, int f, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n_rows == 0) return static_cast<int>(cudaGetLastError());
+  if (wide_loads(f, x, out))
+    launch_run<8>(table, n_chunks, n_rows, x, out, f, s);
+  else
+    launch_run<2>(table, n_chunks, n_rows, x, out, f, s);
   return static_cast<int>(cudaGetLastError());
 }

@@ -44,11 +44,19 @@ Source note:
 - ``base`` is updated IN PLACE and returned. JAX never aliases; the port
   does, so that on the hybrid path the tile leg's output is the residual
   leg's accumulator and the two legs' sum costs no extra pass.
+- Runs of chunks (no TPU counterpart: the JAX stream is one jitted scan).
+  A streamed pass reduces row-sorted chunks onto disjoint row ranges of
+  one accumulator, one call a chunk, and a call costs the host more than
+  the kernel takes. :func:`reduce_run` checks chunks that stay on the card
+  once and lists them in a small device table (:class:`ReduceRun`); then
+  :func:`row_reduce_run` reduces all of them in one launch, each row with
+  the bits of its chunk's own call.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -98,18 +106,23 @@ def _check(row_ptr, col, val, x, out, split):
         raise TypeError("row_reduce: row_ptr and col must be int32")
     if val.dtype != torch.float32 or out.dtype != torch.float32:
         raise TypeError("row_reduce: val and base must be float32")
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"row_reduce: the CUDA kernel gathers bf16 x, got {x.dtype}")
-    if x.dim() != 2 or not x.is_contiguous() or x.shape[1] % 2:
-        raise ValueError("row_reduce: x must be contiguous [N, F] with F even")
-    if x.data_ptr() % 4 or out.data_ptr() % 8:
-        raise ValueError("row_reduce: x must be 4-byte and base 8-byte aligned")
     if col.numel() != val.numel():
         raise ValueError("row_reduce: col and val must have one entry per edge")
-    if out.dim() != 2 or out.shape[1] != x.shape[1] or out.shape[0] < row_ptr.numel() - 1:
+    _check_x_base("row_reduce", x, out, row_ptr.numel() - 1)
+
+
+def _check_x_base(name, x, out, n_rows):
+    """The kernel's terms for ``x`` and ``base`` (``out``) of ``n_rows``
+    output rows."""
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"{name}: the CUDA kernel gathers bf16 x, got {x.dtype}")
+    if x.dim() != 2 or not x.is_contiguous() or x.shape[1] % 2:
+        raise ValueError(f"{name}: x must be contiguous [N, F] with F even")
+    if x.data_ptr() % 4 or out.data_ptr() % 8:
+        raise ValueError(f"{name}: x must be 4-byte and base 8-byte aligned")
+    if out.dim() != 2 or out.shape[1] != x.shape[1] or out.shape[0] < n_rows:
         raise ValueError(
-            f"row_reduce: base must be [>= {row_ptr.numel() - 1}, {x.shape[1]}],"
-            f" got {tuple(out.shape)}"
+            f"{name}: base must be [>= {n_rows}, {x.shape[1]}], got {tuple(out.shape)}"
         )
 
 
@@ -163,3 +176,122 @@ def row_reduce(row_ptr, col, val, x, base=None, split=None):
 
 
 row_reduce.launches = 0
+# chunks reduced inside run launches (:func:`row_reduce_run`), each of
+# which counts one in ``row_reduce.launches``
+row_reduce.batched_chunks = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class ReduceRun:
+    """Row-sorted CSRs over ascending, disjoint row ranges of one
+    accumulator, none with a split table, that :func:`row_reduce_run`
+    reduces in one launch. Built once by :func:`reduce_run`.
+
+    ``csrs`` holds each CSR's ``(row_ptr, col, val, r0)``: row ``i`` of one
+    is output row ``r0 + i``. ``table`` lists them on their CUDA device for
+    the kernel: one int64 row a CSR (the three tensors' device addresses,
+    ``r0``), then the CSRs' row counts summed before each ([n + 1]); None on
+    the CPU. The run keeps the tensors it points at alive. Unpickled in
+    another process, it builds its table anew there."""
+
+    csrs: Tuple[tuple, ...]
+    table: Optional[torch.Tensor]
+    n_rows: int  # rows of all the CSRs: warps of the launch
+    r_end: int  # past the last CSR's rows
+    device: torch.device
+
+    @property
+    def n_chunks(self) -> int:
+        return len(self.csrs)
+
+    def __reduce__(self):
+        return reduce_run, (self.csrs,)
+
+
+def reduce_run(csrs) -> ReduceRun:
+    """The :class:`ReduceRun` of ``csrs``, ``(row_ptr, col, val, r0)`` each
+    (no split table), with the checks that :func:`row_reduce` makes of a
+    CSR on every call made here once: one device, contiguous 1-D int32
+    ``row_ptr`` and ``col`` and f32 ``val``, as many ``val`` as ``col``, and
+    row ranges that ascend without overlap (host integers)."""
+    csrs = tuple((row_ptr, col, val, int(r0)) for row_ptr, col, val, r0 in csrs)
+    if not csrs:
+        raise ValueError("reduce_run: a run needs at least one CSR")
+    dev = csrs[0][1].device
+    rows_before, end = [0], 0
+    for row_ptr, col, val, r0 in csrs:
+        for name, t in (("row_ptr", row_ptr), ("col", col), ("val", val)):
+            if t.device != dev:
+                raise ValueError(f"reduce_run: a {name} is on {t.device}, the first col on {dev}")
+            if t.dim() != 1 or not t.is_contiguous():
+                raise ValueError(f"reduce_run: {name} must be contiguous and 1-D")
+        if row_ptr.dtype != torch.int32 or col.dtype != torch.int32:
+            raise TypeError("reduce_run: row_ptr and col must be int32")
+        if val.dtype != torch.float32:
+            raise TypeError("reduce_run: val must be float32")
+        if col.numel() != val.numel():
+            raise ValueError("reduce_run: col and val must have one entry per edge")
+        if row_ptr.numel() < 1:
+            raise ValueError("reduce_run: row_ptr must hold rows + 1 offsets")
+        if r0 < end:
+            raise ValueError(
+                f"reduce_run: rows from {r0} overlap or precede the rows before, which end at "
+                f"{end}; one launch has no order between two warps on a row"
+            )
+        rows = row_ptr.numel() - 1
+        end = r0 + rows
+        rows_before.append(rows_before[-1] + rows)
+    if rows_before[-1] >= 2**31:
+        raise ValueError(f"reduce_run: {rows_before[-1]} rows do not fit the kernel's int")
+    table = None
+    if dev.type == "cuda":
+        flat = [v for rp, col, val, r0 in csrs
+                for v in (rp.data_ptr(), col.data_ptr(), val.data_ptr(), r0)]
+        table = torch.tensor(flat + rows_before, dtype=torch.int64).to(dev)
+    return ReduceRun(csrs, table, rows_before[-1], end, dev)
+
+
+def row_reduce_run_plain(run: ReduceRun, x, base):
+    """Plain PyTorch version of :func:`row_reduce_run`: :func:`row_reduce_plain`
+    on each CSR's rows of ``base``, in order."""
+    for row_ptr, col, val, r0 in run.csrs:
+        row_reduce_plain(row_ptr, col, val, x, base[r0 : r0 + row_ptr.numel() - 1])
+    return base
+
+
+def row_reduce_run(run: ReduceRun, x, base):
+    """:func:`row_reduce` of every CSR of ``run`` onto its rows of ``base``
+    ([>= run.r_end, F] f32, in place; returned): ``base[r0 + i] += sum_{e in
+    row i} val[e] * x[col[e]]``, each row with the bits of the CSR's own
+    call, in one launch.
+
+    The CSRs were checked when the run was built (:func:`reduce_run`); a
+    call checks ``x`` and ``base`` only. On CPU tensors this runs
+    :func:`row_reduce_run_plain`; on CUDA tensors it launches the kernel
+    (``row_reduce_kernel_run``) or raises, counts one launch in
+    ``row_reduce.launches`` and the run's CSRs in
+    ``row_reduce.batched_chunks``; while the span recorder is on the launch
+    is a ``k2.launch`` span, as a call of :func:`row_reduce` is.
+    """
+    t0 = profiling.spans_on and time.time_ns()
+    if x.device != run.device:
+        raise ValueError(f"row_reduce_run: x is on {x.device}, the run on {run.device}")
+    if x.device.type == "cpu":
+        return row_reduce_run_plain(run, x, base)
+    if x.device.type != "cuda":
+        raise ValueError(f"row_reduce_run: no kernel for device {x.device}")
+    if base.device != x.device or base.dtype != torch.float32 or not base.is_contiguous():
+        raise ValueError("row_reduce_run: base must be contiguous f32 on x's device")
+    _check_x_base("row_reduce_run", x, base, run.r_end)
+    lib = _build.load()
+    with torch.cuda.device(x.device):
+        err = lib.textgcn_row_reduce_run(
+            run.table.data_ptr(), run.n_chunks, run.n_rows, x.data_ptr(), base.data_ptr(),
+            x.shape[1], torch.cuda.current_stream().cuda_stream,
+        )
+    row_reduce.launches += 1
+    row_reduce.batched_chunks += run.n_chunks
+    _build.check_launch("row_reduce_run", err)
+    if t0:
+        profiling.leaf("k2.launch", t0)
+    return base

@@ -36,7 +36,10 @@ byte budget. A source is any re-iterable of :class:`SortedChunk`; its
 chunks may lie on the host or on x's device, and a pass
 (:func:`spmm_streamed_sorted_hostfed`) copies the host ones in as it goes,
 so a graph whose chunks do not fit on the device streams through the same
-code as one that does.
+code as one that does. Once a :class:`CachedChunkSource`'s cache has
+settled, the pass reduces each run of its consecutive cached chunks with
+one K2 launch (:meth:`CachedChunkSource.runs`), and the rest one call a
+chunk.
 """
 from __future__ import annotations
 
@@ -49,7 +52,9 @@ from typing import Callable, Iterable, Optional, Tuple
 import numpy as np
 import torch
 
-from textgcn_tpu_torch.ops.row_reduce import RowSplit, row_reduce, row_split
+from textgcn_tpu_torch.ops.row_reduce import (
+    ReduceRun, RowSplit, reduce_run, row_reduce, row_reduce_run, row_split,
+)
 from textgcn_tpu_torch.ops.split import record
 from textgcn_tpu_torch.utils import profiling
 
@@ -191,41 +196,60 @@ def streamed_sorted_add_(acc, chunks: Iterable[SortedChunk], x, reduce=row_reduc
     (:func:`sorted_chunk_add`, B11 a chunk); ``x`` has ``acc``'s width.
     Chunks may live on the host or on x's device.
 
+    With ``reduce`` K2 (``row_reduce``, the default) and a
+    :class:`CachedChunkSource` that offers runs on x's device
+    (:meth:`CachedChunkSource.runs`), each run of its cached chunks is one
+    call of :func:`~textgcn_tpu_torch.ops.row_reduce.row_reduce_run` (one
+    launch on CUDA; each row gets the bits of its chunk's own call), and
+    the chunks between runs take a call each; any other source, including
+    an iterator over a cached source, takes a call a chunk.
+
     On CUDA, host chunks (pinned, for the copy to be asynchronous) are copied
-    with ``non_blocking=True`` on a side stream: chunk i+1's copy is issued
-    before chunk i's reduce, the compute stream waits on the copy's event,
-    and each device copy is marked with ``record_stream`` so that the
-    allocator does not reuse its memory before the reduce that reads it has
-    run. Chunks already on x's device pass through without a copy
-    (:class:`CachedChunkSource`).
+    with ``non_blocking=True`` on a side stream: item i+1's copy is issued
+    before item i's reduce (a run's launch included), the compute stream
+    waits on the copy's event, and each device copy is marked with
+    ``record_stream`` so that the allocator does not reuse its memory before
+    the reduce that reads it has run. Chunks already on x's device pass
+    through without a copy (:class:`CachedChunkSource`).
 
     While the span recorder is on
     (:func:`~textgcn_tpu_torch.utils.profiling.record_spans`) the call is a
     ``pass`` span with the attributes ``chunks`` (chunks reduced),
-    ``launches`` (K2's launches: the change of ``row_reduce.launches``) and
-    ``copies`` (chunks copied in from the host); inside it each call for the
-    source's next chunk is a ``chunk.fetch`` span (the last one of a pass
-    finds the source's end), each host chunk's copies and event a
-    ``chunk.feed`` span, the compute stream's wait for them a ``chunk.sync``
-    span, and each K2 call a ``k2.launch`` span
-    (:func:`~textgcn_tpu_torch.ops.row_reduce.row_reduce`).
+    ``batched`` (those reduced inside runs), ``launches`` (K2's launches:
+    the change of ``row_reduce.launches``) and ``copies`` (chunks copied in
+    from the host); inside it each call for the source's next chunk or run
+    is a ``chunk.fetch`` span (the last one of a pass finds the source's
+    end), each host chunk's copies and event a ``chunk.feed`` span, the
+    compute stream's wait for them a ``chunk.sync`` span, and each K2 call
+    a ``k2.launch`` span
+    (:func:`~textgcn_tpu_torch.ops.row_reduce.row_reduce`,
+    :func:`~textgcn_tpu_torch.ops.row_reduce.row_reduce_run`).
     """
-    if not profiling.spans_on:
-        for chunk in _on_device(chunks, x.device):
-            sorted_chunk_add(acc, chunk, x, reduce)
-        return acc
-    fed, launches, n = [0], row_reduce.launches, 0
-    span = profiling.begin("pass")
-    for chunk in _on_device(chunks, x.device, fed):
-        sorted_chunk_add(acc, chunk, x, reduce)
-        n += 1
-    profiling.end(span, chunks=n, launches=row_reduce.launches - launches, copies=fed[0])
+    on = profiling.spans_on
+    if on:
+        span, launches = profiling.begin("pass"), row_reduce.launches
+    runs = None
+    if reduce is row_reduce and isinstance(chunks, CachedChunkSource):
+        runs = chunks.runs(x.device)
+    fed, n, batched = [0], 0, 0
+    for item in _on_device(chunks if runs is None else runs, x.device, fed):
+        if isinstance(item, ReduceRun):
+            row_reduce_run(item, x, acc)
+            batched += item.n_chunks
+        else:
+            sorted_chunk_add(acc, item, x, reduce)
+            n += 1
+    if on:
+        profiling.end(span, chunks=n + batched, batched=batched,
+                      launches=row_reduce.launches - launches, copies=fed[0])
     return acc
 
 
 def _on_device(chunks: Iterable[SortedChunk], dev, fed=None):
     """``chunks`` on ``dev``: on CUDA through :func:`_lookahead`, which
-    adds its host copies to ``fed[0]`` while the recorder is on."""
+    adds its host copies to ``fed[0]`` while the recorder is on. A
+    :class:`~textgcn_tpu_torch.ops.row_reduce.ReduceRun` among them lies
+    on ``dev`` already and passes as it is."""
     if dev.type == "cuda":
         return _lookahead(chunks, dev, fed)
     return _fetched(chunks, dev)
@@ -241,12 +265,13 @@ def _fetched(chunks: Iterable[SortedChunk], dev):
             profiling.leaf("chunk.fetch", t0)
         if chunk is None:
             return
-        yield chunk.to(dev)
+        yield chunk if isinstance(chunk, ReduceRun) else chunk.to(dev)
 
 
 def _lookahead(chunks: Iterable[SortedChunk], dev, fed=None):
     """Yield ``chunks`` on the CUDA device ``dev``, the next one's copy in
-    flight while the caller reduces the current one."""
+    flight while the caller reduces the current one (a run too: the first
+    host chunk after a run is copied while the run's launch runs)."""
     compute = torch.cuda.current_stream(dev)
     side = None
 
@@ -549,6 +574,14 @@ class CachedChunkSource:
     ``loader(i)`` returns a :class:`SortedChunk` on the host or on
     ``device`` already (a generator such as :meth:`LatticeStream.chunk`);
     a chunk that does not fit the budget is yielded as it was loaded.
+
+    The cache never evicts, so once one pass has gone through every chunk
+    it no longer changes. From then on :meth:`runs` offers the same chunks
+    with each run of consecutive cached chunks as one
+    :class:`~textgcn_tpu_torch.ops.row_reduce.ReduceRun`, which
+    :func:`streamed_sorted_add_` reduces with one K2 launch. The runs are
+    planned once (:meth:`run_plan`) and hold references to the cached
+    chunks; no chunk is copied.
     """
 
     def __init__(self, loader: Callable[[int], SortedChunk], n_chunks: int,
@@ -558,22 +591,72 @@ class CachedChunkSource:
         self._budget = cache_bytes
         self._device = torch.device(device)
         self._cache = {}
+        self._settled = False  # a pass has gone through every chunk
+        self._plan = None
         self.cached_bytes = 0
         self.host_loads = 0
 
     def __iter__(self):
         for i in range(self._n):
-            hit = self._cache.get(i)
-            if hit is not None:
-                yield hit
-                continue
-            chunk = self._loader(i)
-            self.host_loads += 1
-            if self.cached_bytes + chunk.nbytes <= self._budget:
-                chunk = chunk.to(self._device)
-                self._cache[i] = chunk
-                self.cached_bytes += chunk.nbytes
-            yield chunk
+            yield self._get(i)
+        self._settled = True
+
+    def _get(self, i: int) -> SortedChunk:
+        hit = self._cache.get(i)
+        if hit is not None:
+            return hit
+        chunk = self._loader(i)
+        self.host_loads += 1
+        if self.cached_bytes + chunk.nbytes <= self._budget:
+            chunk = chunk.to(self._device)
+            self._cache[i] = chunk
+            self.cached_bytes += chunk.nbytes
+        return chunk
+
+    def run_plan(self):
+        """The chunks in order as a list of runs and chunk indices, or None
+        while the cache may still change. A run
+        (:class:`~textgcn_tpu_torch.ops.row_reduce.ReduceRun`) is a maximal
+        sequence of consecutive cached chunks without a split table whose
+        row ranges ascend without overlap; an index stands for a chunk
+        loaded on every pass or a cached chunk that joins no run (one with
+        a split table). A chunk whose rows overlap or precede the run's
+        starts a new run. Planned once, on host integers, when first asked
+        for after the cache has settled."""
+        if not self._settled:
+            return None
+        if self._plan is None:
+            plan, run = [], []
+
+            def close():
+                if run:
+                    plan.append(reduce_run([(c.row_ptr, c.col, c.val, c.r0) for c in run]))
+                    run.clear()
+
+            for i in range(self._n):
+                c = self._cache.get(i)
+                if c is None or c.split is not None:
+                    close()
+                    plan.append(i)
+                    continue
+                if run and c.r0 < run[-1].r0 + run[-1].rows:
+                    close()
+                run.append(c)
+            close()
+            self._plan = plan
+        return self._plan
+
+    def runs(self, device):
+        """The chunks of a pass in order with each run of
+        :meth:`run_plan` as one item, loading the others as
+        :meth:`__iter__` does; None where the plan has no run (the cache
+        has not settled, or holds no chunk that can join one) or its runs
+        lie on another device than ``device``."""
+        plan = self.run_plan()
+        first = next((p for p in plan or () if isinstance(p, ReduceRun)), None)
+        if first is None or first.device != device:
+            return None
+        return (p if isinstance(p, ReduceRun) else self._get(p) for p in plan)
 
 
 def save_chunks(chunks: Iterable[SortedChunk], path: str, n_nodes: int) -> None:
