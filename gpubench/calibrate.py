@@ -4,8 +4,8 @@
 
 For each cell and seed, in one process on the card and at the cell's own
 sizes: the program's first steps on that seed (sound runs: the lower
-reading), the same with the ``half_batch`` and ``chunks_left_out`` faults
-of ``gpubench/faults.py`` planted on the first 3 seeds, and the control
+reading), the same with each fault of the cell's runner planted
+(:func:`faults_run`) on the first 3 seeds, and the control
 (the reference at the precision one step below the configuration's) on
 the first 3, each compared with the reference by
 ``harness.gaps``. One JSON line a reading, on standard output and in
@@ -23,9 +23,17 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
-# seeds of the faults and of the control; the faults planted
+# seeds of the faults and of the control
 SPECIAL_SEEDS = 3
-FAULTS_RUN = ("half_batch", "chunks_left_out")
+
+
+def faults_run(cell: str) -> tuple:
+    """The faults planted in ``cell``: its runner's own (``FAULTS`` of
+    ``gpubench/programs/<runner>.py``); ``state_unchanged`` reads 1 on
+    ``delta_gap`` by definition and needs no run."""
+    from gpubench import harness, programs
+
+    return tuple(programs.runner(harness.load_cell(cell)["config"]["program"]).FAULTS)
 
 
 def readings(cell: str, seed: int, dev, faults, control: bool, overrides=None) -> list:
@@ -36,15 +44,16 @@ def readings(cell: str, seed: int, dev, faults, control: bool, overrides=None) -
     import torch
 
     from gpubench import harness, reference
-    from gpubench.faults import FAULTS
+    from gpubench.faults import for_program
 
     c = harness.load_cell(cell)
     cfg, wl = dict(c["config"], **(overrides or {})), c["workload"]
     inputs = harness.Inputs(cfg, seed, dev)
+    planted = for_program(cfg["program"])
     runs = {}
     for kind in ("program", *faults):
         t0 = time.perf_counter()
-        ctx = FAULTS[kind]() if kind in FAULTS else contextlib.nullcontext()
+        ctx = contextlib.nullcontext() if kind == "program" else planted[kind]()
         with ctx:
             prog = harness.build_program(cfg, wl, inputs)
             runs[kind] = (harness.check_steps(prog), time.perf_counter() - t0)
@@ -84,10 +93,11 @@ def main(argv=None) -> int:
     out = open(args.out, "a") if args.out else None
     try:
         for cell in args.cells.split(","):
+            faults = faults_run(cell)
             for i in range(args.seeds):
                 seed = args.first_seed + 7919 * i
                 special = i < SPECIAL_SEEDS
-                rows = readings(cell, seed, dev, FAULTS_RUN if special else (), special)
+                rows = readings(cell, seed, dev, faults if special else (), special)
                 for row in rows:
                     line = json.dumps(row)
                     print(line, flush=True)

@@ -6,8 +6,10 @@ Everything a cell needs is found by name: its entry in ``BENCHMARK.json``,
 ``gpubench/workloads/<cell>.json`` (the configuration's name, the traffic's
 parameters, the limits of the comparison), ``gpubench/configs/<config>.json``
 (the sizes, the graph's generator ``graph.kind``, the program's runner
-``program``), ``gpubench/traffic/<kind>.py`` (the graph),
-``gpubench/programs/<program>.py`` (the program under test),
+``program``, and ``features``: drawn where absent, ``identity`` for X =
+I_N), ``gpubench/traffic/<kind>.py`` (the graph and its ``SMALL`` form for
+the CPU tests), ``gpubench/programs/<program>.py`` (the program under test
+and its ``FAULTS``),
 ``gpubench/reference/<family>.py`` (the plain reference and the step's
 work) and ``gpubench/metrics/<metric>.py`` (one reader a metric).
 
@@ -30,7 +32,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from gpubench import programs, reference, trace, traffic
+from gpubench import programs, reference, spans, trace, traffic
 from gpubench.traffic import Chunk
 
 HERE = Path(__file__).resolve().parent
@@ -83,19 +85,28 @@ def sub_seeds(seed: int) -> Dict[str, int]:
 class Inputs:
     """What the benchmark hands to both sides: the graph of the
     configuration's generator (its values scaled by ``edge_scale``),
-    features, labels, the loss mask, weights."""
+    features, labels, the loss mask, weights. With the configuration's
+    ``"features": "identity"`` (X = I_N) ``x`` is None, nothing of [n,
+    n_feat] is drawn, and the family's weights are drawn with ``n_feat`` the
+    node count."""
 
     def __init__(self, cfg: dict, seed: int, device):
         s = sub_seeds(seed)
         self.device = torch.device(device)
         self.graph = traffic.make(cfg["graph"], s["graph"], self.device)
         self.scale = float(cfg["edge_scale"])
-        n, f, c = self.graph.n_rows, cfg["n_feat"], cfg["n_class"]
+        n, c = self.graph.n_rows, cfg["n_class"]
         gen = torch.Generator(device=device).manual_seed(s["features"])
         self.y = torch.randint(0, c, (n,), generator=gen, device=device)
-        # the features carry the label, so that the model can learn
-        self.x = torch.randn((n, f), generator=gen, device=device, dtype=torch.bfloat16).mul_(0.1)
-        self.x += (torch.arange(f, device=device) % c == self.y[:, None]).to(torch.bfloat16)
+        self.x = None
+        if cfg.get("features") == "identity":
+            cfg = dict(cfg, n_feat=n)
+        else:
+            # the features carry the label, so that the model can learn
+            f = cfg["n_feat"]
+            self.x = torch.randn((n, f), generator=gen, device=device,
+                                 dtype=torch.bfloat16).mul_(0.1)
+            self.x += (torch.arange(f, device=device) % c == self.y[:, None]).to(torch.bfloat16)
         self.mask = (torch.rand(n, generator=gen, device=device) < cfg["train_share"]).float()
         self.weights = draw_weights(reference.family(cfg["family"]).param_shapes(cfg),
                                     s["weights"], device)
@@ -225,11 +236,12 @@ class Context:
     """What the metric readers read: the cell's configuration, workload,
     graph and reference family; the window's record (``window_s``,
     ``steps``, ``step_ends_s``, ``losses``, ``setup_s``, ``peak_bytes``);
-    with a trace, ``trace`` (a :class:`gpubench.trace.Summary`) and
-    ``pass_ms``."""
+    with a trace, ``trace`` (a :class:`gpubench.trace.Summary`),
+    ``pass_ms`` and ``spans`` (the second window's
+    :class:`gpubench.spans.Window`, with the program's own spans)."""
 
     def __init__(self, **kw):
-        self.trace, self.pass_ms = None, []
+        self.trace, self.pass_ms, self.spans = None, [], None
         self.__dict__.update(kw)
 
 
@@ -273,17 +285,22 @@ def run_cell(name: str, seed: int, seconds: float, traced: bool, device,
     # a traced run adds the profiler's warm-up step
     per_step = {f"{k}_per_step": (v - counts0[k]) / (steps + int(traced))
                 for k, v in prog.counters().items()}
+    # a traced run's second window: as many steps again with the program's
+    # own spans on (the first one's numbers are read above)
+    window = spans.profile(prog, wl["trace_steps"], prog.program_spans) if traced else None
     failed = sum(1 for v in losses if not math.isfinite(v))
     fam = reference.family(cfg["family"])
     ctx = Context(config=cfg, workload=wl, graph=inputs.graph, family=fam, window_s=window_s,
                   steps=steps, step_ends_s=ends, losses=losses, setup_s=setup_s,
-                  peak_bytes=peak, trace=summary, pass_ms=prog.pass_ms())
+                  peak_bytes=peak, trace=summary, pass_ms=prog.pass_ms(), spans=window)
     metrics = {}
     for m in cell_metrics(cell["bench"], name, traced):
         value = reader(m["name"])(ctx)
         if value is not None:
             metrics[m["name"]] = {"value": value, "unit": m["unit"]}
     notes = dict(prog.notes(), **per_step)
+    if window is not None:
+        notes["spans"] = spans.record(window)
     # the program's state goes before the reference runs on the card
     del prog
     gc.collect()

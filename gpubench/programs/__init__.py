@@ -13,8 +13,16 @@ inputs (:class:`gpubench.harness.Inputs`) and returns an object with
 - ``snapshot()``: each parameter now, in float32;
 - ``record_spans(on)`` and ``pass_ms()``: the spans it records while on
   (``spans`` true), in milliseconds;
+- ``program_spans(on) -> list``: the program's own span recorder switched
+  on or off, returning what it recorded since it was last switched (the
+  spans of ``gpubench/spans.py``; an empty list where the program records
+  none);
 - ``counters()``: the program's own counters now, by name;
 - ``notes()``: what the run prints about the program's set-up.
+
+The module also gives ``FAULTS``: name to a context manager that plants
+that fault in the path this runner drives (``gpubench/faults.py`` adds
+``state_unchanged``, which holds for every runner).
 
 A runner may import the program; the reference and the traffic may not.
 """

@@ -4,14 +4,57 @@ the step over ``make_sorted_stream`` of a ``CachedChunkSource`` of the
 benchmark's chunks. The workload's ``device_share`` says which share of
 the chunks the cache keeps on the card; the rest sit in page-locked host
 memory and are copied in on every pass.
+
+``FAULTS``: the faults planted in this path (``gpubench/faults.py``).
 """
 from __future__ import annotations
 
+import contextlib
+import itertools
 from typing import Dict, List, Optional
 
 import torch
 
 from gpubench import yardstick
+
+
+@contextlib.contextmanager
+def half_batch():
+    """The loss leaves out the second half of the rows and takes the mean
+    over the rest."""
+    from textgcn_tpu_torch.train import streamed as st
+
+    orig = st._masked_ce
+
+    def half(logits, y, mask, count=None):
+        h = logits.shape[0] // 2
+        return orig(logits[:h], y[:h], mask[:h], count)
+
+    st._masked_ce = half
+    try:
+        yield
+    finally:
+        st._masked_ce = orig
+
+
+@contextlib.contextmanager
+def chunks_left_out():
+    """Every streamed pass reduces every other chunk only."""
+    from textgcn_tpu_torch.ops import streamed_sorted as ss
+
+    orig = ss.streamed_sorted_add_
+
+    def skip(acc, chunks, x, reduce=ss.row_reduce):
+        return orig(acc, itertools.islice(chunks, 0, None, 2), x, reduce)
+
+    ss.streamed_sorted_add_ = skip
+    try:
+        yield
+    finally:
+        ss.streamed_sorted_add_ = orig
+
+
+FAULTS = {"half_batch": half_batch, "chunks_left_out": chunks_left_out}
 
 
 def build(cfg: dict, workload: dict, inputs, spans: bool = False) -> "Streamed":
@@ -133,6 +176,13 @@ class Streamed:
     def record_spans(self, on: bool) -> None:
         if self.spans is not None:
             self.spans.on = on
+
+    def program_spans(self, on: bool) -> list:
+        """The program's own span recorder switched ``on`` or off; what it
+        recorded since it was last switched."""
+        from textgcn_tpu_torch.utils.profiling import record_spans
+
+        return record_spans(on)
 
     def pass_ms(self) -> List[float]:
         return self.spans.spans_ms() if self.spans is not None else []

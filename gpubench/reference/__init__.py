@@ -10,24 +10,29 @@ Where the configuration states a narrower dtype (``precision.low``: the
 features, the first layer's weights inside its product, the operand of every
 propagation and its cotangent), the values are rounded to it exactly where
 the configuration says; everything else is float32. The control is the same
-reference with ``low`` one step narrower (float8 for bfloat16).
+reference with ``low`` one step narrower (float8 for bfloat16, bfloat16
+for float32).
 
 A family module (``gpubench/reference/<family>.py``) gives
 ``param_shapes(cfg)``, ``loss(params, x, y, mask, ops, cfg)``,
-``pass_widths(cfg)`` and ``step_work(cfg, graph)``.
+``pass_widths(cfg)`` and ``step_work(cfg, graph)``. Under identity
+features (the configuration's ``"features": "identity"``, X = I_N) ``x`` is
+None and ``param_shapes`` gets the node count as ``n_feat``: the first
+layer's product X W1 is its weight itself, of shape [n_nodes, hidden].
 """
 from __future__ import annotations
 
 import importlib
 import warnings
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Optional
 
 import torch
 import torch.nn.functional as F
 
-DTYPES = {"bfloat16": torch.bfloat16, "float8_e4m3fn": torch.float8_e4m3fn}
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+          "float8_e4m3fn": torch.float8_e4m3fn}
 # the nearest precision below the stated one, for the control
-NARROWER = {"bfloat16": "float8_e4m3fn"}
+NARROWER = {"float32": "bfloat16", "bfloat16": "float8_e4m3fn"}
 
 
 def family(name: str):
@@ -130,9 +135,10 @@ class Ops:
     def __init__(self, graph: Graph, low):
         self.graph, self.low = graph, low
 
-    def features(self, x: torch.Tensor) -> torch.Tensor:
-        """The features as the configuration stores them, in float32."""
-        return _round(x.float(), self.low)
+    def features(self, x: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+        """The features as the configuration stores them, in float32; None
+        (identity features) stays None."""
+        return None if x is None else _round(x.float(), self.low)
 
     def round(self, v: torch.Tensor) -> torch.Tensor:
         """``v`` stored at ``low``: rounded, and so is its cotangent."""

@@ -1,18 +1,14 @@
 """The program's own spans beside the device's activity: a second traced
 window of the same steps with the program's span recorder on, and the
 arithmetic that the span metrics (``gpubench/metrics/chunk_host_us.py``,
-``k2_launch_us``, ``feed_host_us``, ``k2_calls``, ``idle_stream_pct``) read.
+``k2_launch_us``, ``feed_host_us``, ``k2_calls``, ``idle_stream_pct``,
+``k2_batched_share``) read.
 
-    python3 gpubench/spans.py --workload <cell> --seed <n>
-
-builds the cell's program as a traced run does, drives it through the check
-steps, runs the first traced window (``trace.profile``, which the per-layer
-metrics read), then as many steps again under a CUDA-only profile with the
-recorder on. It prints one JSON line: the span metrics, each window's ms per
-step and idle share, and the second window's record (:func:`record`). The
-comparison with the reference is left to ``gpubench/run.py``. A run of
-``gpubench/run.py`` does not call this module: its traced run has one
-window, and its context no ``spans``.
+A traced run of ``gpubench/run.py`` (``harness.run_cell``) takes this
+window after its first one (``trace.profile``, which the device-trace
+metrics read): as many steps again under a CUDA-only profile with the
+runner's ``program_spans`` on. Its context's ``spans`` is the
+:class:`Window`, and its notes carry :func:`record`.
 
 The recorder is the program's
 ``textgcn_tpu_torch.utils.profiling.record_spans``; its spans are tuples
@@ -23,22 +19,16 @@ not invariant they drift against ``time.time_ns()`` by up to a millisecond
 over a window; so the window brackets a burst of anchor kernels with the
 host's clock before and after its steps and puts the device's operations on
 the host's clock from them (:func:`align`) before a span and an operation
-are compared. A program without the recorder gives no window
-(:func:`recorder` returns None).
+are compared.
 """
 from __future__ import annotations
 
 import dataclasses
 import statistics
-import sys
 import time
-from pathlib import Path
 from typing import Dict, List, Sequence, Tuple
 
-if __package__ in (None, ""):
-    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
-
-from gpubench.trace import short  # noqa: E402
+from gpubench.trace import short
 
 Interval = Tuple[int, int]
 # the program's span names
@@ -75,16 +65,6 @@ class Window:
 
     def chunks(self) -> int:
         return sum(s[5]["chunks"] for s in self.named(PASS))
-
-
-def recorder():
-    """The program's span recorder ``record_spans(on) -> spans``, or None
-    where the program has none."""
-    try:
-        from textgcn_tpu_torch.utils import profiling
-    except ImportError:
-        return None
-    return getattr(profiling, "record_spans", None)
 
 
 # ---------------------------------------------------------------------------
@@ -298,50 +278,3 @@ def profile(prog, steps: int, record_spans) -> Window:
     unaligned = Window(spans, [e for e in raw if ANCHOR not in e[0]], steps, window_s)
     clock["early_unaligned"] = sum(1 for d in launch_delays_ns(unaligned) if d < 0)
     return Window(spans, events, steps, window_s, clock)
-
-
-def main(argv=None) -> int:
-    import argparse
-    import json
-
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--workload", required=True)
-    ap.add_argument("--seed", type=int, required=True)
-    args = ap.parse_args(argv)
-
-    import torch
-
-    from gpubench import harness, reference, run, trace
-
-    record_spans = recorder()
-    if not torch.cuda.is_available() or record_spans is None:
-        print("spans: needs a CUDA device and a program with a span recorder", file=sys.stderr)
-        return 2
-    dev = torch.device("cuda")
-    cell = harness.load_cell(args.workload)
-    cfg, wl = cell["config"], cell["workload"]
-    inputs = harness.Inputs(cfg, args.seed, dev)
-    prog = harness.build_program(cfg, wl, inputs, spans=True)
-    harness.check_steps(prog)
-    torch.cuda.synchronize()
-    first = trace.profile(prog, wl["trace_steps"])
-    second = profile(prog, wl["trace_steps"], record_spans)
-    ctx = harness.Context(config=cfg, workload=wl, graph=inputs.graph,
-                          family=reference.family(cfg["family"]), steps=first.steps,
-                          trace=first, spans=second)
-    metrics = {}
-    for name in ("chunk_host_us", "k2_launch_us", "feed_host_us", "k2_calls", "idle_stream_pct"):
-        value = harness.reader(name)(ctx)
-        if value is not None:
-            metrics[name] = value
-    out = {"workload": args.workload, "seed": args.seed, "card": run.card_line(),
-           "metrics": metrics,
-           "first_window": {"ms_per_step": 1e3 * first.window_s / first.steps,
-                            "idle_share": 1.0 - first.busy_s / first.window_s},
-           "second_window": record(second)}
-    print(json.dumps(out), flush=True)
-    return 0
-
-
-if __name__ == "__main__":
-    sys.exit(main())

@@ -1,23 +1,34 @@
 """``correct`` comes out false where it must. A whole run of each cell is
-driven on the CPU at a small size (the harness's look for a card is
-skipped): sound, it is correct; with a fault planted under the timed path
-(``gpubench/faults.py``) or with the control (the reference one precision
-step below the configuration's) in the program's place, it is not."""
+driven on the CPU at a small size, its traffic kind's ``SMALL`` (the
+harness's look for a card is skipped): sound, it is correct; with a fault
+of its runner planted under the timed path (``gpubench/faults.py``
+``for_program``) or with the control (the reference one precision step
+below the configuration's) in the program's place, it is not."""
 import time
 
 import pytest
 
-from gpubench import harness, reference
-from gpubench.faults import FAULTS
+from gpubench import harness, reference, traffic
+from gpubench.faults import for_program
 
-SMALL = {"graph": {"kind": "lattice", "n_nodes": 2048, "degree": 16, "w": 32, "w_sc": 4},
-         "edge_scale": 1 / 16}
 CELLS = [w["name"] for w in harness.load_json(harness.ROOT / "BENCHMARK.json")["workloads"]]
 SEED = 2**31 + 4242
 
 
+def small(cell):
+    """The configuration keys that run ``cell`` at a test's size."""
+    return traffic.small(harness.load_cell(cell)["config"]["graph"]["kind"])
+
+
+def cell_faults():
+    """Each cell with each fault of its runner."""
+    return [(cell, fault) for cell in CELLS
+            for fault in sorted(for_program(harness.load_cell(cell)["config"]["program"]))]
+
+
 def run(cell):
-    return harness.run_cell(cell, SEED, 0.2, False, "cpu", time.perf_counter(), overrides=SMALL)
+    return harness.run_cell(cell, SEED, 0.2, False, "cpu", time.perf_counter(),
+                            overrides=small(cell))
 
 
 @pytest.mark.parametrize("cell", CELLS)
@@ -28,10 +39,10 @@ def test_sound_run_is_correct(cell):
     assert set(res["metrics"]) >= {"step_ms", "setup_s"}
 
 
-@pytest.mark.parametrize("fault", sorted(FAULTS))
-@pytest.mark.parametrize("cell", CELLS)
+@pytest.mark.parametrize("cell, fault", cell_faults())
 def test_a_planted_fault_is_not_correct(cell, fault):
-    with FAULTS[fault]():
+    program = harness.load_cell(cell)["config"]["program"]
+    with for_program(program)[fault]():
         res = run(cell)
     assert not res["correct"], res["checks"]
 
@@ -51,6 +62,9 @@ class Control:
 
     def record_spans(self, on):
         pass
+
+    def program_spans(self, on):
+        return []
 
     def pass_ms(self):
         return []
@@ -77,9 +91,10 @@ def test_calibration_readings(cell):
     from gpubench import calibrate
 
     limits = harness.load_cell(cell)["workload"]["limits"]
-    rows = calibrate.readings(cell, SEED, torch.device("cpu"), calibrate.FAULTS_RUN, True, SMALL)
+    faults = calibrate.faults_run(cell)
+    rows = calibrate.readings(cell, SEED, torch.device("cpu"), faults, True, small(cell))
     by_kind = {r["kind"]: r["gaps"] for r in rows}
-    assert set(by_kind) == {"program", "control", *calibrate.FAULTS_RUN}
+    assert set(by_kind) == {"program", "control", *faults}
     assert all(by_kind["program"][k] <= limits[k] for k in harness.GAPS)
-    for kind in ("control", *calibrate.FAULTS_RUN):
+    for kind in ("control", *faults):
         assert any(by_kind[kind][k] > limits[k] for k in harness.GAPS), (kind, by_kind[kind])

@@ -8,11 +8,9 @@ from pathlib import Path
 import pytest
 import torch
 
-from gpubench import harness
+from gpubench import harness, traffic
 
 GPUBENCH = Path(harness.__file__).resolve().parent
-SMALL = {"graph": {"kind": "lattice", "n_nodes": 2048, "degree": 16, "w": 32, "w_sc": 4},
-         "edge_scale": 1 / 16}
 CONFIGS = sorted(p.stem for p in (GPUBENCH / "configs").glob("*.json"))
 # f32 sums in another order and the bf16 roundings they may flip
 TOL = 1e-5
@@ -42,7 +40,7 @@ def test_no_jax_anywhere_and_no_program_in_the_yardstick():
 
 def readings_pair(name, device):
     cell = harness.load_cell(f"{name}.cached")
-    cfg = dict(cell["config"], **SMALL)
+    cfg = dict(cell["config"], **traffic.small(cell["config"]["graph"]["kind"]))
     inputs = harness.Inputs(cfg, 2**31 + 11, device)
     got = harness.check_steps(harness.build_program(cfg, cell["workload"], inputs))
     return got, harness.reference_readings(cfg, inputs)

@@ -2,14 +2,14 @@
 on hand-made spans and device operations, in nanoseconds."""
 import pytest
 
-from gpubench import harness, reference, spans
-from gpubench.tests.test_gpubench_checks import SMALL
+from gpubench import harness, reference, spans, traffic
 
 K2 = "row_reduce_kernel<4>"
-READERS = ("chunk_host_us", "k2_launch_us", "feed_host_us", "k2_calls", "idle_stream_pct")
+READERS = ("chunk_host_us", "k2_launch_us", "feed_host_us", "k2_calls", "idle_stream_pct",
+           "k2_batched_share")
 
 
-def window(copies=1):
+def window(copies=1, batched=0):
     # busy: [100, 120], [150, 260] (a copy over the second kernel),
     # [300, 330], [400, 450]; idle: (120, 150), (260, 300), (330, 400)
     events = [
@@ -21,7 +21,8 @@ def window(copies=1):
     ]
     sp = [
         ("step", 90, 460, -1, 7, {}),
-        ("pass", 95, 340, 0, 7, {"chunks": 3, "launches": 3, "copies": copies}),
+        ("pass", 95, 340, 0, 7, {"chunks": 3, "batched": batched, "launches": 3 - batched // 2,
+                                 "copies": copies}),
         ("chunk.fetch", 96, 98, 1, 7, {}),
         ("k2.launch", 98, 99, 1, 7, {}),
         ("chunk.feed", 130, 140, 1, 7, {}),
@@ -53,6 +54,9 @@ def test_readers():
     assert got["feed_host_us"] == pytest.approx((10 + 5) / 1e3)
     assert got["k2_calls"] == 3
     assert got["idle_stream_pct"] == pytest.approx(100 * 80 / 140)
+    assert got["k2_batched_share"] == 0.0
+    # two of the three chunks reduced in one run launch
+    assert read(window(batched=2))["k2_batched_share"] == pytest.approx(100 * 2 / 3)
 
 
 def test_readers_find_nothing_without_a_window():
@@ -62,12 +66,17 @@ def test_readers_find_nothing_without_a_window():
     assert all(harness.reader(m)(ctx) is None for m in READERS)
     # no host copies: no feed time a copy
     assert read(window(copies=0))["feed_host_us"] is None
+    # no pass spans (a runner whose passes record none): no share inside them
+    w = window()
+    w.spans = [s for s in w.spans if s[0] != "pass"]
+    assert read(w)["idle_stream_pct"] is None and read(w)["k2_batched_share"] is None
 
 
 def test_k2_calls_count_only_the_window_steps():
     w = window()
     # a pass outside any step (a forward-only call) is not a step's
-    w.spans.append(("pass", 470, 480, -1, -1, {"chunks": 2, "launches": 2, "copies": 0}))
+    w.spans.append(("pass", 470, 480, -1, -1, {"chunks": 2, "batched": 0, "launches": 2,
+                                              "copies": 0}))
     w.spans.append(("step", 490, 500, -1, 8, {}))
     assert read(w)["k2_calls"] == pytest.approx(3 / 2)
 
@@ -106,20 +115,20 @@ def test_the_program_records_a_window_the_readers_read():
     program's recorder on: a ``step`` span each, holding the family's
     passes over every chunk. (The CPU has no K2 launches and no copies.)"""
     c = harness.load_cell("gcn-stream-10m.hostfed")
-    cfg = dict(c["config"], **SMALL)
+    cfg = dict(c["config"], **traffic.small(c["config"]["graph"]["kind"]))
     inputs = harness.Inputs(cfg, 2**31 + 17, "cpu")
     prog = harness.build_program(cfg, c["workload"], inputs)
     prog.step()
-    record_spans = spans.recorder()
-    record_spans(True)
+    prog.program_spans(True)
     prog.step()
     prog.step()
-    w = spans.Window(record_spans(False), [], steps=2, window_s=1.0)
+    w = spans.Window(prog.program_spans(False), [], steps=2, window_s=1.0)
     passes = len(reference.family(cfg["family"]).pass_widths(cfg))
     assert w.chunks() == 2 * passes * inputs.graph.n_chunks
     got = read(w)
     assert got["chunk_host_us"] > 0 and got["k2_calls"] == 0
     assert got["feed_host_us"] is None and got["idle_stream_pct"] is None
+    assert 0 <= got["k2_batched_share"] <= 100
     assert spans.record(w)["spans"]["step"] == 2
 
 

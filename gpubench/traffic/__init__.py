@@ -8,7 +8,10 @@ which returns a graph with
 - ``chunk(j)``: chunk ``j`` as a :class:`Chunk`, the chunks covering the
   rows in order, made on ``device`` from the seed;
 - ``chunk_shape(j)``: its :class:`ChunkShape`, from the generator's
-  parameters without a draw (what the yardstick counts).
+  parameters without a draw (what the yardstick counts);
+
+and ``SMALL``: the configuration keys (``graph``, ``edge_scale``) that a
+CPU test puts in place to run a cell of this kind at a small size.
 
 A new graph or mix is a new module here and a configuration (or a
 workload's ``graph``) that names it; nothing else changes.
@@ -39,8 +42,18 @@ class ChunkShape(NamedTuple):
     gathered: float
 
 
+def generator(kind: str):
+    """The generator module ``gpubench/traffic/<kind>.py``."""
+    return importlib.import_module(f"gpubench.traffic.{kind}")
+
+
 def make(graph_cfg: dict, seed: int, device):
     """The graph of ``graph_cfg`` drawn from ``seed`` on ``device``, by the
     generator that its ``kind`` names."""
-    mod = importlib.import_module(f"gpubench.traffic.{graph_cfg['kind']}")
-    return mod.make(graph_cfg, seed, device)
+    return generator(graph_cfg["kind"]).make(graph_cfg, seed, device)
+
+
+def small(kind: str) -> dict:
+    """The configuration keys that run a graph of ``kind`` at a test's
+    size (the generator's ``SMALL``)."""
+    return generator(kind).SMALL

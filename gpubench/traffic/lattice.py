@@ -32,6 +32,11 @@ import torch
 
 from gpubench.traffic import Chunk, ChunkShape
 
+# the configuration keys a CPU test puts in place (``gpubench.traffic.small``):
+# 16 chunks of 128 rows, degree 16, row sums ~1/2
+SMALL = {"graph": {"kind": "lattice", "n_nodes": 2048, "degree": 16, "w": 32, "w_sc": 4},
+         "edge_scale": 1 / 16}
+
 
 def lattice_config(n: int, deg: int, w: int = 512, w_sc: int = 32) -> Tuple[int, int, int, int]:
     """``(n_chunks, w_sc, w, cell_e)`` of the lattice for an ~n-node,
