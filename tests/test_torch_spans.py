@@ -1,7 +1,10 @@
 """The span recorder (``textgcn_tpu_torch/utils/profiling.py``) and its
 sites in the streamed step: ``step`` (``train/streamtape.py``), ``pass``,
 ``chunk.fetch``, ``chunk.feed``, ``chunk.sync``
-(``ops/streamed_sorted.py``) and ``k2.launch`` (``ops/row_reduce.py``).
+(``ops/streamed_sorted.py``) and ``k2.launch`` (``ops/row_reduce.py``); and
+in the resident epoch: ``step``, ``train``, ``eval``
+(``train/trainer.py`` ``Trainer.epoch``), ``hybrid.pass``
+(``graph/reorder.py``) and ``k1.launch`` (``ops/bsr_spmm.py``).
 
 This file imports neither JAX nor the JAX package, so it also runs where
 only PyTorch is installed. On a machine with an NVIDIA GPU:
@@ -17,12 +20,19 @@ import gc
 import time
 from collections import Counter
 
+import numpy as np
 import pytest
 import torch
 
+from textgcn_tpu_torch.graph.normalize import max_symmetrize_coo, sym_normalize_coo
+from textgcn_tpu_torch.graph.structs import SparseGraph
 from textgcn_tpu_torch.ops import streamed_sorted as ss
+from textgcn_tpu_torch.ops.bsr_spmm import bsr_spmm
 from textgcn_tpu_torch.ops.row_reduce import row_reduce
+from textgcn_tpu_torch.text.datasets import DatasetLabels
+from textgcn_tpu_torch.train import prepare as tprepare
 from textgcn_tpu_torch.train import streamed as st
+from textgcn_tpu_torch.train import trainer as ttrainer
 from textgcn_tpu_torch.utils import profiling
 
 N_CHUNKS, W_SC, W, CELL_E = 5, 2, 8, 16
@@ -235,3 +245,90 @@ def test_cuda_pass_counts_launches_and_copies(cuda_dev):
     assert sum(spans[j].attrs["launches"] for j in passes) == row_reduce.launches - launches
     assert sum(spans[j].attrs["batched"] for j in passes) == row_reduce.batched_chunks - batched
     assert sum(spans[j].attrs["copies"] for j in passes) == src.host_loads - loads
+
+
+HYBRID_ATTRS = {"width", "tiles", "residual_edges", "launches"}
+
+
+def _powerlaw_hybrid(device, n=700, e=24000, n_class=4, seed=0):
+    """A sym-normalized power-law graph with identity features, in the
+    hybrid layout: dense hub tiles through K1 and a residual through K2."""
+    rng = np.random.RandomState(seed)
+    p = np.arange(1, n + 1) ** -1.0
+    p /= p.sum()
+    r, c, v = max_symmetrize_coo(rng.choice(n, e, p=p), rng.choice(n, e, p=p), rng.rand(e), n)
+    r, c, v = sym_normalize_coo(r, c, v, n)
+    labels = DatasetLabels(target=rng.randint(0, n_class, n),
+                           label_names=[str(k) for k in range(n_class)],
+                           train_idx=np.arange(0, n, 2), test_idx=np.arange(1, n, 2))
+    pre = tprepare.PreparedData(graph=SparseGraph.from_coo(r, c, v, n, device=device),
+                                features=None, labels=labels, n_feat=n, num_docs=n,
+                                num_topics=0)
+    return tprepare.apply_spmm_format(pre, "hybrid")
+
+
+def _epoch_spans(device):
+    """One recorded ``Trainer.epoch`` at hidden 200 over the power-law
+    graph: the layout, the spans, and the epoch to run again."""
+    pre = _powerlaw_hybrid(device)
+    g = pre.graph
+    assert g.bsr.nnzb > 0 and g.rest is not None and g.rest.n_edges > 0
+    cfg = ttrainer.TrainConfig(n_hidden=200, seed=11, spmm="hybrid")
+    t = ttrainer.Trainer(g, None, pre.labels.target, pre.labels.train_idx,
+                         pre.labels.test_idx, pre.labels.n_classes, config=cfg, device=device,
+                         perm=pre.perm)
+    gen = torch.Generator(device=device).manual_seed(cfg.seed)
+    model = ttrainer.model_class(cfg.model, g)(
+        pre.n_nodes, cfg.n_hidden, t.num_classes, cfg.dropout, device=device, generator=gen)
+    opt = torch.optim.Adam(model.parameters(), lr=cfg.lr)
+    train_idx = torch.tensor(pre.labels.train_idx, dtype=torch.int64, device=device)
+    val_idx = torch.tensor(pre.labels.test_idx, dtype=torch.int64, device=device)
+
+    def epoch():
+        return t.epoch(model, opt, gen, train_idx, val_idx)
+
+    epoch()  # builds what the first call builds
+    profiling.record_spans(True)
+    try:
+        epoch()
+    finally:
+        got = profiling.record_spans(False)
+    return g, got, epoch
+
+
+def test_a_recorded_epoch_holds_a_step_and_six_hybrid_passes():
+    """One ``step`` span with a ``train`` span (the four passes of the
+    train step) and an ``eval`` span (the eval forward's two); each
+    ``hybrid.pass`` carries its width, tiles, residual edges and launches
+    (none on the CPU, where the kernels' plain versions run)."""
+    g, got, _ = _epoch_spans(torch.device("cpu"))
+    assert Counter(s.name for s in got) == {"step": 1, "train": 1, "eval": 1, "hybrid.pass": 6}
+    (step,) = [i for i, s in enumerate(got) if s.name == "step"]
+    assert all(s.step == got[step].step for s in got)
+    kids = {s.name: i for i, s in enumerate(got) if s.parent == step}
+    assert set(kids) == {"train", "eval"}
+    widths = {k: [s.attrs["width"] for s in got if s.name == "hybrid.pass" and s.parent == i]
+              for k, i in kids.items()}
+    assert widths == {"train": [208, 16, 16, 208], "eval": [208, 16]}
+    for s in got:
+        if s.name == "hybrid.pass":
+            assert set(s.attrs) == HYBRID_ATTRS
+            assert s.attrs["tiles"] == g.bsr.nnzb
+            assert s.attrs["residual_edges"] == g.rest.n_edges
+            assert s.attrs["launches"] == 0
+            assert got[s.parent].start_ns <= s.start_ns <= s.end_ns <= got[s.parent].end_ns
+
+
+@pytest.mark.cuda
+def test_on_the_card_each_pass_launches_k1_and_k2():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with nvcc: the CUDA kernels have no CPU mode")
+    _, got, epoch = _epoch_spans(torch.device("cuda"))
+    passes = [i for i, s in enumerate(got) if s.name == "hybrid.pass"]
+    assert len(passes) == 6
+    for i in passes:
+        assert got[i].attrs["launches"] == 2
+        assert sorted(s.name for s in got if s.parent == i) == ["k1.launch", "k2.launch"]
+    k1, k2 = bsr_spmm.launches, row_reduce.launches
+    epoch()
+    assert (bsr_spmm.launches - k1, row_reduce.launches - k2) == (6, 6)

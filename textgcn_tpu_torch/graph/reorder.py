@@ -29,9 +29,10 @@ import numpy as np
 import torch
 
 from textgcn_tpu_torch.graph.structs import BlockSparseGraph
-from textgcn_tpu_torch.ops.bsr_spmm import F_ALIGN, TILE, bsr_spmm
+from textgcn_tpu_torch.ops.bsr_spmm import F_ALIGN, TILE, bsr_spmm, bsr_spmm_f32
 from textgcn_tpu_torch.ops.row_reduce import RowSplit, row_reduce, row_split
 from textgcn_tpu_torch.ops.split import record
+from textgcn_tpu_torch.utils import profiling
 
 
 def degree_sort_permutation(
@@ -251,11 +252,28 @@ def hybrid_pass(h: HybridGraph, x: torch.Tensor) -> torch.Tensor:
 
     Builds one padded feature table [n_pad, F'] in the tile stack's type
     (:func:`feature_table`), runs both legs on it
-    (:func:`tile_and_residual`) and slices once.
+    (:func:`tile_and_residual`) and slices once. While the span recorder is
+    on (:func:`~textgcn_tpu_torch.utils.profiling.record_spans`) the pass is
+    a ``hybrid.pass`` span with the attributes ``width`` (F'), ``tiles``,
+    ``residual_edges`` and ``launches`` (the change of K1's and K2's launch
+    counters), holding the legs' ``k1.launch`` and ``k2.launch`` spans.
     """
+    on = profiling.spans_on
+    if on:
+        span, launches = profiling.begin("hybrid.pass"), _launches()
     bsr = h.bsr
     xp = feature_table(x, bsr.n_block_rows * bsr.bm, bsr.blocks.dtype)
-    return tile_and_residual(bsr, h.rest, xp)[: h.n_nodes, : x.shape[1]]
+    out = tile_and_residual(bsr, h.rest, xp)[: h.n_nodes, : x.shape[1]]
+    if on:
+        profiling.end(span, width=xp.shape[1], tiles=bsr.nnzb,
+                      residual_edges=0 if h.rest is None else h.rest.n_edges,
+                      launches=_launches() - launches)
+    return out
+
+
+def _launches() -> int:
+    """K1's launches (either mode) and K2's, as their wrappers count them."""
+    return bsr_spmm.launches + bsr_spmm_f32.launches + row_reduce.launches
 
 
 def csr_pass(g: CSRGraph, x: torch.Tensor) -> torch.Tensor:

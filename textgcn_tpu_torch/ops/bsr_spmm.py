@@ -67,12 +67,14 @@ Source note:
 """
 from __future__ import annotations
 
-import torch
-
+import time
 from typing import Optional
+
+import torch
 
 from textgcn_tpu_torch.ops import _build
 from textgcn_tpu_torch.ops.split import TileSplit, build_split, check_split
+from textgcn_tpu_torch.utils import profiling
 
 TILE = 128
 F_ALIGN = 16  # the kernel's feature width must be a multiple of this
@@ -144,7 +146,11 @@ def _check(name, tiles, tile_ptr, tile_col, x):
 
 def _run(wrapper, tiles, tile_ptr, tile_col, x, split):
     """The plain version for a CPU ``x``; else K1's launches, counted on
-    ``wrapper`` for bf16 tiles and on :func:`bsr_spmm_f32` for f32 tiles."""
+    ``wrapper`` for bf16 tiles and on :func:`bsr_spmm_f32` for f32 tiles.
+    While the span recorder is on
+    (:func:`~textgcn_tpu_torch.utils.profiling.record_spans`) a launch, from
+    the checks to the launch's error check, is a ``k1.launch`` span."""
+    t0 = profiling.spans_on and time.time_ns()
     name = wrapper.__name__
     check_split(name, tile_ptr, tile_col.numel(), split, TileSplit, SEGMENT_TILES)
     if x.device.type == "cpu":
@@ -173,6 +179,8 @@ def _run(wrapper, tiles, tile_ptr, tile_col, x, split):
         )
     (bsr_spmm_f32 if f32 else wrapper).launches += 1
     _build.check_launch(name, err)
+    if t0:
+        profiling.leaf("k1.launch", t0)
     return out
 
 

@@ -58,6 +58,7 @@ from textgcn_tpu_torch.ops.split import fingerprint
 from textgcn_tpu_torch.ops.streamed_sorted import SortedStreamGraph
 from textgcn_tpu_torch.train.checkpoint import restore_checkpoint, save_checkpoint
 from textgcn_tpu_torch.train.metrics import accuracy, macro_f1
+from textgcn_tpu_torch.utils import profiling
 
 
 @dataclasses.dataclass
@@ -392,30 +393,8 @@ class Trainer:
         epoch = start_epoch
         start = time.perf_counter()
         while epoch < cfg.max_epoch and not stopped:
-            model.train()
-            logits = model(self.graph, self.x, generator=gen)
-            loss = F.cross_entropy(logits[train_idx], self.y[train_idx])
-            opt.zero_grad(set_to_none=True)
-            loss.backward()
-            opt.step()
-
-            model.eval()
-            with torch.no_grad():
-                vals = _eval_metrics(
-                    model(self.graph, self.x), self.y, val_idx, self.num_classes
-                )
-                tloss, vloss, vacc, vf1, vp, vr = (
-                    torch.cat([loss.detach()[None], vals]).tolist()
-                )
-            rec = {
-                "epoch": epoch,
-                "train_loss": tloss,
-                "val_loss": vloss,
-                "acc": vacc,
-                "macro_f1": vf1,
-                "precision": vp,
-                "recall": vr,
-            }
+            rec = {"epoch": epoch, **self.epoch(model, opt, gen, train_idx, val_idx)}
+            vloss = rec["val_loss"]
             self.history.append(rec)
             if verbose:
                 print(
@@ -448,6 +427,46 @@ class Trainer:
         if best_params is not None:
             model.load_state_dict(best_params)
         return {"epochs_run": len(self.history), "train_time": self.train_time}
+
+    def epoch(self, model: torch.nn.Module, opt: torch.optim.Optimizer,
+              gen: torch.Generator, train_idx: torch.Tensor,
+              val_idx: torch.Tensor) -> Dict[str, float]:
+        """One epoch of :meth:`fit`: the train forward with dropout drawn
+        from ``gen``, the cross-entropy over the rows ``train_idx``,
+        backward and ``opt.step()``; then the eval forward and the metrics
+        over ``val_idx``, read back in one ``.tolist()``. Returns the
+        record that :meth:`fit` appends to ``history``, without the epoch's
+        number. While the span recorder is on
+        (:func:`~textgcn_tpu_torch.utils.profiling.record_spans`) the epoch
+        is a ``step`` span holding a ``train`` span (to ``opt.step()``) and
+        an ``eval`` span (to the read-back)."""
+        step = profiling.begin("step", step=True) if profiling.spans_on else None
+        span = None if step is None else profiling.begin("train")
+        model.train()
+        logits = model(self.graph, self.x, generator=gen)
+        loss = F.cross_entropy(logits[train_idx], self.y[train_idx])
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+        if step is not None:
+            profiling.end(span)
+            span = profiling.begin("eval")
+
+        model.eval()
+        with torch.no_grad():
+            vals = _eval_metrics(model(self.graph, self.x), self.y, val_idx, self.num_classes)
+            tloss, vloss, vacc, vf1, vp, vr = torch.cat([loss.detach()[None], vals]).tolist()
+        if step is not None:
+            profiling.end(span)
+            profiling.end(step)
+        return {
+            "train_loss": tloss,
+            "val_loss": vloss,
+            "acc": vacc,
+            "macro_f1": vf1,
+            "precision": vp,
+            "recall": vr,
+        }
 
     def save_training_state(self, path: str) -> str:
         """Resumable checkpoint: the live params, Adam's state, the progress

@@ -11,7 +11,8 @@ Port of ``textgcn_tpu/utils/profiling.py``:
 
 The port's own, with no JAX counterpart: the span recorder
 (:func:`record_spans`, :func:`begin`, :func:`end`, :func:`leaf`), the
-host's time inside the streamed step on the Unix-epoch clock that
+host's time inside the streamed step and the resident epoch on the
+Unix-epoch clock that
 ``torch.profiler`` stamps its events on, so that a span and the device's
 activity of the same window compare directly.
 """
@@ -84,7 +85,9 @@ def device_memory(device: torch.device) -> Dict[str, Dict[str, float]]:
 #
 # Process-wide and off by default: the streamed step's sites (train/streamtape.py
 # ``step``; ops/streamed_sorted.py ``pass``, ``chunk.fetch``, ``chunk.feed``,
-# ``chunk.sync``; ops/row_reduce.py ``k2.launch``) each read ``spans_on`` once
+# ``chunk.sync``; ops/row_reduce.py ``k2.launch``) and the resident epoch's
+# (train/trainer.py ``step``, ``train``, ``eval``; graph/reorder.py
+# ``hybrid.pass``; ops/bsr_spmm.py ``k1.launch``) each read ``spans_on`` once
 # and, while it is False, enter no context manager, allocate nothing and call
 # nothing on the device. A chunk call takes tens of microseconds of host
 # time, so a site may cost a fraction of one (``record_function`` costs about
