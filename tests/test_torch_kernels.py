@@ -27,7 +27,7 @@ from textgcn_tpu_torch.parallel.mesh_kernels import (
 )
 from textgcn_tpu_torch.ops import _build
 from textgcn_tpu_torch.ops.row_reduce import (
-    SEGMENT_EDGES, row_reduce, row_reduce_plain, row_reduce_run_plain, row_split,
+    RUN_TILE_ROWS, SEGMENT_EDGES, row_reduce, row_reduce_plain, row_reduce_run_plain, row_split,
 )
 
 CPU = torch.device("cpu")
@@ -989,6 +989,69 @@ def test_streamed_step_over_runs_equals_the_per_chunk_step(cuda_dev):
     copies = len(host) - kept
     assert launches_c == 12 * len(host)
     assert launches_r == len(host) + 11 * (1 + copies)
+
+
+def _tile_case(case, rng):
+    """The chunks of a run that reaches one of the tiled run kernel's
+    edges: ``(degrees a chunk, gap in rows before each chunk)``."""
+    T = RUN_TILE_ROWS
+    if case == "long_row":  # a row past a stage's 4,096 edges, no split table
+        deg = rng.integers(0, 40, 3 * T)
+        deg[T + 5], deg[T + 6] = 10_000, 4_100
+        return [deg], [0]
+    if case == "empty_ends":  # empty rows at both ends of every tile
+        deg = rng.integers(1, 60, 4 * T)
+        for t in range(4):
+            deg[t * T : t * T + 5] = 0
+            deg[t * T + T - 7 : t * T + T] = 0
+        deg[2 * T : 3 * T] = 0  # and a tile without edges
+        return [deg], [0]
+    if case == "unaligned":  # odd edge counts, windows off 16 bytes
+        return [2 * rng.integers(0, 20, r) + 1 for r in (T + 3, 1, 2 * T - 1, 5)], [0, 1, 2, 0]
+    if case == "many":  # more chunks and tiles than the grid has blocks
+        return [rng.integers(0, 30, int(r)) for r in rng.integers(1, 3 * T, 300)], [0] * 300
+    assert case == "one_row"
+    return [np.array([7])], [3]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [6, 8, 16, 64])
+@pytest.mark.parametrize("case", ["long_row", "empty_ends", "unaligned", "many", "one_row"])
+def test_row_reduce_run_tiles_equal_the_per_chunk_calls(cuda_dev, case, f):
+    """The tiled run kernel at its edges, bit-equal to ``row_reduce`` a
+    chunk with no split table, and ``row_reduce.run_tiles`` counting the
+    tiles of RUN_TILE_ROWS rows it walked. In the ``unaligned`` case the
+    CSRs are views one entry into larger tensors, so neither row_ptr, col
+    nor val starts on 16 bytes; f = 6 takes the 4-byte loads."""
+    from textgcn_tpu_torch.ops.row_reduce import reduce_run, row_reduce_run
+
+    rng = np.random.default_rng(11)
+    degs, gaps = _tile_case(case, rng)
+    csrs, r0 = [], 0
+    for deg, gap in zip(degs, gaps):
+        r0 += gap
+        rp = np.concatenate([[0], np.cumsum(deg)]).astype(np.int32)
+        col = rng.integers(0, 1000, rp[-1]).astype(np.int32)
+        val = rng.random(rp[-1]).astype(np.float32)
+        off = int(case == "unaligned")
+        t = [torch.from_numpy(np.concatenate([np.zeros(off, a.dtype), a])).to(cuda_dev)[off:]
+             for a in (rp, col, val)]
+        csrs.append((*t, r0))
+        r0 += len(deg)
+    gen = torch.Generator(device=cuda_dev).manual_seed(12)
+    x = torch.randn((1000, f), generator=gen, device=cuda_dev).bfloat16()
+    base = torch.randn((r0, f), generator=gen, device=cuda_dev)
+    want = base.clone()
+    for rp, col, val, r in csrs:
+        row_reduce(rp, col, val, x, base=want[r : r + rp.numel() - 1])
+    run = reduce_run(csrs)
+    tiles = sum(-(-len(d) // RUN_TILE_ROWS) for d in degs)
+    n0, t0 = row_reduce.launches, row_reduce.run_tiles
+    got = row_reduce_run(run, x, base.clone())
+    torch.cuda.synchronize()
+    assert row_reduce.launches - n0 == 1
+    assert run.n_tiles == tiles and row_reduce.run_tiles - t0 == tiles
+    assert torch.equal(got, want)
 
 
 @pytest.mark.cuda

@@ -14,7 +14,9 @@ import pytest
 import torch
 
 from textgcn_tpu_torch.ops import streamed_sorted as ss
-from textgcn_tpu_torch.ops.row_reduce import ReduceRun, reduce_run, row_reduce_plain
+from textgcn_tpu_torch.ops.row_reduce import (
+    RUN_TILE_ROWS, ReduceRun, reduce_run, row_reduce_plain, run_tile_prefix,
+)
 from textgcn_tpu_torch.utils import profiling
 from torch_stream_chunks import N_ROWS, PLAN, RUNS, SPLIT, UNCACHED, broken_runs
 
@@ -176,3 +178,45 @@ def test_a_run_pickles_by_building_its_table_again():
     assert (back.n_rows, back.r_end, back.n_chunks, back.device) == (6, 10, 3, CPU)
     for a, b in zip(run.csrs, back.csrs):
         assert all(torch.equal(s, t) for s, t in zip(a[:3], b[:3])) and a[3] == b[3]
+
+
+T = RUN_TILE_ROWS
+
+
+@pytest.mark.parametrize("rows", [
+    [0], [1], [T], [T + 1], [3 * T, 0, 1, T + 1, 0],
+    [0, 0, 2 * T - 1, 1, 5 * T, T + 1], [16384] * 3,
+])
+def test_run_tile_prefix_puts_every_row_in_one_tile(rows):
+    """The run kernel's tiles, walked as its producer walks them (binary
+    search over the prefix for the CSR, then the tile's first row and row
+    count): every row of every CSR lies in exactly one tile, and the prefix
+    is the tiles summed before each CSR."""
+    prefix = run_tile_prefix(rows)
+    assert len(prefix) == len(rows) + 1 and prefix[0] == 0
+    seen = [[0] * r for r in rows]
+    for t in range(prefix[-1]):
+        lo, hi = 0, len(rows)  # the kernel's search: prefix[lo] <= t < prefix[lo + 1]
+        while hi - lo > 1:
+            mid = (lo + hi) // 2
+            lo, hi = (mid, hi) if prefix[mid] <= t else (lo, mid)
+        assert prefix[lo] <= t < prefix[lo + 1]
+        i0 = (t - prefix[lo]) * T
+        n = min(T, rows[lo] - i0)
+        assert n >= 1
+        for i in range(i0, i0 + n):
+            seen[lo][i] += 1
+    assert all(c == 1 for s in seen for c in s)
+    for k, r in enumerate(rows):
+        assert prefix[k + 1] - prefix[k] == -(-r // T)
+
+
+def test_a_run_counts_its_tiles():
+    rows = [3, 0, T + 1, 2 * T]
+    csrs, r0 = [], 0
+    for r in rows:
+        csrs.append(_csr(r0, r))
+        r0 += r
+    run = reduce_run(csrs)
+    assert run.n_tiles == run_tile_prefix(rows)[-1] == 1 + 0 + 2 + 2
+    assert pickle.loads(pickle.dumps(run)).n_tiles == run.n_tiles

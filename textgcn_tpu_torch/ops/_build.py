@@ -42,7 +42,7 @@ _SIGNATURES = {
     "textgcn_bsr_spmm_f32_segment_tiles": [],
     "textgcn_bsr_spmm_segment_tiles": [],
     "textgcn_row_reduce": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "textgcn_row_reduce_run": [_P, _I, _I, _P, _P, _I, _P],
+    "textgcn_row_reduce_run": [_P, _I, _I, _I, _P, _P, _I, _P],
     "textgcn_row_reduce_segment_edges": [],
     "textgcn_attn_stats": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _F, _I, _I, _I, _P],
     "textgcn_attn_agg": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],

@@ -50,7 +50,12 @@ Source note:
   the kernel takes. :func:`reduce_run` checks chunks that stay on the card
   once and lists them in a small device table (:class:`ReduceRun`); then
   :func:`row_reduce_run` reduces all of them in one launch, each row with
-  the bits of its chunk's own call.
+  the bits of its chunk's own call. That launch is a kernel of its own
+  design (``row_reduce_kernel_run``): persistent blocks walk tiles of
+  :data:`RUN_TILE_ROWS` rows (:func:`run_tile_prefix`), a producer warp
+  stages each tile's CSR into shared memory with bulk copies (TMA), and
+  the consumer warps gather ``x`` from the staged indices; the source note
+  in ``csrc/row_reduce.cu`` gives its bound and design.
 """
 from __future__ import annotations
 
@@ -67,6 +72,9 @@ from textgcn_tpu_torch.utils import profiling
 # S: the most edges one warp walks; the kernel's compile-time constant
 # (csrc/row_reduce.cu kSegEdges), which a RowSplit table must be built for
 SEGMENT_EDGES = 512
+# rows of a tile of the run kernel (csrc/row_reduce.cu kTileRows), the unit
+# that its persistent blocks walk; a launch with another count is refused
+RUN_TILE_ROWS = 64
 
 
 def row_split(row_ptr, device=None) -> Optional[RowSplit]:
@@ -179,6 +187,9 @@ row_reduce.launches = 0
 # chunks reduced inside run launches (:func:`row_reduce_run`), each of
 # which counts one in ``row_reduce.launches``
 row_reduce.batched_chunks = 0
+# tiles of RUN_TILE_ROWS rows that run launches walked (ReduceRun.n_tiles a
+# launch)
+row_reduce.run_tiles = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -190,13 +201,16 @@ class ReduceRun:
     ``csrs`` holds each CSR's ``(row_ptr, col, val, r0)``: row ``i`` of one
     is output row ``r0 + i``. ``table`` lists them on their CUDA device for
     the kernel: one int64 row a CSR (the three tensors' device addresses,
-    ``r0``), then the CSRs' row counts summed before each ([n + 1]); None on
-    the CPU. The run keeps the tensors it points at alive. Unpickled in
+    ``r0``), then the CSRs' row counts summed before each ([n + 1]), then
+    their tiles summed before each (:func:`run_tile_prefix`, [n + 1]), then
+    the kernel's work counter (zero between launches, so a run's launches
+    must not overlap: one stream at a time); None on the CPU. The run keeps the tensors it points at alive. Unpickled in
     another process, it builds its table anew there."""
 
     csrs: Tuple[tuple, ...]
     table: Optional[torch.Tensor]
-    n_rows: int  # rows of all the CSRs: warps of the launch
+    n_rows: int  # rows of all the CSRs
+    n_tiles: int  # tiles of RUN_TILE_ROWS rows: the launch's work units
     r_end: int  # past the last CSR's rows
     device: torch.device
 
@@ -206,6 +220,19 @@ class ReduceRun:
 
     def __reduce__(self):
         return reduce_run, (self.csrs,)
+
+
+def run_tile_prefix(rows) -> list:
+    """The tiles of the run kernel summed before each CSR of a run, whose
+    row counts are ``rows``: ``[0, t_0, t_0 + t_1, ...]`` ([n + 1]), with
+    ``t_k = ceil(rows[k] / RUN_TILE_ROWS)``. Tile ``t`` is rows ``[i0, i0 +
+    n)`` of CSR ``k``, ``prefix[k] <= t < prefix[k + 1]``, ``i0 = (t -
+    prefix[k]) * RUN_TILE_ROWS``, ``n = min(RUN_TILE_ROWS, rows[k] - i0)``:
+    every row lies in one tile, and a CSR without rows has none."""
+    prefix = [0]
+    for r in rows:
+        prefix.append(prefix[-1] + -(-int(r) // RUN_TILE_ROWS))
+    return prefix
 
 
 def reduce_run(csrs) -> ReduceRun:
@@ -243,12 +270,13 @@ def reduce_run(csrs) -> ReduceRun:
         rows_before.append(rows_before[-1] + rows)
     if rows_before[-1] >= 2**31:
         raise ValueError(f"reduce_run: {rows_before[-1]} rows do not fit the kernel's int")
+    tiles = run_tile_prefix(b - a for a, b in zip(rows_before, rows_before[1:]))
     table = None
     if dev.type == "cuda":
         flat = [v for rp, col, val, r0 in csrs
                 for v in (rp.data_ptr(), col.data_ptr(), val.data_ptr(), r0)]
-        table = torch.tensor(flat + rows_before, dtype=torch.int64).to(dev)
-    return ReduceRun(csrs, table, rows_before[-1], end, dev)
+        table = torch.tensor(flat + rows_before + tiles + [0], dtype=torch.int64).to(dev)
+    return ReduceRun(csrs, table, rows_before[-1], tiles[-1], end, dev)
 
 
 def row_reduce_run_plain(run: ReduceRun, x, base):
@@ -269,9 +297,9 @@ def row_reduce_run(run: ReduceRun, x, base):
     call checks ``x`` and ``base`` only. On CPU tensors this runs
     :func:`row_reduce_run_plain`; on CUDA tensors it launches the kernel
     (``row_reduce_kernel_run``) or raises, counts one launch in
-    ``row_reduce.launches`` and the run's CSRs in
-    ``row_reduce.batched_chunks``; while the span recorder is on the launch
-    is a ``k2.launch`` span, as a call of :func:`row_reduce` is.
+    ``row_reduce.launches``, the run's CSRs in ``row_reduce.batched_chunks``
+    and its tiles in ``row_reduce.run_tiles``; while the span recorder is on
+    the launch is a ``k2.launch`` span, as a call of :func:`row_reduce` is.
     """
     t0 = profiling.spans_on and time.time_ns()
     if x.device != run.device:
@@ -286,11 +314,12 @@ def row_reduce_run(run: ReduceRun, x, base):
     lib = _build.load()
     with torch.cuda.device(x.device):
         err = lib.textgcn_row_reduce_run(
-            run.table.data_ptr(), run.n_chunks, run.n_rows, x.data_ptr(), base.data_ptr(),
-            x.shape[1], torch.cuda.current_stream().cuda_stream,
+            run.table.data_ptr(), run.n_chunks, run.n_tiles, RUN_TILE_ROWS, x.data_ptr(),
+            base.data_ptr(), x.shape[1], torch.cuda.current_stream().cuda_stream,
         )
     row_reduce.launches += 1
     row_reduce.batched_chunks += run.n_chunks
+    row_reduce.run_tiles += run.n_tiles
     _build.check_launch("row_reduce_run", err)
     if t0:
         profiling.leaf("k2.launch", t0)
