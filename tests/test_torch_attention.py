@@ -594,19 +594,3 @@ def test_gat_attention_backward_takes_the_leaky_slope_from_the_base_sign():
     gat_attention_segment(sg, *b).backward(cot)
     for p, q in zip(a, b):
         torch.testing.assert_close(p.grad, q.grad, rtol=1e-4, atol=1e-5)
-
-
-def test_wrappers_raise_off_cpu_and_cuda():
-    m = torch.device("meta")
-    i = torch.zeros(3, dtype=torch.int32, device=m)
-    v = torch.zeros(2, device=m)
-    x = torch.zeros(2, 8, dtype=torch.bfloat16, device=m)
-    for call in (
-        lambda: tatt.stats_logits(i, i[:2], v, v, v, SLOPE),
-        lambda: tatt.softmax_stats(i, v),
-        lambda: tatt.attn_agg(i, i[:2], v, v, v, x),
-        lambda: tatt.sddmm(i, i[:2], x, x, i[:2]),
-        lambda: tatt.rowsum(i, v),
-    ):
-        with pytest.raises(ValueError, match="no kernel"):
-            call()

@@ -128,10 +128,10 @@ def test_tile_kernel_check_refuses_mixed_types():
         tiles = torch.zeros((1, 128, 128), dtype=tiles_dtype)
         x = torch.zeros((128, 16), dtype=x_dtype)
         with pytest.raises(TypeError, match="bf16 tiles with bf16 features or f32"):
-            tbsr._check("bsr_spmm", tiles, ptr, col, x)
+            tbsr._check_tiles("bsr_spmm", tiles, ptr, col, x)
     for dtype in (torch.float32, torch.bfloat16):
-        tbsr._check("bsr_spmm", torch.zeros((1, 128, 128), dtype=dtype), ptr, col,
-                    torch.zeros((128, 16), dtype=dtype))
+        tbsr._check_tiles("bsr_spmm", torch.zeros((1, 128, 128), dtype=dtype), ptr, col,
+                          torch.zeros((128, 16), dtype=dtype))
 
 
 def test_spmm_onehot_forward_and_gradient_match_jax():

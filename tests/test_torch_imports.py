@@ -57,28 +57,6 @@ def test_every_module_imports_without_a_gpu(path):
     importlib.import_module(name)
 
 
-def test_wrappers_raise_off_cpu_and_cuda():
-    """A tensor on neither the CPU nor a CUDA device reaches no plain path."""
-    from textgcn_tpu_torch.ops.bsr_spmm import bsr_spmm
-    from textgcn_tpu_torch.ops.row_reduce import row_reduce
-
-    m = torch.device("meta")
-    with pytest.raises(ValueError, match="no kernel"):
-        bsr_spmm(
-            torch.empty((1, 128, 128), device=m),
-            torch.zeros(2, dtype=torch.int32, device=m),
-            torch.zeros(1, dtype=torch.int32, device=m),
-            torch.empty((128, 16), device=m),
-        )
-    with pytest.raises(ValueError, match="no kernel"):
-        row_reduce(
-            torch.zeros(2, dtype=torch.int32, device=m),
-            torch.zeros(1, dtype=torch.int32, device=m),
-            torch.zeros(1, device=m),
-            torch.empty((4, 16), device=m),
-        )
-
-
 def test_cli_train_refuses_to_run_without_a_gpu(monkeypatch):
     from textgcn_tpu_torch import cli
 

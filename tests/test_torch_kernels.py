@@ -1087,3 +1087,218 @@ def test_learnable_edge_ops_on_gpu_match_cpu_plain(cuda_dev):
     for a, b in zip(got, run(ag_cpu, CPU)):
         np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=0,
                                    atol=1e-4 * float(b.abs().max()))
+
+
+# ---------------------------------------------------------------------------
+# the one call path of the hand kernels (ops/_build.py check / launch,
+# ops/split.py split_args)
+# ---------------------------------------------------------------------------
+
+CUDA0 = torch.device("cuda", 0)  # a device object only: nothing runs on it here
+
+
+def _meta_call(wrapper):
+    """A call of public wrapper ``wrapper`` with every tensor on the meta
+    device, which has neither a plain path nor a kernel."""
+    from textgcn_tpu_torch.ops.row_reduce import reduce_run, row_reduce_run
+
+    m = torch.device("meta")
+    i = torch.zeros(3, dtype=torch.int32, device=m)
+    v = torch.zeros(2, device=m)
+    x = torch.zeros(2, 8, dtype=torch.bfloat16, device=m)
+    tiles, x128 = torch.empty((1, 128, 128), device=m), torch.empty((128, 16), device=m)
+    k1 = (tiles, i[:2], i[:1], x128)
+    return {
+        "row_reduce": lambda: row_reduce(i, i[:2], v, x),
+        "row_reduce_run": lambda: row_reduce_run(
+            reduce_run([(i, i[:2], v, 0)]), x, torch.zeros(2, 8, device=m)),
+        "bsr_spmm": lambda: bsr_spmm(*k1),
+        "bsr_spmm_f32": lambda: bsr_spmm_f32(*k1),
+        "bsr_leg": lambda: bsr_leg(*k1),
+        "stats_logits": lambda: att.stats_logits(i, i[:2], v, v, v, 0.2),
+        "softmax_stats": lambda: att.softmax_stats(i, v),
+        "attn_agg": lambda: att.attn_agg(i, i[:2], v, v, v, x),
+        "sddmm": lambda: att.sddmm(i, i[:2], x, x, i[:2]),
+        "rowsum": lambda: att.rowsum(i, v),
+    }[wrapper]
+
+
+WRAPPERS = ["row_reduce", "row_reduce_run", "bsr_spmm", "bsr_spmm_f32", "bsr_leg",
+            "stats_logits", "softmax_stats", "attn_agg", "sddmm", "rowsum"]
+
+
+@pytest.mark.parametrize("wrapper", WRAPPERS)
+def test_wrappers_raise_off_cpu_and_cuda(wrapper):
+    """A tensor on neither the CPU nor a CUDA device reaches no plain path:
+    every public wrapper of a hand kernel refuses it, naming itself."""
+    with pytest.raises(ValueError, match=f"{wrapper}: no kernel for device meta"):
+        _meta_call(wrapper)()
+
+
+def _fake(device=CUDA0, contiguous=True, dtype=torch.int32):
+    """A stand-in for a tensor on a CUDA device, as far as the checker looks."""
+    from types import SimpleNamespace
+
+    return SimpleNamespace(device=device, is_contiguous=lambda: contiguous, dtype=dtype)
+
+
+@pytest.mark.parametrize("case, named, error, match", [
+    ("no kernel", (), ValueError, "k: no kernel for device meta"),
+    ("device", (("t", torch.zeros(2, dtype=torch.int32), torch.int32),), ValueError,
+     "k: t is on cpu, expected cuda:0"),
+    ("layout", (("t", _fake(contiguous=False), torch.int32),), ValueError,
+     "k: t must be contiguous"),
+    ("dtype", (("a", _fake(), torch.int32), ("t", _fake(dtype=torch.float64), torch.int32)),
+     TypeError, r"k: t must be torch.int32, got torch.float64"),
+    ("passes", (("t", _fake(), torch.int32), ("any dtype", _fake(dtype=torch.float64), None),
+                ("absent", None, torch.float32)), None, None),
+])
+def test_the_checker_refuses_device_layout_and_dtype(case, named, error, match):
+    device = torch.device("meta") if case == "no kernel" else CUDA0
+    if error is None:
+        _build.check("k", device, *named)
+        return
+    with pytest.raises(error, match=match):
+        _build.check("k", device, *named)
+
+
+def test_split_args_without_a_table_pass_nothing():
+    from textgcn_tpu_torch.ops.split import split_args
+
+    assert split_args("row_reduce", None, CUDA0, 16) == (None, None, 0, 0)
+
+
+@pytest.mark.parametrize("where", ["meta", "cpu"])
+def test_split_args_refuse_a_table_on_another_device(where):
+    """A table on another device than the wrapper's tensors is refused,
+    naming the wrapper, before any partial is allocated."""
+    from textgcn_tpu_torch.ops.split import split_args
+
+    split = row_split(np.array([0, SEGMENT_EDGES + 1, SEGMENT_EDGES + 3]), device=where)
+    assert split is not None and split.table.device.type == where
+    with pytest.raises(ValueError, match=f"attn_agg: split is on {where}, expected cuda:0"):
+        split_args("attn_agg", split, CUDA0, 8)
+
+
+class _Entry:
+    """A C entry point that records its arguments and returns ``err``."""
+
+    def __init__(self, err):
+        self.err, self.args = err, None
+
+    def __call__(self, *args):
+        self.args = args
+        return self.err
+
+
+@pytest.mark.parametrize("err, spans_on", [(0, False), (0, True), (700, False)])
+def test_launch_passes_addresses_counts_once_and_closes_the_span(monkeypatch, err, spans_on):
+    """``_build.launch`` with the library, the device guard and the stream
+    stood in for: tensors go as their addresses and everything else as it
+    is, the current stream last; the wrapper's counter rises by one, also
+    when the launch fails (then it raises naming the wrapper); the span is
+    recorded only while the recorder is on and the wrapper took a start."""
+    import contextlib
+    import time
+    from types import SimpleNamespace
+
+    from textgcn_tpu_torch.utils import profiling
+
+    entry = _Entry(err)
+    monkeypatch.setattr(_build, "load", lambda: SimpleNamespace(textgcn_k=entry))
+    monkeypatch.setattr(torch.cuda, "device", lambda index: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda: SimpleNamespace(cuda_stream=77))
+
+    def wrapper():
+        pass
+
+    wrapper.launches = 5
+    t = torch.zeros(4)
+    profiling.record_spans(spans_on)
+    try:
+        t0 = profiling.spans_on and time.time_ns()
+        with (pytest.raises(RuntimeError, match="wrapper_name: CUDA launch failed with "
+                            "cudaError 700") if err else contextlib.nullcontext()):
+            _build.launch("wrapper_name", wrapper, "textgcn_k", CUDA0, t, None, 3, 0.5,
+                          span="k9.launch", t0=t0)
+    finally:
+        spans = profiling.record_spans(False)
+    assert entry.args == (t.data_ptr(), None, 3, 0.5, 77)
+    assert wrapper.launches == 6
+    assert [s.name for s in spans] == (["k9.launch"] if spans_on and not err else [])
+
+
+def _counters():
+    """Every launch counter of the hand kernels' wrappers."""
+    return {
+        "row_reduce": row_reduce.launches, "batched_chunks": row_reduce.batched_chunks,
+        "run_tiles": row_reduce.run_tiles, "bsr_spmm": bsr_spmm.launches,
+        "bsr_spmm_f32": bsr_spmm_f32.launches, "bsr_leg": bsr_leg.launches,
+        **{k: getattr(att, k).launches
+           for k in ("stats_logits", "softmax_stats", "attn_agg", "sddmm", "rowsum")},
+    }
+
+
+def _site(site, dev):
+    """``(call, the counters it moves and by how much, its spans' names)``
+    for one launch of ``site`` on ``dev``, with split tables where the
+    wrapper takes one (inputs built before the call)."""
+    from textgcn_tpu_torch.ops.row_reduce import reduce_run, row_reduce_run
+
+    rp, col, val, x, _ = _long_rows(dev, 16)
+    split, n = row_split(rp), rp.numel() - 1
+    tiles, tp, cols, xt = _long_block_rows(dev, 16)
+    tsplit = tile_split(tp)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    es, ed = torch.randn(n, generator=gen, device=dev), torch.randn(2000, generator=gen, device=dev)
+    logits = torch.randn(col.numel(), generator=gen, device=dev)
+    mx, sm = att.softmax_stats_plain(rp, logits)
+    row = torch.repeat_interleave(torch.arange(n, device=dev), torch.diff(rp.long())).int()
+    run = reduce_run([(rp, col, val, 0), (rp, col, val, n)])
+    k2, k1 = ["k2.launch"], ["k1.launch"]
+    return {
+        "row_reduce": (lambda: row_reduce(rp, col, val, x, split=split), {"row_reduce": 1}, k2),
+        "row_reduce_run": (lambda: row_reduce_run(run, x, torch.zeros(2 * n, 16, device=dev)),
+                           {"row_reduce": 1, "batched_chunks": 2, "run_tiles": run.n_tiles}, k2),
+        "bsr_spmm": (lambda: bsr_spmm(tiles, tp, cols, xt, split=tsplit), {"bsr_spmm": 1}, k1),
+        "bsr_spmm (f32 tiles)": (lambda: bsr_spmm(tiles.float(), tp, cols, xt.float(), tsplit),
+                                 {"bsr_spmm_f32": 1}, k1),
+        "bsr_spmm_f32": (lambda: bsr_spmm_f32(tiles.float(), tp, cols, xt.float(), tsplit),
+                         {"bsr_spmm_f32": 1}, k1),
+        "bsr_leg": (lambda: bsr_leg(tiles, tp, cols, xt, split=tsplit), {"bsr_leg": 1}, k1),
+        "stats_logits": (lambda: att.stats_logits(rp, col, logits, es, ed, 0.2, split=split),
+                         {"stats_logits": 1}, []),
+        "softmax_stats": (lambda: att.softmax_stats(rp, logits, split=split),
+                          {"softmax_stats": 1}, []),
+        "attn_agg": (lambda: att.attn_agg(rp, col, logits, mx, sm, x, split=split),
+                     {"attn_agg": 1}, []),
+        "sddmm": (lambda: att.sddmm(rp, col, x[:n].contiguous(), x, row), {"sddmm": 1}, []),
+        "rowsum": (lambda: att.rowsum(rp, logits, split=split), {"rowsum": 1}, []),
+    }[site]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("site", [
+    "row_reduce", "row_reduce_run", "bsr_spmm", "bsr_spmm (f32 tiles)", "bsr_spmm_f32",
+    "bsr_leg", "stats_logits", "softmax_stats", "attn_agg", "sddmm", "rowsum",
+])
+def test_a_launch_raises_its_own_counter_by_one(cuda_dev, site):
+    """One call of each launch site (K1's through each of its wrappers and
+    dtypes) raises its own counter by exactly one and no other counter (a
+    run launch also its chunks and tiles), and records its span: K2's
+    ``k2.launch``, K1's ``k1.launch``, the attention kernels none."""
+    from textgcn_tpu_torch.utils import profiling
+
+    call, moved, names = _site(site, cuda_dev)
+    call()  # the first call builds and loads the library
+    torch.cuda.synchronize()
+    before = _counters()
+    profiling.record_spans(True)
+    try:
+        call()
+        torch.cuda.synchronize()
+    finally:
+        spans = profiling.record_spans(False)
+    after = _counters()
+    assert {k: after[k] - before[k] for k in after if after[k] != before[k]} == moved
+    assert [s.name for s in spans] == names

@@ -14,6 +14,15 @@ and a stale library is never loaded. ``build(defines, srcs)`` builds a
 variant beside it (``scripts/sweep_kernels.py`` sets a kernel's constants
 with ``-D``), which :func:`open_library` loads; the port itself loads only
 the default library.
+
+Every wrapper of a hand kernel (K1 ``ops/bsr_spmm.py``, K2
+``ops/row_reduce.py``, the attention kernels ``ops/attention.py``) calls
+its kernel through two functions here: :func:`check`, which refuses a
+device without a kernel and tensors on another device, not contiguous or
+of another dtype, and :func:`launch`, which makes the call on the current
+stream, counts it on the wrapper, raises on a launch error and closes the
+wrapper's span. A wrapper keeps only its plain branch, its own shape and
+alignment terms, its outputs and its C argument list.
 """
 from __future__ import annotations
 
@@ -25,6 +34,10 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
+
+import torch
+
+from textgcn_tpu_torch.utils import profiling
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC.parent / "_build"
@@ -159,3 +172,46 @@ def check_launch(name: str, err: int) -> None:
     """Raise if a C entry point reported a CUDA error for its launch."""
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
+
+
+def check(name: str, device: torch.device, *named) -> None:
+    """Raise unless ``device`` is a CUDA device and each ``(key, tensor,
+    dtype)`` of ``named`` is a contiguous tensor on it of ``dtype``: a
+    ValueError for the device or the layout, a TypeError for the dtype. A
+    None tensor is skipped, and so is the dtype where it is None (the
+    wrapper checks it on its own terms)."""
+    if device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {device}")
+    for key, t, dtype in named:
+        if t is None:
+            continue
+        if t.device != device:
+            raise ValueError(f"{name}: {key} is on {t.device}, expected {device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {key} must be contiguous")
+        if dtype is not None and t.dtype != dtype:
+            raise TypeError(f"{name}: {key} must be {dtype}, got {t.dtype}")
+
+
+_SCALARS = (int, float, type(None))  # C arguments passed as they are
+
+
+def launch(name: str, counted, entry: str, device: torch.device, *args,
+           span: str = None, t0=0) -> None:
+    """Call C entry point ``entry`` with ``args`` (a tensor passes its
+    address) and the current stream of ``device``, under that device, and
+    count the launch in ``counted.launches``; raise for a CUDA error of the
+    launch, naming ``name``. ``t0`` is the ``time.time_ns()`` at which the
+    wrapper began, taken only while the span recorder is on (false
+    otherwise): the wrapper's span ``span`` is recorded from it to the
+    error check."""
+    fn = getattr(load(), entry)
+    args = [a if type(a) in _SCALARS else a.data_ptr() for a in args]
+    # the device's index: torch.cuda.device resolves an int in a fraction of
+    # the host time it takes to resolve a torch.device
+    with torch.cuda.device(device.index):
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    counted.launches += 1
+    check_launch(name, err)
+    if t0:
+        profiling.leaf(span, t0)

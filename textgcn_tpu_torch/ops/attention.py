@@ -44,7 +44,9 @@ order; per-row statistics are one float per row.
 
 Every wrapper runs its plain version for CPU tensors only; for CUDA tensors
 it launches its kernel (building the library on first use) or raises, and
-adds one to its ``.launches`` where it launches.
+adds one to its ``.launches`` where it launches, all through
+:func:`~textgcn_tpu_torch.ops._build.check` and
+:func:`~textgcn_tpu_torch.ops._build.launch`.
 
 Besides the two attention ops, two more differentiable ops of the JAX
 module take per-edge values in forward-CSR order (JAX: in plan slots):
@@ -63,7 +65,7 @@ import torch
 
 from textgcn_tpu_torch.ops import _build
 from textgcn_tpu_torch.ops.row_reduce import SEGMENT_EDGES, RowSplit, row_reduce, row_split
-from textgcn_tpu_torch.ops.split import check_split, record
+from textgcn_tpu_torch.ops.split import check_split, record, split_args
 
 _NEG = -1e30  # finite -inf stand-in: keeps max/exp arithmetic NaN-free
 VEC = 8  # bf16 columns per 16-byte load: feature widths are multiples of it
@@ -277,20 +279,6 @@ def rowsum_plain(row_ptr, v):
 # ---------------------------------------------------------------------------
 
 
-def _on_cuda(name, ref, *tensors, **typed):
-    """Raise unless every tensor is a contiguous tensor on ``ref``'s CUDA
-    device; ``typed`` maps names to (tensor, dtype) pairs to check too."""
-    if ref.device.type != "cuda":
-        raise ValueError(f"{name}: no kernel for device {ref.device}")
-    for key, (t, dtype) in typed.items():
-        if t.device != ref.device:
-            raise ValueError(f"{name}: {key} is on {t.device}, expected {ref.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: {key} must be contiguous")
-        if t.dtype != dtype:
-            raise TypeError(f"{name}: {key} must be {dtype}, got {t.dtype}")
-
-
 def _features(name, x, n_rows=None):
     """Check a bf16 feature table the kernels read as 16-byte vectors."""
     if x.dim() != 2 or x.shape[1] % VEC or x.data_ptr() % 16:
@@ -300,25 +288,6 @@ def _features(name, x, n_rows=None):
         )
     if n_rows is not None and x.shape[0] < n_rows:
         raise ValueError(f"{name}: features need >= {n_rows} rows, got {x.shape[0]}")
-
-
-def _stream():
-    return torch.cuda.current_stream().cuda_stream
-
-
-def _split_args(name, ref, split, width):
-    """``(table, partial, n_seg, n_long)`` for a kernel's C entry point:
-    nothing without a table; else the table (checked to lie on ``ref``'s
-    device) and an [n_seg, width] f32 scratch for the segments' partials."""
-    if split is None:
-        return None, None, 0, 0
-    _on_cuda(name, ref, split=(split.table, torch.int32))
-    partial = torch.empty(split.n_seg, width, dtype=torch.float32, device=ref.device)
-    return split.table, partial, split.n_seg, split.n_long
-
-
-def _ptr(t):
-    return None if t is None else t.data_ptr()
 
 
 def stats_logits(row_ptr, col, logval, es, ed, slope: float, split=None):
@@ -336,25 +305,18 @@ def stats_logits(row_ptr, col, logval, es, ed, slope: float, split=None):
     if es.device.type == "cpu":
         return stats_logits_plain(row_ptr, col, logval, es, ed, slope)
     i32, f32 = torch.int32, torch.float32
-    _on_cuda("stats_logits", es, row_ptr=(row_ptr, i32), col=(col, i32),
-             logval=(logval, f32), es=(es, f32), ed=(ed, f32))
+    _build.check("stats_logits", es.device, ("row_ptr", row_ptr, i32), ("col", col, i32),
+                 ("logval", logval, f32), ("es", es, f32), ("ed", ed, f32))
     n_rows = row_ptr.numel() - 1
     if es.numel() < n_rows or col.numel() != logval.numel():
         raise ValueError("stats_logits: es needs a value per row and logval one per edge")
     logits = torch.empty_like(logval)
     mx = torch.empty(n_rows, dtype=f32, device=es.device)
     sm = torch.empty_like(mx)
-    table, partial, n_seg, n_long = _split_args("stats_logits", es, split, 2)
-    lib = _build.load()
-    with torch.cuda.device(es.device):
-        err = lib.textgcn_attn_stats(
-            row_ptr.data_ptr(), col.data_ptr(), logval.data_ptr(), es.data_ptr(),
-            ed.data_ptr(), logits.data_ptr(), mx.data_ptr(), sm.data_ptr(),
-            _ptr(table), _ptr(partial), n_rows, float(slope), 1, n_seg, n_long,
-            _stream(),
-        )
-    stats_logits.launches += 1
-    _build.check_launch("stats_logits", err)
+    table, partial, n_seg, n_long = split_args("stats_logits", split, es.device, 2)
+    _build.launch("stats_logits", stats_logits, "textgcn_attn_stats", es.device,
+                  row_ptr, col, logval, es, ed, logits, mx, sm, table, partial, n_rows,
+                  float(slope), 1, n_seg, n_long)
     return logits, mx, sm
 
 
@@ -366,21 +328,15 @@ def softmax_stats(row_ptr, logits, split=None):
     check_split("softmax_stats", row_ptr, logits.numel(), split, RowSplit, SEGMENT_EDGES)
     if logits.device.type == "cpu":
         return softmax_stats_plain(row_ptr, logits)
-    _on_cuda("softmax_stats", logits, row_ptr=(row_ptr, torch.int32),
-             logits=(logits, torch.float32))
+    _build.check("softmax_stats", logits.device, ("row_ptr", row_ptr, torch.int32),
+                 ("logits", logits, torch.float32))
     n_rows = row_ptr.numel() - 1
     mx = torch.empty(n_rows, dtype=torch.float32, device=logits.device)
     sm = torch.empty_like(mx)
-    table, partial, n_seg, n_long = _split_args("softmax_stats", logits, split, 2)
-    lib = _build.load()
-    with torch.cuda.device(logits.device):
-        err = lib.textgcn_attn_stats(
-            row_ptr.data_ptr(), None, None, None, None, logits.data_ptr(),
-            mx.data_ptr(), sm.data_ptr(), _ptr(table), _ptr(partial), n_rows, 0.0,
-            0, n_seg, n_long, _stream(),
-        )
-    softmax_stats.launches += 1
-    _build.check_launch("softmax_stats", err)
+    table, partial, n_seg, n_long = split_args("softmax_stats", split, logits.device, 2)
+    _build.launch("softmax_stats", softmax_stats, "textgcn_attn_stats", logits.device,
+                  row_ptr, None, None, None, None, logits, mx, sm, table, partial, n_rows,
+                  0.0, 0, n_seg, n_long)
     return mx, sm
 
 
@@ -400,22 +356,16 @@ def attn_agg(row_ptr, col, logits, mx, sm, x, split=None):
     if x.device.type == "cpu":
         return attn_agg_plain(row_ptr, col, logits, mx, sm, x)
     i32, f32 = torch.int32, torch.float32
-    _on_cuda("attn_agg", x, row_ptr=(row_ptr, i32), col=(col, i32),
-             logits=(logits, f32), mx=(mx, f32), sm=(sm, f32),
-             x=(x, torch.bfloat16))
+    _build.check("attn_agg", x.device, ("row_ptr", row_ptr, i32), ("col", col, i32),
+                 ("logits", logits, f32), ("mx", mx, f32), ("sm", sm, f32),
+                 ("x", x, torch.bfloat16))
     _features("attn_agg", x)
     n_rows, f = row_ptr.numel() - 1, x.shape[1]
     out = torch.empty(n_rows, f, dtype=f32, device=x.device)
-    table, partial, n_seg, n_long = _split_args("attn_agg", x, split, f)
-    lib = _build.load()
-    with torch.cuda.device(x.device):
-        err = lib.textgcn_attn_agg(
-            row_ptr.data_ptr(), col.data_ptr(), logits.data_ptr(), mx.data_ptr(),
-            sm.data_ptr(), x.data_ptr(), out.data_ptr(), _ptr(table), _ptr(partial),
-            n_rows, f // VEC, n_seg, n_long, _stream(),
-        )
-    attn_agg.launches += 1
-    _build.check_launch("attn_agg", err)
+    table, partial, n_seg, n_long = split_args("attn_agg", split, x.device, f)
+    _build.launch("attn_agg", attn_agg, "textgcn_attn_agg", x.device,
+                  row_ptr, col, logits, mx, sm, x, out, table, partial, n_rows, f // VEC,
+                  n_seg, n_long)
     return out
 
 
@@ -431,8 +381,8 @@ def sddmm(row_ptr, col, g, x, row):
     if x.device.type == "cpu":
         return sddmm_plain(row_ptr, col, g, x)
     i32, bf16 = torch.int32, torch.bfloat16
-    _on_cuda("sddmm", x, row_ptr=(row_ptr, i32), col=(col, i32), row=(row, i32),
-             g=(g, bf16), x=(x, bf16))
+    _build.check("sddmm", x.device, ("row_ptr", row_ptr, i32), ("col", col, i32),
+                 ("row", row, i32), ("g", g, bf16), ("x", x, bf16))
     n_rows, n_edges = row_ptr.numel() - 1, col.numel()
     _features("sddmm", g, n_rows)
     _features("sddmm", x)
@@ -441,14 +391,8 @@ def sddmm(row_ptr, col, g, x, row):
     if row.numel() != n_edges:
         raise ValueError(f"sddmm: row has {row.numel()} entries for {n_edges} edges")
     u = torch.empty(n_edges, dtype=torch.float32, device=x.device)
-    lib = _build.load()
-    with torch.cuda.device(x.device):
-        err = lib.textgcn_sddmm(
-            row.data_ptr(), col.data_ptr(), g.data_ptr(), x.data_ptr(),
-            u.data_ptr(), n_edges, x.shape[1] // VEC, _stream(),
-        )
-    sddmm.launches += 1
-    _build.check_launch("sddmm", err)
+    _build.launch("sddmm", sddmm, "textgcn_sddmm", x.device,
+                  row, col, g, x, u, n_edges, x.shape[1] // VEC)
     return u
 
 
@@ -462,18 +406,13 @@ def rowsum(row_ptr, v, split=None):
     check_split("rowsum", row_ptr, v.numel(), split, RowSplit, SEGMENT_EDGES)
     if v.device.type == "cpu":
         return rowsum_plain(row_ptr, v)
-    _on_cuda("rowsum", v, row_ptr=(row_ptr, torch.int32), v=(v, torch.float32))
+    _build.check("rowsum", v.device, ("row_ptr", row_ptr, torch.int32),
+                 ("v", v, torch.float32))
     n_rows = row_ptr.numel() - 1
     out = torch.empty(n_rows, dtype=torch.float32, device=v.device)
-    table, partial, n_seg, n_long = _split_args("rowsum", v, split, 1)
-    lib = _build.load()
-    with torch.cuda.device(v.device):
-        err = lib.textgcn_rowsum(
-            row_ptr.data_ptr(), v.data_ptr(), out.data_ptr(), _ptr(table),
-            _ptr(partial), n_rows, n_seg, n_long, _stream(),
-        )
-    rowsum.launches += 1
-    _build.check_launch("rowsum", err)
+    table, partial, n_seg, n_long = split_args("rowsum", split, v.device, 1)
+    _build.launch("rowsum", rowsum, "textgcn_rowsum", v.device,
+                  row_ptr, v, out, table, partial, n_rows, n_seg, n_long)
     return out
 
 

@@ -73,7 +73,7 @@ from typing import Optional
 import torch
 
 from textgcn_tpu_torch.ops import _build
-from textgcn_tpu_torch.ops.split import TileSplit, build_split, check_split
+from textgcn_tpu_torch.ops.split import TileSplit, build_split, check_split, split_args
 from textgcn_tpu_torch.utils import profiling
 
 TILE = 128
@@ -115,20 +115,14 @@ def bsr_spmm_plain(tiles, tile_ptr, tile_col, x, split=None):
     return out.reshape(n_block_rows * bm, f)
 
 
-def _check(name, tiles, tile_ptr, tile_col, x):
-    dev = x.device
-    for key, t in (("tiles", tiles), ("tile_ptr", tile_ptr), ("tile_col", tile_col)):
-        if t.device != dev:
-            raise ValueError(f"{name}: {key} is on {t.device}, x on {dev}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: {key} must be contiguous")
+def _check_tiles(name, tiles, tile_ptr, tile_col, x):
+    """K1's own terms for its tiles and features (the seam checks devices,
+    layouts and the pointers' dtype)."""
     if tiles.dtype != x.dtype or tiles.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(
             f"{name}: the CUDA kernels take bf16 tiles with bf16 features or "
             f"f32 tiles with f32 features, got {tiles.dtype} and {x.dtype}"
         )
-    if tile_ptr.dtype != torch.int32 or tile_col.dtype != torch.int32:
-        raise TypeError(f"{name}: tile_ptr and tile_col must be int32")
     if tiles.dim() != 3 or tuple(tiles.shape[1:]) != (TILE, TILE):
         raise ValueError(f"{name}: tiles must be [T, {TILE}, {TILE}]")
     if tile_col.numel() != tiles.shape[0] or tile_ptr.numel() < 2:
@@ -155,32 +149,17 @@ def _run(wrapper, tiles, tile_ptr, tile_col, x, split):
     check_split(name, tile_ptr, tile_col.numel(), split, TileSplit, SEGMENT_TILES)
     if x.device.type == "cpu":
         return bsr_spmm_plain(tiles, tile_ptr, tile_col, x)
-    if x.device.type != "cuda":
-        raise ValueError(f"{name}: no kernel for device {x.device}")
-    _check(name, tiles, tile_ptr, tile_col, x)
+    _build.check(name, x.device, ("tiles", tiles, None), ("tile_ptr", tile_ptr, torch.int32),
+                 ("tile_col", tile_col, torch.int32))
+    _check_tiles(name, tiles, tile_ptr, tile_col, x)
     f32 = tiles.dtype == torch.float32
     n_block_rows, f = tile_ptr.numel() - 1, x.shape[1]
     out = torch.empty((n_block_rows * TILE, f), dtype=torch.float32, device=x.device)
-    if split is None:
-        table, partial, n_seg, n_long = None, None, 0, 0
-    else:
-        if split.table.device != x.device:
-            raise ValueError(f"{name}: split is on {split.table.device}, x on {x.device}")
-        table, n_seg, n_long = split.table, split.n_seg, split.n_long
-        partial = torch.empty((n_seg, TILE, f), dtype=torch.float32, device=x.device)
-    lib = _build.load()
-    entry = lib.textgcn_bsr_spmm_f32 if f32 else lib.textgcn_bsr_spmm
-    with torch.cuda.device(x.device):
-        err = entry(
-            tiles.data_ptr(), tile_ptr.data_ptr(), tile_col.data_ptr(),
-            x.data_ptr(), out.data_ptr(), None if table is None else table.data_ptr(),
-            None if partial is None else partial.data_ptr(), n_block_rows, f,
-            n_seg, n_long, torch.cuda.current_stream().cuda_stream,
-        )
-    (bsr_spmm_f32 if f32 else wrapper).launches += 1
-    _build.check_launch(name, err)
-    if t0:
-        profiling.leaf("k1.launch", t0)
+    table, partial, n_seg, n_long = split_args(name, split, x.device, TILE, f)
+    _build.launch(name, bsr_spmm_f32 if f32 else wrapper,
+                  "textgcn_bsr_spmm_f32" if f32 else "textgcn_bsr_spmm", x.device,
+                  tiles, tile_ptr, tile_col, x, out, table, partial, n_block_rows, f,
+                  n_seg, n_long, span="k1.launch", t0=t0)
     return out
 
 

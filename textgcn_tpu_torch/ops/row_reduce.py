@@ -66,7 +66,7 @@ from typing import Optional, Tuple
 import torch
 
 from textgcn_tpu_torch.ops import _build
-from textgcn_tpu_torch.ops.split import RowSplit, build_split, check_split
+from textgcn_tpu_torch.ops.split import RowSplit, build_split, check_split, split_args
 from textgcn_tpu_torch.utils import profiling
 
 # S: the most edges one warp walks; the kernel's compile-time constant
@@ -98,25 +98,6 @@ def row_reduce_plain(row_ptr, col, val, x, base=None, split=None):
         torch.arange(n_rows, device=x.device), torch.diff(row_ptr.long())
     )
     return out.index_add_(0, rows, val.float()[:, None] * x[col.long()].float())
-
-
-def _check(row_ptr, col, val, x, out, split):
-    dev = x.device
-    tensors = [("row_ptr", row_ptr), ("col", col), ("val", val), ("out", out)]
-    if split is not None:
-        tensors.append(("split", split.table))
-    for name, t in tensors:
-        if t.device != dev:
-            raise ValueError(f"row_reduce: {name} is on {t.device}, x on {dev}")
-        if not t.is_contiguous():
-            raise ValueError(f"row_reduce: {name} must be contiguous")
-    if row_ptr.dtype != torch.int32 or col.dtype != torch.int32:
-        raise TypeError("row_reduce: row_ptr and col must be int32")
-    if val.dtype != torch.float32 or out.dtype != torch.float32:
-        raise TypeError("row_reduce: val and base must be float32")
-    if col.numel() != val.numel():
-        raise ValueError("row_reduce: col and val must have one entry per edge")
-    _check_x_base("row_reduce", x, out, row_ptr.numel() - 1)
 
 
 def _check_x_base(name, x, out, n_rows):
@@ -156,30 +137,18 @@ def row_reduce(row_ptr, col, val, x, base=None, split=None):
     check_split("row_reduce", row_ptr, col.numel(), split, RowSplit, SEGMENT_EDGES)
     if x.device.type == "cpu":
         return row_reduce_plain(row_ptr, col, val, x, base)
-    if x.device.type != "cuda":
-        raise ValueError(f"row_reduce: no kernel for device {x.device}")
+    _build.check("row_reduce", x.device, ("row_ptr", row_ptr, torch.int32),
+                 ("col", col, torch.int32), ("val", val, torch.float32),
+                 ("base", base, torch.float32))
+    if col.numel() != val.numel():
+        raise ValueError("row_reduce: col and val must have one entry per edge")
     n_rows, f = row_ptr.numel() - 1, x.shape[1]
-    has_base = base is not None
-    out = base if has_base else torch.empty(n_rows, f, dtype=torch.float32, device=x.device)
-    _check(row_ptr, col, val, x, out, split)
-    if split is None:
-        table, partial, n_seg, n_long = None, None, 0, 0
-    else:
-        table, n_seg, n_long = split.table, split.n_seg, split.n_long
-        partial = torch.empty(n_seg, f, dtype=torch.float32, device=x.device)
-    lib = _build.load()
-    with torch.cuda.device(x.device):
-        err = lib.textgcn_row_reduce(
-            row_ptr.data_ptr(), col.data_ptr(), val.data_ptr(), x.data_ptr(),
-            out.data_ptr(), None if table is None else table.data_ptr(),
-            None if partial is None else partial.data_ptr(), n_rows, f,
-            int(has_base), n_seg, n_long,
-            torch.cuda.current_stream().cuda_stream,
-        )
-    row_reduce.launches += 1
-    _build.check_launch("row_reduce", err)
-    if t0:
-        profiling.leaf("k2.launch", t0)
+    out = torch.empty(n_rows, f, dtype=torch.float32, device=x.device) if base is None else base
+    _check_x_base("row_reduce", x, out, n_rows)
+    table, partial, n_seg, n_long = split_args("row_reduce", split, x.device, f)
+    _build.launch("row_reduce", row_reduce, "textgcn_row_reduce", x.device,
+                  row_ptr, col, val, x, out, table, partial, n_rows, f, int(base is not None),
+                  n_seg, n_long, span="k2.launch", t0=t0)
     return out
 
 
@@ -306,21 +275,13 @@ def row_reduce_run(run: ReduceRun, x, base):
         raise ValueError(f"row_reduce_run: x is on {x.device}, the run on {run.device}")
     if x.device.type == "cpu":
         return row_reduce_run_plain(run, x, base)
-    if x.device.type != "cuda":
-        raise ValueError(f"row_reduce_run: no kernel for device {x.device}")
+    _build.check("row_reduce_run", x.device)
     if base.device != x.device or base.dtype != torch.float32 or not base.is_contiguous():
         raise ValueError("row_reduce_run: base must be contiguous f32 on x's device")
     _check_x_base("row_reduce_run", x, base, run.r_end)
-    lib = _build.load()
-    with torch.cuda.device(x.device):
-        err = lib.textgcn_row_reduce_run(
-            run.table.data_ptr(), run.n_chunks, run.n_tiles, RUN_TILE_ROWS, x.data_ptr(),
-            base.data_ptr(), x.shape[1], torch.cuda.current_stream().cuda_stream,
-        )
-    row_reduce.launches += 1
+    _build.launch("row_reduce_run", row_reduce, "textgcn_row_reduce_run", x.device,
+                  run.table, run.n_chunks, run.n_tiles, RUN_TILE_ROWS, x, base, x.shape[1],
+                  span="k2.launch", t0=t0)
     row_reduce.batched_chunks += run.n_chunks
     row_reduce.run_tiles += run.n_tiles
-    _build.check_launch("row_reduce_run", err)
-    if t0:
-        profiling.leaf("k2.launch", t0)
     return base

@@ -21,7 +21,8 @@ container records the same fingerprint on its pointer tensor
 its pointer tensor's (:func:`check_split`). That reads two host integers,
 with no device sync; only a device pointer tensor that no container
 recorded (one a caller built by hand) is copied to the host once, on its
-first check, and the result kept on the tensor.
+first check, and the result kept on the tensor. :func:`split_args` turns a
+checked table into the four arguments the kernels' C entry points take.
 """
 from __future__ import annotations
 
@@ -31,6 +32,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from textgcn_tpu_torch.ops import _build
 
 _TAG = "_textgcn_csr_fingerprint"  # (tensor version, fingerprint) on a tensor
 
@@ -179,3 +182,16 @@ def check_split(name: str, ptr: torch.Tensor, n_items: int, split, cls, seg_len:
             f"counts ({split.n_rows} rows, {split.n_edges} edges): its row "
             "pointer's fingerprint differs"
         )
+
+
+def split_args(name: str, split, device: torch.device, *width):
+    """``(table, partial, n_seg, n_long)`` for a kernel's C entry point on
+    ``device``: ``(None, None, 0, 0)`` without a table; else the table
+    (refused unless a contiguous int32 tensor on ``device``, naming the
+    wrapper ``name``) and a new [n_seg, *width] f32 tensor for the
+    segments' partials."""
+    if split is None:
+        return None, None, 0, 0
+    _build.check(name, device, ("split", split.table, torch.int32))
+    partial = torch.empty((split.n_seg, *width), dtype=torch.float32, device=device)
+    return split.table, partial, split.n_seg, split.n_long
